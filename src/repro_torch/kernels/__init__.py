@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for the solver's evaluators (Hopper, sm_90a).
+
+Each kernel module holds the ctypes launcher of one ``csrc/*.cu`` source
+and the plain PyTorch version beside it; ``ops.py`` holds the public
+wrappers and their launch counters; ``solver_backends.py`` registers the
+kernels as the engine's ``"hopper"`` backend (imported lazily).
+
+  multi_count.py         K2  one-round multi-threshold count
+  runahead_threshold.py  K3  fused multi-round top-k solve
+  multi_mass.py          K4  one-round multi-threshold mass (top-p)
+  multi_entropy.py       K5  one-round multi-temperature entropy moments
+"""

@@ -1,0 +1,97 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips where torch sees no CUDA device.  On a
+GPU machine run ``python -m pytest -m cuda tests/test_torch_cuda.py``
+(this file imports no JAX).  K2 and K3 must match exactly; K4 and K5
+within rtol=1e-5, atol=1e-6 (f32 sums in another order) and bit for bit
+from one run to the next.
+"""
+import pytest
+import torch
+
+from repro_torch.core import solver
+from repro_torch.kernels import multi_count as mc
+from repro_torch.kernels import multi_entropy as me
+from repro_torch.kernels import multi_mass as mm
+from repro_torch.kernels import ops
+from repro_torch.kernels import runahead_threshold as rt
+
+pytestmark = pytest.mark.cuda
+SHAPES = [(1, 1, 1), (3, 257, 31), (2, 1000, 1), (4, 4099, 70)]
+TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _inputs(gen, B, V, M):
+    x = torch.randn((B, V), generator=gen, device="cuda") * 2.0
+    t = torch.randn((B, M), generator=gen, device="cuda") * 2.0
+    t[:, 0] = x[:, 0]
+    return x, t
+
+
+@pytest.mark.parametrize("B,V,M", SHAPES)
+def test_multi_count(gen, B, V, M):
+    x, t = _inputs(gen, B, V, M)
+    assert torch.equal(mc.multi_count_cuda(x, t), mc.multi_count_plain(x, t))
+    # strided candidate rows, as the engine passes grid[:, 1:-1]
+    grid = torch.randn((B, M + 2), generator=gen, device="cuda")
+    assert torch.equal(mc.multi_count_cuda(x, grid[:, 1:-1]),
+                       mc.multi_count_plain(x, grid[:, 1:-1]))
+
+
+@pytest.mark.parametrize("B,V,M", SHAPES)
+def test_multi_mass(gen, B, V, M):
+    x, _ = _inputs(gen, B, V, M)
+    p = torch.softmax(x, dim=-1)
+    t = torch.rand((B, M), generator=gen, device="cuda") * p.amax()
+    got = mm.multi_mass_cuda(p, t)
+    assert torch.equal(got, mm.multi_mass_cuda(p, t))
+    torch.testing.assert_close(got, mm.multi_mass_plain(p, t), **TOL)
+
+
+@pytest.mark.parametrize("B,V,M", SHAPES)
+def test_multi_entropy_moments(gen, B, V, M):
+    x, _ = _inputs(gen, B, V, M)
+    z = x - x.amax(dim=-1, keepdim=True)
+    ts = torch.rand((B, M), generator=gen, device="cuda") * 5.0 + 0.05
+    got = me.multi_entropy_moments_cuda(z, ts)
+    again = me.multi_entropy_moments_cuda(z, ts)
+    for g, a, w in zip(got, again, me.multi_entropy_moments_plain(z, ts)):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.parametrize("B,V,M", SHAPES)
+@pytest.mark.parametrize("k_target,rounds,spec_k", [(1, 8, 5), (40, 3, 8),
+                                                    (7, 10, 1)])
+def test_runahead_topk(gen, B, V, M, k_target, rounds, spec_k):
+    x, _ = _inputs(gen, B, V, M)
+    kw = dict(k_target=k_target, rounds=rounds, spec_k=spec_k)
+    got = rt.runahead_topk_threshold_cuda(x, **kw)
+    want = rt.runahead_topk_threshold_plain(x, **kw)
+    prob = solver.problem("count_above", x, backend="hopper", k=k_target)
+    loop = solver._solve_rounds(prob.multi_eval, prob.lo0, prob.hi0,
+                                rounds=rounds, spec_k=spec_k)
+    for g, w, l in zip(got, want, loop):
+        assert torch.equal(g, w) and torch.equal(g, l)
+
+
+def test_wrappers_count_launches_and_refuse_bad_input(gen):
+    x, t = _inputs(gen, 2, 300, 5)
+    ops.reset_launches()
+    ops.multi_count(x, t)
+    ops.runahead_topk_threshold(x, k_target=3, rounds=2, spec_k=3)
+    assert ops.LAUNCHES["multi_count"] == 1
+    assert ops.LAUNCHES["runahead_topk_threshold"] == 1
+    with pytest.raises(ValueError, match="spec_k"):
+        rt.runahead_topk_threshold_cuda(x, k_target=3, spec_k=9)
+    with pytest.raises(ValueError, match="float32"):
+        mc.multi_count_cuda(x.double(), t)
+    with pytest.raises(ValueError, match="column stride"):
+        mc.multi_count_cuda(x.t(), t)
