@@ -7,35 +7,57 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
      TF32 is switched off for matmuls and cuDNN.
   2. the kernel build: every csrc/*.cu through nvcc, in parallel, timed.
-  3. each kernel (K2-K5) against its plain PyTorch version on the card, at
-     the sampler's shapes (B=4, V=151936, M=31 and M=1) and at ragged V
-     (1000, 257): K2 and K3 bit for bit (K3 also against the generic
-     engine loop over K2), K4 and K5 within rtol 1e-5 / atol 1e-6 and bit
-     for bit run to run; device time per call (CUDA-graph replay between
-     CUDA events, L2-warm) and time per eager call, beside the least time
-     the card could take and, for K3, torch.topk's time; K2, K4 and K5 also
-     at M=1, the engine's bracket-sign probe.
+  3. each kernel against its plain PyTorch version on the card, at its
+     path's shapes: K2-K5 at the sampler's (B=4, V=151936, M=31 and M=1)
+     and at ragged V (1000, 257): K2 and K3 bit for bit (K3 also against
+     the generic engine loop over K2), K4 and K5 within rtol 1e-5 / atol
+     1e-6 and bit for bit run to run; K1 at M in {1, 7, 31} and terms in
+     {10, 10**4}, bit for bit; K6 at the served decode shape (B=4, n_kv=8,
+     n_rep=4, head_dim 128, page 16, the chain of a 544-token context,
+     L=1) and at L=3 with a page size that does not divide the context
+     and a wrapped row, f32 within 1e-5 and bf16 within 1e-2 (compared in
+     f32), bit for bit run to run.  Each row: device time per call
+     (CUDA-graph replay between CUDA events, L2-warm), time per eager call,
+     the plain version's time, the least time the card could take and,
+     where one PyTorch call computes the same function, its time.
   4. one solve per kind on the "hopper" backend under
      torch.cuda.set_sync_debug_mode("error") (the round loop never syncs),
      including count_above with a (B,) k tensor, which runs K2 through the
      engine; brackets against the "torch" backend.
-  5. the main path: repro_torch.launch.serve (setup, then run, as its
-     main does) for qwen3-4b at full width (36 layers, d_model 2560, vocab
-     151936; random bf16 weights from a seed), 4 x 16 tokens sampled with
-     top-k 40, top-p 0.9 and target entropy 3.0 on the "hopper" backend;
-     the launch counters must show K3 once per token and K4, K5 nine times
-     per token.
+  5. the one-shot serving path: repro_torch.launch.serve (setup, then run,
+     as its main does) for qwen3-4b at full width (36 layers, d_model
+     2560, vocab 151936; random bf16 weights from a seed), 4 x 16 tokens
+     sampled with top-k 40, top-p 0.9 and target entropy 3.0 on the
+     "hopper" backend; the launch counters must show K3 once per token and
+     K4, K5 nine times per token.
   6. a reference check: the sampler's masked logits on both backends, and
      greedy generate on reduced qwen3-4b, "hopper" against "torch".
-  7. the main path's serve.run on phase 5's session again, warm, timed,
-     and once more under torch.profiler (device busy time, idle share, top
-     kernels).
+  7. phase 5's serve.run on its session again, warm, timed, and once more
+     under torch.profiler (device busy time, idle share, top kernels).
+  8. the paper path: repro_torch.launch.paper (its main, in-process): the
+     Fig. 4 sweep (terms 10**4, n=24, k=1..5) and the Fig. 7 sweep (n=6,
+     k=3, terms 10..5000) through K1, every runahead root equal to the
+     serial root bit for bit; then one serial and one runahead solve per
+     k under set_sync_debug_mode("error"), with K1 launched n + 1 and
+     ceil(n/k) + 1 times.
+  9. the continuous path: repro_torch.launch.serve --continuous for
+     qwen3-4b at full width, 8 requests (prompt 512, up to 32 new tokens)
+     over 4 slots on a paged cache (page 16) through K6 and the sampler
+     kernels: every request served, K6 launched 36 times per decode step,
+     K3 once and K4, K5 nine times per sample; tok/s, latency, host syncs
+     per step; a second run under torch.profiler; three decode steps of a
+     fresh server under set_sync_debug_mode("error") with the once-per-step
+     token read outside that window.
+ 10. a reference check of the continuous path on reduced qwen3-4b (f32,
+     prompts screened for greedy ties): paged K6 streams equal paged
+     gather streams and the one-shot stream of every request.
 
 The line before the last is a JSON object listing the kernels, each with
 the path its launch count was read on ("serve": phase 5; "solves": phase
-4, for K2, which the static-k serve does not launch); the last
-line is {"ok": true, "device": {...}}.  Nothing is printed as a result when
-torch sees no CUDA device or the port's sources are not beside this file.
+4, for K2, which the static-k serve does not launch; "paper": phase 8;
+"continuous": phase 9); the last line is {"ok": true, "device": {...}}.
+Nothing is printed as a result when torch sees no CUDA device or the
+port's sources are not beside this file.
 """
 from __future__ import annotations
 
@@ -50,10 +72,23 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-6)
 PATH_B, PATH_V, PATH_M = 4, 151936, 31
+SAMPLER_ARGV = ["--top-k", "40", "--top-p", "0.9", "--target-entropy", "3.0",
+                "--backend", "hopper"]
 SERVE_ARGV = ["--arch", "qwen3-4b", "--batch", "4", "--prompt-len", "64",
-              "--new-tokens", "16", "--top-k", "40", "--top-p", "0.9",
-              "--target-entropy", "3.0", "--backend", "hopper"]
+              "--new-tokens", "16"] + SAMPLER_ARGV
 NEW_TOKENS = 16
+CONT_ARGV = ["--arch", "qwen3-4b", "--continuous", "--requests", "8",
+             "--slots", "4", "--arrival-burst", "2", "--prompt-len", "512",
+             "--new-tokens", "32", "--page-size", "16", "--page-impl",
+             "hopper"] + SAMPLER_ARGV
+K1_TERMS = 10_000                 # the paper's term count
+# K6 at the served decode shape: B=4 slots, n_kv=8, n_rep=4, head_dim 128,
+# page 16, the 34-page chain of a 512 + 32 token context
+K6_PATH = dict(B=4, nkv=8, nq=32, hd=128, P=16, C=544, L=1,
+               pos=[520, 529, 537, 543])
+# L=3, a page size that does not divide the context, the last row wrapped
+K6_EDGE = dict(B=3, nkv=8, nq=32, hd=128, P=16, C=100, L=3,
+               pos=[40, 96, 130])
 
 
 def check(cond, msg: str) -> None:
@@ -270,16 +305,134 @@ def phase_kernels(gen):
         bound=bound_ms(4 * (z.numel() + 3 * ts.numel()),
                        5 * z.numel() * PATH_M), library_ms=None)
 
+    rows["runahead_topk_threshold"]["library"] = "torch.topk"
+    rows.update(_rows_k1(gen))
+    rows.update(_rows_k6(gen))
     for name, r in rows.items():
         say(f"phase 3 {name}: parity ok (max_abs_err {r['max_abs_err']:.3g}) "
             f"| device {r['ms']:.4f} ms per call ({r['call_ms']:.4f} ms with "
             f"the host's launch), plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound'][0]:.5f} ms ({r['bound'][1]})"
-            + (f", torch.topk {r['library_ms']:.4f} ms"
+            f"{r['bound'][0]:.6f} ms ({r['bound'][1]})"
+            + (f", {r['library']} {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
             + (f" | M=1 probe device {r['probe_ms']:.4f} ms"
-               if "probe_ms" in r else ""))
+               if "probe_ms" in r else "")
+            + (f" | {r['note']}" if "note" in r else ""))
     return rows
+
+
+def _rows_k1(gen):
+    """K1 against its plain version, bit for bit, at every point count a
+    runahead round of the paper path uses (1 serial, up to 31 at k=5)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import taylor_eval as te
+
+    for M in (1, 7, 31):
+        for terms in (10, K1_TERMS):
+            x = torch.rand((M,), generator=gen, device="cuda") + 1.0
+            got = te.taylor_sincos_cuda(x, terms=terms)
+            check(torch.equal(got, te.taylor_sincos_plain(x, terms=terms)),
+                  f"K1 differs from its plain version at M={M}, "
+                  f"terms={terms}")
+    x = torch.rand((31,), generator=gen, device="cuda") + 1.0
+    x1 = x[:1].clone()
+    # the dependent chain: per term and recurrence a multiply, a division,
+    # an add and the two-operation denominator
+    n_ops = 5 * 2 * (K1_TERMS - 1) * x.numel()
+    ms = device_ms(lambda: ops.taylor_sincos_eval(x, terms=K1_TERMS), calls=5)
+    ms1 = device_ms(lambda: ops.taylor_sincos_eval(x1, terms=K1_TERMS),
+                    calls=5)
+    return {"taylor_sincos_eval": dict(
+        source="src/repro_torch/kernels/csrc/taylor_eval.cu",
+        replaces="src/repro/kernels/taylor_eval.py:61", max_abs_err=0.0,
+        ms=ms, call_ms=call_ms(
+            lambda: ops.taylor_sincos_eval(x, terms=K1_TERMS), reps=5),
+        plain_ms=device_ms(lambda: te.taylor_sincos_plain(x, terms=K1_TERMS),
+                           calls=1, reps=3),
+        bound=bound_ms(8 * x.numel(), n_ops), library_ms=None,
+        note=f"M=31, terms={K1_TERMS}: {ms / (2 * (K1_TERMS - 1)) * 1e6:.2f} "
+             f"ns per dependent term; M=1 (a serial step) device "
+             f"{ms1:.4f} ms")}
+
+
+def _k6_inputs(gen, shape, dtype):
+    """Random pools, a table of distinct page ids (0 is the null page and
+    is never named), positions and roped-like queries for K6."""
+    import torch
+
+    B, P, C, L = shape["B"], shape["P"], shape["C"], shape["L"]
+    chain = -(-C // P)
+    n_pages = B * chain + 1
+    pool = [torch.randn((n_pages, P, shape["nkv"], shape["hd"]),
+                        generator=gen, device="cuda").to(dtype)
+            for _ in range(2)]
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm[:B * chain].reshape(B, chain).int()
+    pos = torch.tensor(shape["pos"], dtype=torch.int32, device="cuda")
+    q = torch.randn((B, L, shape["nq"], shape["hd"]), generator=gen,
+                    device="cuda").to(dtype)
+    return pool[0], pool[1], table, pos, q
+
+
+def _rows_k6(gen):
+    """K6 against its plain version at the served decode shape and at the
+    edge shape, f32 and bf16 pools; timed at the served shape in bf16."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attend as pa
+    from repro_torch.models.attention import _paged_slot_mask, paged_view
+
+    err = 0.0
+    for shape in (K6_PATH, K6_EDGE):
+        for dtype, tol in ((torch.float32, dict(rtol=1e-5, atol=1e-5)),
+                           (torch.bfloat16, dict(rtol=1e-2, atol=1e-2))):
+            args = _k6_inputs(gen, shape, dtype)
+            got = pa.paged_attend_cuda(*args, context=shape["C"])
+            check(torch.equal(got, pa.paged_attend_cuda(
+                *args, context=shape["C"])),
+                  f"K6 not bit-stable at {shape}, {dtype}")
+            want = pa.paged_attend_plain(*args, context=shape["C"])
+            check(torch.allclose(got.float(), want.float(), **tol),
+                  f"K6 differs from its plain version at {shape}, {dtype}")
+            err = max(err, (got.float() - want.float()).abs().max().item())
+    sh = K6_PATH
+    pk, pv, table, pos, q = args = _k6_inputs(gen, sh, torch.bfloat16)
+    C, P = sh["C"], sh["P"]
+    # the pages this run's data needs: those holding positions <= pos + L-1
+    pages = sum(min(table.shape[1], -(-(p + sh["L"]) // P))
+                for p in sh["pos"])
+    page_bytes = P * sh["nkv"] * sh["hd"] * 2 * 2           # K and V, bf16
+    n_bytes = 2 * q.numel() * 2 + pages * page_bytes
+    n_ops = 4 * sh["L"] * sh["nq"] * sh["hd"] * sum(
+        min(C, p + sh["L"]) for p in sh["pos"])
+    # the yardstick: SDPA over the already-gathered dense view, same mask
+    # (the gather is not timed)
+    k = paged_view(pk, table, C).transpose(1, 2)            # (B,nkv,C,hd)
+    v = paged_view(pv, table, C).transpose(1, 2)
+    pgrid = pos.long()[:, None] + torch.arange(sh["L"], device="cuda")
+    mask = _paged_slot_mask(pgrid, C)[:, None]              # (B,1,L,C)
+    qs = q.transpose(1, 2)                                  # (B,nq,L,hd)
+    rep = sh["nq"] // sh["nkv"]
+    kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qs, kr, vr, attn_mask=mask, scale=1.0 / math.sqrt(sh["hd"]))
+    return {"paged_attend": dict(
+        source="src/repro_torch/kernels/csrc/paged_attend.cu",
+        replaces="src/repro/kernels/paged_attend.py:131", max_abs_err=err,
+        ms=device_ms(lambda: ops.paged_attend(*args, context=C)),
+        call_ms=call_ms(lambda: ops.paged_attend(*args, context=C)),
+        plain_ms=device_ms(lambda: pa.paged_attend_plain(*args, context=C),
+                           calls=2),
+        bound=bound_ms(n_bytes, n_ops), library_ms=device_ms(sdpa),
+        library="F.scaled_dot_product_attention (gathered view, gather "
+                "not timed)",
+        note=f"{pages} pages read, {n_bytes / 1e6:.2f} MB")}
 
 
 def phase_solves(gen):
@@ -318,8 +471,10 @@ def phase_solves(gen):
             check(torch.allclose(lo, rlo, rtol=1e-4, atol=1e-6)
                   and torch.allclose(hi, rhi, rtol=1e-4, atol=1e-6),
                   f"{kind} bracket differs from the torch backend")
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel did not run in the solves: {launches}")
+    solver_kernels = ("multi_count", "runahead_topk_threshold", "multi_mass",
+                      "multi_entropy_moments")
+    check(all(launches[name] > 0 for name in solver_kernels),
+          f"a solver kernel did not run in the solves: {launches}")
     say(f"phase 4 solves: {len(cases)} hopper solves with no host sync, "
         f"brackets match the torch backend | launches {launches}")
     return launches
@@ -389,37 +544,250 @@ def phase_reference(gen):
         f"streams equal")
 
 
-def phase_warm(session):
-    """The main path's serve.run on phase 5's session again, warm (nothing
-    built or loaded for the first time), then once more under
-    torch.profiler: device busy time and idle share, and the kernels that
-    take the most device time."""
+def profiled(run):
+    """run() under torch.profiler: (its result, device busy ms, wall ms
+    traced, the device kernels' key averages)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch import serve
-
-    warm_s = serve.run(session).seconds
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        traced_s = serve.run(session).seconds
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    n_tok = session.args.batch * session.args.new_tokens
-    say(f"phase 7 warm serve: {n_tok} tokens in {warm_s:.3f}s = "
-        f"{n_tok / warm_s:.1f} tok/s on {torch.cuda.get_device_name(0)}")
+    return out, busy_ms, wall_ms, kernels
+
+
+def say_profile(phase: str, busy_ms: float, wall_ms: float, kernels,
+                per: str = "") -> None:
     if not kernels:
-        say("phase 7 profile: the profiler recorded no device time "
+        say(f"{phase} profile: the profiler recorded no device time "
             "(not measured)")
         return
-    say(f"phase 7 profile: device busy {busy_ms:.1f} ms of {traced_s * 1e3:.1f}"
-        f" ms traced wall (idle share {1 - busy_ms / (traced_s * 1e3):.3f}); "
-        f"{sum(e.count for e in kernels)} kernel launches")
+    say(f"{phase} profile: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
+        f"traced wall (idle share {1 - busy_ms / wall_ms:.3f}); "
+        f"{sum(e.count for e in kernels)} kernel launches{per}")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                     reverse=True)[:8]:
         say(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
+
+
+def phase_warm(session):
+    """The one-shot serve.run on phase 5's session again, warm (nothing
+    built or loaded for the first time), then once more under
+    torch.profiler: device busy time and idle share, and the kernels that
+    take the most device time."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    warm_s = serve.run(session).seconds
+    _, busy_ms, wall_ms, kernels = profiled(lambda: serve.run(session))
+    n_tok = session.args.batch * session.args.new_tokens
+    say(f"phase 7 warm serve: {n_tok} tokens in {warm_s:.3f}s = "
+        f"{n_tok / warm_s:.1f} tok/s on {torch.cuda.get_device_name(0)}")
+    say_profile("phase 7", busy_ms, wall_ms, kernels)
+
+
+def phase_paper():
+    """launch.paper's main on the card, then one serial and one runahead
+    solve per k with host syncs forbidden, counting K1's launches."""
+    import torch
+
+    from repro_torch.core.bisect import find_root_serial
+    from repro_torch.core.runahead import find_root_runahead
+    from repro_torch.kernels import ops
+    from repro_torch.launch import paper
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rows = paper.main([])
+    launches = dict(ops.LAUNCHES)
+    check(launches["taylor_sincos_eval"] > 0 and sum(launches.values())
+          == launches["taylor_sincos_eval"],
+          f"the paper path did not run through K1 alone: {launches}")
+    for fig in ("fig4", "fig7"):
+        say(f"phase 8 paper {fig}: terms, n, k, threads, rounds, serial ms, "
+            f"runahead ms, speed-up (round-count ideal)")
+        for r in rows:
+            if r.fig == fig:
+                say(f"  {r.terms:6d} {r.n:3d} {r.k:2d} {2 ** r.k - 1:3d} "
+                    f"{r.rounds:3d} {r.serial_ms:9.3f} {r.runahead_ms:9.3f} "
+                    f"{r.speedup:6.2f}x ({r.n / r.rounds:.2f}x)")
+    f = paper.evaluator(K1_TERMS)
+    a, b = paper.interval("cuda")
+    n = paper.FIG4_N
+    counts = []
+    for k in (None,) + paper.FIG4_KS:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            root = (find_root_serial(f, a, b, n, "signbit") if k is None
+                    else find_root_runahead(f, a, b, n, k))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = ops.LAUNCHES["taylor_sincos_eval"]
+        want = n + 1 if k is None else -(-n // k) + 1
+        check(got == want, f"K1 launched {got} times in a solve at k={k}, "
+                           f"expected {want}")
+        check(root.item() == rows[0].root, f"root differs at k={k}")
+        counts.append(got)
+    say(f"phase 8 paper: runahead == serial bit for bit at every (terms, k); "
+        f"no host sync in the solves; K1 launches per solve, serial then "
+        f"k=1..5: {counts} | launches {launches}")
+    return launches
+
+
+def phase_continuous():
+    """launch.serve --continuous at full width on a paged cache through
+    K6: counts, timings, a profiled second run, and sync-free steps."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    session = serve.setup(CONT_ARGV)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    served = serve.run_continuous(session)
+    launches = dict(ops.LAUNCHES)
+    s = served.scheduler
+    n_layers = session.cfg.n_layers
+    n_samples = s.n_decode_steps + s.n_admissions
+    check(len(served.completions) == 8, "not every request was served")
+    check(launches["paged_attend"] == n_layers * s.n_decode_steps,
+          f"K6 launched {launches['paged_attend']} times for "
+          f"{s.n_decode_steps} decode steps of {n_layers} layers")
+    check(launches["runahead_topk_threshold"] == n_samples
+          and launches["multi_mass"] == 9 * n_samples
+          and launches["multi_entropy_moments"] == 9 * n_samples,
+          f"the samples did not go through K3-K5 as expected "
+          f"({n_samples} samples): {launches}")
+    n_tok = sum(len(c.tokens) for c in served.completions)
+    lat = sorted(c.latency_s for c in served.completions)
+    say(f"phase 9 continuous: qwen3-4b full width, 8 requests / {n_tok} "
+        f"tokens in {served.seconds:.3f}s = {n_tok / served.seconds:.1f} "
+        f"tok/s on {torch.cuda.get_device_name(0)} (first run) | "
+        f"{s.n_decode_steps} decode steps, {s.n_admissions} admissions, "
+        f"{s.n_host_syncs} host syncs ({s.n_host_syncs / s.n_decode_steps:.2f}"
+        f" per step) | latency p50 {lat[len(lat) // 2] * 1e3:.0f} ms, max "
+        f"{lat[-1] * 1e3:.0f} ms | peak {s.peak_pages} pages | launches "
+        f"{launches}")
+
+    warm = serve.run_continuous(session)
+    n_tok = sum(len(c.tokens) for c in warm.completions)
+    lat = sorted(c.latency_s for c in warm.completions)
+    p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+    say(f"phase 9 continuous warm: {n_tok} tokens in {warm.seconds:.3f}s = "
+        f"{n_tok / warm.seconds:.1f} tok/s, {warm.scheduler.n_decode_steps} "
+        f"steps ({warm.seconds / warm.scheduler.n_decode_steps * 1e3:.1f} ms "
+        f"per step incl. admissions), latency p50 "
+        f"{lat[len(lat) // 2] * 1e3:.0f} ms p99 {p99 * 1e3:.0f} ms")
+    traced, busy_ms, wall_ms, kernels = profiled(
+        lambda: serve.run_continuous(session))
+    say_profile("phase 9", busy_ms, wall_ms, kernels,
+                f"; {traced.scheduler.n_decode_steps} decode steps")
+
+    # the device part of a step never syncs; the token read stays outside
+    server = serve.server_for(session)
+    for r in serve.continuous_requests(session.cfg, session.args,
+                                       session.sampler)[:4]:
+        server.submit(r)
+    server._admit_pending()
+    sched = server.scheduler
+    for _ in range(3):
+        sched._ensure_step_args()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            nxt = sched.step_device()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sched.commit(nxt)
+    say("phase 9 continuous: 3 paged decode steps (K6, sample_slots) ran "
+        "under set_sync_debug_mode('error'); one token read per step")
+    return launches
+
+
+def _screened_prompts(cfg, params, n: int, S: int, n_new: int, gen):
+    """n prompts of S tokens whose greedy one-shot streams keep a top-1 /
+    top-2 logit gap above 1e-2 at every step (f32: far above the 1e-5 by
+    which the paged paths may differ)."""
+    import torch
+
+    from repro_torch.models.decode import decode_step, prefill
+
+    cand = torch.randint(0, cfg.vocab, (4 * n, S), generator=gen,
+                         device="cuda")
+    logits, cache = prefill(cfg, params, cand, S + n_new,
+                            compute_dtype=torch.float32)
+    ok = torch.ones(cand.shape[0], dtype=torch.bool, device="cuda")
+    for i in range(n_new):
+        top2 = logits.topk(2, dim=-1).values
+        ok &= top2[:, 0] - top2[:, 1] > 1e-2
+        if i < n_new - 1:
+            logits, cache = decode_step(cfg, params, logits.argmax(-1), S + i,
+                                        cache, compute_dtype=torch.float32)
+    rows = ok.nonzero()[:, 0].tolist()[:n]
+    check(len(rows) == n, f"only {len(rows)} screened prompts")
+    return cand[rows].tolist()
+
+
+def phase_continuous_reference(gen):
+    """On reduced qwen3-4b (f32, the unembedding sharpened toward a fixed
+    successor token to widen greedy margins, prompts screened for ties):
+    paged continuous streams through K6 equal those through the gather,
+    and each equals its request's one-shot stream."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.testing import reduced_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.serving.server import (
+        Request,
+        RunaheadServer,
+        generate_oneshot_reference,
+    )
+
+    cfg = reduced_config("qwen3-4b")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, g, torch.float32)
+    perm = torch.randperm(cfg.vocab_padded, generator=g, device="cuda")
+    params["unembed"] = params["unembed"] + 2.0 * params["embed"][perm].T
+    context, n_new = 24, [5, 3, 1, 7, 4, 6]
+    prompts = _screened_prompts(cfg, params, len(n_new), 6, max(n_new), g)
+    reqs = [Request(i, p, n_new[i], seed=i,
+                    sampler=SamplerConfig(greedy=True), arrival=i // 2)
+            for i, p in enumerate(prompts)]
+    streams = {}
+    for impl in ("hopper", "gather"):
+        ops.reset_launches()
+        srv = RunaheadServer(cfg, params, n_slots=2, context=context,
+                             page_size=5, page_impl=impl,
+                             cache_dtype=torch.float32,
+                             compute_dtype=torch.float32)
+        streams[impl] = {c.rid: c.tokens for c in srv.run(reqs)}
+        check((ops.LAUNCHES["paged_attend"] > 0) == (impl == "hopper"),
+              f"K6 launches with impl {impl}: {ops.LAUNCHES}")
+    check(streams["hopper"] == streams["gather"],
+          "paged K6 streams differ from the gather's")
+    for r in reqs:
+        one = generate_oneshot_reference(cfg, params, r, context=context,
+                                         compute_dtype=torch.float32)
+        check(streams["hopper"][r.rid] == one,
+              f"request {r.rid}: continuous {streams['hopper'][r.rid]} != "
+              f"one-shot {one}")
+    say(f"phase 10 continuous reference: reduced qwen3-4b, {len(reqs)} "
+        f"screened greedy requests on 2 slots, page 5: K6 streams == gather "
+        f"streams == one-shot per request; first tokens "
+        f"{[streams['hopper'][r.rid][:3] for r in reqs]}")
 
 
 def main() -> int:
@@ -442,14 +810,21 @@ def main() -> int:
     serve_launches, session = phase_serve()
     phase_reference(gen)
     phase_warm(session)
+    del session
+    launches_by_path = {"solves": solve_launches, "serve": serve_launches,
+                        "paper": phase_paper(),
+                        "continuous": phase_continuous()}
+    phase_continuous_reference(gen)
 
+    # the path whose run each kernel's launch count is read on: K2 is not
+    # on the static-k serving path (phase 4's engine solves launch it)
+    paths = {"taylor_sincos_eval": "paper", "multi_count": "solves",
+             "paged_attend": "continuous"}
     kernels = []
     for name, r in rows.items():
-        # K2 is not on the static-k serving path; its launches are the
-        # engine solves' of phase 4
-        path = "solves" if name == "multi_count" else "serve"
-        launches = (solve_launches if path == "solves"
-                    else serve_launches)[name]
+        path = paths.get(name, "serve")
+        launches = launches_by_path[path][name]
+        check(launches > 0, f"{name} was not launched on its path {path}")
         kernels.append(dict(
             name=name, route="cuda", source=r["source"],
             replaces=r["replaces"], path=path, launches=launches,

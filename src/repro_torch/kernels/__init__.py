@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels for the solver's evaluators (Hopper, sm_90a).
+"""Hand-written CUDA kernels of the port (Hopper, sm_90a).
 
 Each kernel module holds the ctypes launcher of one ``csrc/*.cu`` source
 and the plain PyTorch version beside it; ``ops.py`` holds the public
@@ -9,4 +9,6 @@ kernels as the engine's ``"hopper"`` backend (imported lazily).
   runahead_threshold.py  K3  fused multi-round top-k solve
   multi_mass.py          K4  one-round multi-threshold mass (top-p)
   multi_entropy.py       K5  one-round multi-temperature entropy moments
+  taylor_eval.py         K1  the paper's Taylor-series f at M points
+  paged_attend.py        K6  paged decode attention over a page table
 """

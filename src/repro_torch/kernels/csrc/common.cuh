@@ -1,4 +1,4 @@
-// Shared helpers for the solver kernels (K2-K5).
+// Shared helpers for the hand-written kernels (K1-K6).
 //
 // Every C entry point of these libraries returns cudaGetLastError() as an
 // int; the Python wrapper raises when it is not 0 and asks

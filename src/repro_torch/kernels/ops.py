@@ -14,13 +14,17 @@ import torch
 from repro_torch.kernels import multi_count as _mc
 from repro_torch.kernels import multi_entropy as _me
 from repro_torch.kernels import multi_mass as _mm
+from repro_torch.kernels import paged_attend as _pa
 from repro_torch.kernels import runahead_threshold as _rt
+from repro_torch.kernels import taylor_eval as _te
 
 LAUNCHES: dict[str, int] = {
+    "taylor_sincos_eval": 0,
     "multi_count": 0,
     "runahead_topk_threshold": 0,
     "multi_mass": 0,
     "multi_entropy_moments": 0,
+    "paged_attend": 0,
 }
 
 
@@ -86,4 +90,27 @@ def runahead_topk_threshold(logits: torch.Tensor, *, k_target: int,
     out = _rt.runahead_topk_threshold_cuda(
         logits, k_target=k_target, rounds=rounds, spec_k=spec_k)
     LAUNCHES["runahead_topk_threshold"] += 1
+    return out
+
+
+def taylor_sincos_eval(x: torch.Tensor, *, terms: int) -> torch.Tensor:
+    """sin(cos(x)) by ``terms``-term Taylor series at every point of a
+    (M,) vector, in float32: the paper's f, one launch per call."""
+    if _on_cpu(x):
+        return _te.taylor_sincos_plain(x, terms=terms)
+    out = _te.taylor_sincos_cuda(x, terms=terms)
+    LAUNCHES["taylor_sincos_eval"] += 1
+    return out
+
+
+def paged_attend(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                 table: torch.Tensor, pos: torch.Tensor, q: torch.Tensor, *,
+                 context: int) -> torch.Tensor:
+    """Paged decode/verify attention, (B, L, n_heads, hd) in q's dtype."""
+    if _on_cpu(pool_k, pool_v, table, pos, q):
+        return _pa.paged_attend_plain(pool_k, pool_v, table, pos, q,
+                                      context=context)
+    out = _pa.paged_attend_cuda(pool_k, pool_v, table, pos, q,
+                                context=context)
+    LAUNCHES["paged_attend"] += 1
     return out

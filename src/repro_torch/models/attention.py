@@ -5,9 +5,16 @@ full-causal and sliding-window masks, and the ring-buffer KV cache for
 decode.  Softmax in f32.  Layouts are the JAX package's: activations
 ``(B, S, heads, head_dim)``, caches ``(B, C, n_kv, head_dim)``.
 
+Paged half: ``paged_view``, ``_paged_slot_mask``,
+``paged_decode_attend_multi`` (impl ``"gather"``, the dense reduction over
+the gathered chain, or ``"hopper"``, the hand-written kernel K6 through
+``kernels/ops.py``) and ``attend_with_prefix`` (prefill skip).  The port
+writes caches and page pools in place, where the JAX functions return
+new ones.
+
 Not ported yet: the chunked ``flash_attend`` (``attend`` raises for
-``S >= FLASH_MIN_SEQ``), int8 KV, cross attention, the per-slot ``(B,)``
-positions and the speculative / paged variants.
+``S >= FLASH_MIN_SEQ``), int8 KV, cross attention, and the speculative
+verify path (``decode_attend_multi``, the paged stash for rollback).
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import NEG_INF, apply_rope, dense_init, rmsnorm
 
@@ -168,40 +176,198 @@ def decode_attend(
     p: Params,
     cfg: ModelConfig,
     x: torch.Tensor,          # (B, 1, D) current token
-    pos: int,                 # shared position of the whole batch
+    pos,                      # int shared position, or (B,) per-slot tensor
     cache: KVCache,           # one layer's (B, C, n_kv, hd) view
     *,
     window: int = 0,
 ) -> tuple[torch.Tensor, KVCache]:
     """One decode step: append K/V at pos (mod capacity), attend over cache.
 
-    ``pos`` is a Python int (the lock-step batch of one-shot ``generate``),
-    so nothing is read back from the device.  Unlike the JAX function, the
-    new K/V are written into ``cache`` in place; the same cache is returned.
+    ``pos`` may be a Python int (the lock-step batch of one-shot
+    ``generate``) or a (B,) device tensor (continuous batching: each slot
+    at its own depth), which writes one ring slot per row at
+    ``(arange(B), pos % C)`` and masks per row, without reading ``pos``
+    back to the host.  Unlike the JAX function, the new K/V are written
+    into ``cache`` in place; the same cache is returned.
     """
     B = x.shape[0]
     q = _project_q(p, cfg, x)                                # (B,1,nq,hd)
     k_new, v_new = _project_kv(p, cfg, x)                    # (B,1,nkv,hd)
+    per_slot = isinstance(pos, torch.Tensor)
     if not cfg.learned_pos:
-        pvec = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        pvec = (pos[:, None] if per_slot else
+                torch.full((B, 1), pos, dtype=torch.int32, device=x.device))
         q = apply_rope(q, pvec, cfg.rope_theta)
         k_new = apply_rope(k_new, pvec, cfg.rope_theta)
 
     C = cache.capacity
-    slot = pos % C
-    cache.k[:, slot] = k_new[:, 0]
-    cache.v[:, slot] = v_new[:, 0]
+    slots = torch.arange(C, device=x.device)
+    if per_slot:
+        slot = pos % C                                       # (B,)
+        rows = torch.arange(B, device=x.device)
+        cache.k[rows, slot] = k_new[:, 0]
+        cache.v[rows, slot] = v_new[:, 0]
+        pos_c, slot_c = pos[:, None], slot[:, None]          # (B, 1)
+    else:
+        slot = pos % C
+        cache.k[:, slot] = k_new[:, 0]
+        cache.v[:, slot] = v_new[:, 0]
+        pos_c, slot_c = pos, slot
 
     # validity: ring slot s holds absolute position p_s; it is attendable iff
     # p_s <= pos and p_s > pos - C (ring eviction) and (SWA) p_s > pos - w.
-    slots = torch.arange(C, device=x.device)
-    wraps = pos // C
-    p_s = torch.where(slots <= slot, wraps * C + slots, (wraps - 1) * C + slots)
-    valid = (p_s >= 0) & (p_s <= pos)
+    wraps = pos_c // C
+    p_s = torch.where(slots <= slot_c, wraps * C + slots,
+                      (wraps - 1) * C + slots)
+    valid = (p_s >= 0) & (p_s <= pos_c)
     if window > 0:
-        valid &= p_s > pos - window
-    mask = valid[None, None, None, :]                        # (1,1,1,C)
+        valid &= p_s > pos_c - window
+    # (B, 1, 1, C) per slot, (1, 1, 1, C) shared
+    mask = valid[:, None, None, :] if per_slot else valid[None, None, None, :]
 
     out = _decode_sdpa(q, cache.k, cache.v, mask, cfg.n_heads // cfg.n_kv_heads)
     out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
     return out @ p["wo"].to(x.dtype), cache
+
+
+def _verify_sdpa(q, k, v, mask, n_rep: int):
+    """``_decode_sdpa`` generalised to L queries.  q: (B, L, nq, hd); k/v:
+    the (B, C, nkv, hd) ring view with the new rows already written;
+    mask: (B, 1, 1, L, C) per-query validity."""
+    B, L, nq, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(B, L, nkv, n_rep, hd)
+    scores = torch.einsum("blhrd,bkhd->bhrlk", qg, k).float()
+    scores = scores * (1.0 / math.sqrt(hd))
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhrlk,bkhd->blhrd", probs, v)
+    return out.reshape(B, L, nq, hd)
+
+
+# ---------------------------------------------------------------------------
+# paged decode path (page-table KV cache)
+# ---------------------------------------------------------------------------
+
+def paged_view(buf: torch.Tensor, table: torch.Tensor, context: int
+               ) -> torch.Tensor:
+    """Gather each slot's page chain into the dense ring layout.
+
+    buf: (n_pages, P, ...) page pool; table: (B, max_chain) page ids ->
+    (B, context, ...).  Chain page j holds ring slots [j*P, (j+1)*P), so
+    the concatenated chain sliced to ``context`` is the dense per-slot
+    ring buffer element for element.  Tail entries past the last mapped
+    page read the null page; the validity mask excludes them.
+    """
+    B = table.shape[0]
+    gathered = buf[table.long()]                 # (B, max_chain, P, ...)
+    return gathered.reshape((B, -1) + buf.shape[2:])[:, :context]
+
+
+def _paged_slot_mask(pgrid: torch.Tensor, context: int) -> torch.Tensor:
+    """Dense ``decode_attend``'s per-slot validity mask at each query
+    depth.  pgrid: (B, L) absolute positions -> (B, L, C) bool."""
+    C = context
+    slots = torch.arange(C, device=pgrid.device)[None, None, :]
+    pq = pgrid[:, :, None]
+    slot_q = pq % C
+    wraps = pq // C
+    p_s = torch.where(slots <= slot_q, wraps * C + slots,
+                      (wraps - 1) * C + slots)
+    return (p_s >= 0) & (p_s <= pq)
+
+
+def paged_decode_attend_multi(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,          # (B, L, D) current token (+ drafted run)
+    pos: torch.Tensor,        # (B,) absolute position of x[:, 0]
+    cache: KVCache,           # page-pool layout: k/v (n_pages, P, nkv, hd)
+    table: torch.Tensor,      # (B, max_chain) int32 page ids
+    *,
+    context: int,
+    impl: str = "gather",
+) -> tuple[torch.Tensor, KVCache]:
+    """Attention of L tokens per slot over a page-table cache (L == 1 is
+    the plain decode step).  K/V rows are written in place at (page =
+    table[b, slot // P], offset = slot % P) for ring slot (pos+l) % C;
+    then each query reduces over its slot's chain with the serial
+    validity mask at its depth.  Inactive slots point their table rows at
+    the null page, so their writes land there.
+
+    ``impl``: ``"gather"`` (the chain gathered back into ring order and
+    the dense sdpa: bit-identical to the dense ring by construction) or
+    ``"hopper"`` (the kernel K6, ``ops.paged_attend``: its plain version
+    on the CPU; an online softmax, so equal within tolerance).
+
+    Returns (out (B, L, D'), pool).  The JAX function also returns a stash
+    of the overwritten rows for speculative rollback, which the port does
+    not have yet.
+    """
+    B, L, _ = x.shape
+    C = context
+    P = cache.k.shape[1]
+    if L > C:
+        raise ValueError(
+            f"draft run length {L} exceeds cache capacity {C}: ring slots "
+            "would collide")
+    if impl not in ("gather", "hopper"):
+        raise ValueError(f"unknown paged attention impl {impl!r}")
+    q = _project_q(p, cfg, x)                                # (B,L,nq,hd)
+    k_new, v_new = _project_kv(p, cfg, x)                    # (B,L,nkv,hd)
+    pgrid = pos[:, None] + torch.arange(L, device=x.device)[None, :]
+    if not cfg.learned_pos:
+        q = apply_rope(q, pgrid, cfg.rope_theta)
+        k_new = apply_rope(k_new, pgrid, cfg.rope_theta)
+
+    slots_w = pgrid % C                                      # (B, L)
+    rows = torch.arange(B, device=x.device)[:, None]
+    pages_w = table[rows, slots_w // P].long()               # (B, L)
+    offs_w = slots_w % P
+    cache.k[pages_w, offs_w] = k_new.to(cache.k.dtype)
+    cache.v[pages_w, offs_w] = v_new.to(cache.v.dtype)
+
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    if impl == "hopper":
+        out = ops.paged_attend(cache.k, cache.v, table, pos, q, context=C)
+    else:
+        mask = _paged_slot_mask(pgrid, C)[:, None, None]     # (B,1,1,L,C)
+        k = paged_view(cache.k, table, C)                    # (B,C,nkv,hd)
+        v = paged_view(cache.v, table, C)
+        if L == 1:
+            # serial decode: the SAME reduction as the dense decode_attend
+            out = _decode_sdpa(q, k, v, mask[:, :, :, 0], n_rep)
+        else:
+            out = _verify_sdpa(q, k, v, mask, n_rep)
+    out = out.reshape(B, L, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"].to(x.dtype), cache
+
+
+def attend_with_prefix(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,          # (B, S_suf, D) suffix activations
+    positions: torch.Tensor,  # (B, S_suf) absolute positions of the suffix
+    k_pre: torch.Tensor,      # (B, start, nkv, hd) cached prefix K (roped)
+    v_pre: torch.Tensor,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Suffix-prefill attention: queries for positions ``[start, S)``
+    over [cached prefix K/V ; the suffix's own K/V], the prefill-skip
+    forward.  Key order and values match what a cold full prefill reduces
+    over for the same rows."""
+    B, S_suf, _ = x.shape
+    q = _project_q(p, cfg, x)
+    k, v = _project_kv(p, cfg, x)
+    if not cfg.learned_pos:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    kf = torch.cat([k_pre.to(k.dtype), k], dim=1)
+    vf = torch.cat([v_pre.to(v.dtype), v], dim=1)
+    S = kf.shape[1]
+    qp = positions[:, :, None]                               # (B,S_suf,1)
+    kp = torch.arange(S, device=x.device)[None, None, :]     # (1,1,S)
+    mask = (kp <= qp)[:, None]                               # (B,1,S_suf,S)
+    out = _sdpa(q, kf, vf, mask, cfg.n_heads // cfg.n_kv_heads)
+    out = out.reshape(B, S_suf, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"].to(x.dtype), (k, v)

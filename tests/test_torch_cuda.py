@@ -2,9 +2,11 @@
 
 Marked ``cuda``: each test skips where torch sees no CUDA device.  On a
 GPU machine run ``python -m pytest -m cuda tests/test_torch_cuda.py``
-(this file imports no JAX).  K2 and K3 must match exactly; K4 and K5
-within rtol=1e-5, atol=1e-6 (f32 sums in another order) and bit for bit
-from one run to the next.
+(this file imports no JAX).  K1, K2 and K3 must match exactly; K4 and
+K5 within rtol=1e-5, atol=1e-6 (f32 sums in another order) and bit for
+bit from one run to the next; K6 within rtol=atol=1e-5 on f32 pools and
+1e-2 on bf16 pools compared in f32 (exp and the sums in another order),
+and bit for bit from one run to the next.
 """
 import pytest
 import torch
@@ -14,7 +16,9 @@ from repro_torch.kernels import multi_count as mc
 from repro_torch.kernels import multi_entropy as me
 from repro_torch.kernels import multi_mass as mm
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attend as pa
 from repro_torch.kernels import runahead_threshold as rt
+from repro_torch.kernels import taylor_eval as te
 
 pytestmark = pytest.mark.cuda
 SHAPES = [(1, 1, 1), (3, 257, 31), (2, 1000, 1), (4, 4099, 70)]
@@ -95,3 +99,70 @@ def test_wrappers_count_launches_and_refuse_bad_input(gen):
         mc.multi_count_cuda(x.double(), t)
     with pytest.raises(ValueError, match="column stride"):
         mc.multi_count_cuda(x.t(), t)
+
+
+@pytest.mark.parametrize("m", [1, 7, 31, 130])
+@pytest.mark.parametrize("terms", [1, 10, 2500])
+def test_taylor_sincos(gen, m, terms):
+    """Bit for bit: 2500 terms pass i = 2048, where the f32 denominator
+    starts to round."""
+    x = torch.rand((m,), generator=gen, device="cuda") * 2.0 + 0.5
+    assert torch.equal(te.taylor_sincos_cuda(x, terms=terms),
+                       te.taylor_sincos_plain(x, terms=terms))
+
+
+# (P, context, n_kv, head_dim, L, n_heads, positions): page sizes that
+# divide the context and don't, rows past the wrap point, and the served
+# decode geometry (n_rep 4, head_dim 128, P 16, context 544)
+K6_SHAPES = [(4, 8, 2, 16, 4, 4, [2, 6, 11]), (5, 8, 2, 16, 3, 6, [2, 9]),
+             (16, 544, 8, 128, 1, 32, [511, 520, 530, 543]),
+             (16, 100, 8, 128, 3, 32, [40, 98, 130])]
+
+
+def _paged_inputs(gen, P, C, nkv, hd, L, nq, pos, dtype):
+    B = len(pos)
+    chain = -(-C // P)
+    n_pages = B * chain + 1
+    pk = torch.randn((n_pages, P, nkv, hd), generator=gen, device="cuda")
+    pv = torch.randn((n_pages, P, nkv, hd), generator=gen, device="cuda")
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm[:B * chain].reshape(B, chain).int()
+    q = torch.randn((B, L, nq, hd), generator=gen, device="cuda")
+    return (pk.to(dtype), pv.to(dtype), table,
+            torch.tensor(pos, dtype=torch.int32, device="cuda"), q.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K6_SHAPES)
+def test_paged_attend(gen, shape, dtype):
+    P, C = shape[:2]
+    args = _paged_inputs(gen, *shape, dtype)
+    got = pa.paged_attend_cuda(*args, context=C)
+    assert got.dtype == dtype
+    assert torch.equal(got, pa.paged_attend_cuda(*args, context=C))
+    want = pa.paged_attend_plain(*args, context=C)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=1e-2, atol=1e-2))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_new_wrappers_count_launches_and_refuse_bad_input(gen):
+    ops.reset_launches()
+    ops.taylor_sincos_eval(torch.ones(3, device="cuda"), terms=4)
+    args = _paged_inputs(gen, *K6_SHAPES[0], torch.float32)
+    ops.paged_attend(*args, context=8)
+    assert ops.LAUNCHES["taylor_sincos_eval"] == 1
+    assert ops.LAUNCHES["paged_attend"] == 1
+    with pytest.raises(ValueError, match="1-D"):
+        te.taylor_sincos_cuda(torch.ones((2, 2), device="cuda"), terms=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        te.taylor_sincos_cuda(torch.ones(2), terms=4)
+    pk, pv, table, pos, q = args
+    with pytest.raises(ValueError, match="dtype"):
+        pa.paged_attend_cuda(pk, pv, table, pos, q.double(), context=8)
+    with pytest.raises(ValueError, match="shared memory"):
+        pa.paged_attend_cuda(pk, pv, table, pos,
+                             torch.zeros((3, 2000, 4, 16), device="cuda"),
+                             context=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_attend(pk.cpu(), pv, table, pos, q, context=8)
