@@ -51,17 +51,40 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
  10. a reference check of the continuous path on reduced qwen3-4b (f32,
      prompts screened for greedy ties): paged K6 streams equal paged
      gather streams and the one-shot stream of every request.
+ 11. the training path: repro_torch.launch.train (its main, in-process)
+     for internlm2-1.8b at full width and depth (24 layers, d_model 2048,
+     GQA 16/8, head_dim 128, d_ff 8192, vocab 92544; random bf16 weights
+     from seed 0), batch 2 x seq 4096 of SyntheticTokens, remat on, the
+     quantile clip, AdamW: 1 warm-up step, 4 timed steps and 1 step under
+     torch.profiler.  Every loss finite; K7 launched exactly 48 times per
+     step (24 layers forward, 24 remat recomputes) and K2 on every step
+     (the quantile clip's solve); ms per step, tokens per second, peak
+     memory, device busy time, idle share and K7's share of it.
+ 12. checkpoint and fault injection on the card: reduced internlm2-1.8b
+     in a subprocess (--ckpt-every 5 --die-at-step 7) exits 42 with
+     step_5 on disk; the rerun resumes from step 5, and its losses and
+     final checkpoint equal an uninterrupted run's, bit for bit.
+
+Phase 3 also holds K7 (flash_fwd) against its plain version at the
+training shape (B=2, S=4096, 16 q heads, 8 kv heads, head_dim 128) in
+f32 at JAX's K7 tolerance (atol 2e-5 / rtol 1e-4) and in bf16 at one
+bf16 ulp (rtol 2**-7, atol 1e-6), and at a ragged banded shape (S=1000,
+window 128, f32, atol 2e-5 / rtol 1e-4), bit for bit run to run; its
+bound counts the causal half of the score matrix at the bf16 tensor-core
+rate (989 TFLOP/s), and the f32 CUDA-core figure is printed beside it.
 
 The line before the last is a JSON object listing the kernels, each with
 the path its launch count was read on ("serve": phase 5; "solves": phase
 4, for K2, which the static-k serve does not launch; "paper": phase 8;
-"continuous": phase 9); the last line is {"ok": true, "device": {...}}.
+"continuous": phase 9; "train": phase 11, for K7); the last line is
+{"ok": true, "device": {...}}.
 Nothing is printed as a result when torch sees no CUDA device or the
 port's sources are not beside this file.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -70,6 +93,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 TOL = dict(rtol=1e-5, atol=1e-6)
 PATH_B, PATH_V, PATH_M = 4, 151936, 31
 SAMPLER_ARGV = ["--top-k", "40", "--top-p", "0.9", "--target-entropy", "3.0",
@@ -89,6 +113,17 @@ K6_PATH = dict(B=4, nkv=8, nq=32, hd=128, P=16, C=544, L=1,
 # L=3, a page size that does not divide the context, the last row wrapped
 K6_EDGE = dict(B=3, nkv=8, nq=32, hd=128, P=16, C=100, L=3,
                pos=[40, 96, 130])
+# K7 at the training shape (internlm2-1.8b, batch 2 x 4096) and a ragged
+# banded shape at JAX's own K7 tolerance
+K7_PATH = dict(B=2, S=4096, H=16, Hk=8, D=128, window=0)
+K7_EDGE = dict(B=1, S=1000, H=2, Hk=2, D=128, window=128)
+TRAIN_ARGV = ["--arch", "internlm2-1.8b", "--steps", "6", "--batch", "2",
+              "--seq", "4096", "--clip-mode", "quantile", "--log-every",
+              "1", "--seed", "0"]
+TRAIN_PROFILED_STEP = 5         # step 0 warms up, steps 1-4 are timed
+FAULT_ARGV = ["--arch", "internlm2-1.8b", "--reduced", "--device", "cuda",
+              "--steps", "10", "--batch", "4", "--seq", "64", "--clip-mode",
+              "quantile", "--ckpt-every", "5", "--log-every", "1"]
 
 
 def check(cond, msg: str) -> None:
@@ -141,9 +176,10 @@ def call_ms(fn, reps: int = 20) -> float:
     return statistics.median(_event_ms(fn) for _ in range(reps))
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -308,6 +344,7 @@ def phase_kernels(gen):
     rows["runahead_topk_threshold"]["library"] = "torch.topk"
     rows.update(_rows_k1(gen))
     rows.update(_rows_k6(gen))
+    rows.update(_rows_k7(gen))
     for name, r in rows.items():
         say(f"phase 3 {name}: parity ok (max_abs_err {r['max_abs_err']:.3g}) "
             f"| device {r['ms']:.4f} ms per call ({r['call_ms']:.4f} ms with "
@@ -433,6 +470,72 @@ def _rows_k6(gen):
         library="F.scaled_dot_product_attention (gathered view, gather "
                 "not timed)",
         note=f"{pages} pages read, {n_bytes / 1e6:.2f} MB")}
+
+
+def _k7_inputs(gen, shape, dtype):
+    import torch
+
+    B, S, D = shape["B"], shape["S"], shape["D"]
+    return [torch.randn((B, S, h, D), generator=gen, device="cuda").to(dtype)
+            for h in (shape["H"], shape["Hk"], shape["Hk"])]
+
+
+def _rows_k7(gen):
+    """K7 against its plain version at the training shape in f32 at JAX's
+    own K7 tolerance and in bf16 at one bf16 ulp (both round the same f32
+    sums, so they differ only where the sums round an ulp apart), and at
+    the ragged banded shape in f32; bit-stable run to run; timed at the
+    training shape, with SDPA on the same inputs as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_fwd as ff
+    from repro_torch.kernels import ops
+
+    errs = {}
+    for name, shape, dtype, tol in (
+            ("path f32", K7_PATH, torch.float32, dict(rtol=1e-4, atol=2e-5)),
+            ("path bf16", K7_PATH, torch.bfloat16,
+             dict(rtol=2 ** -7, atol=1e-6)),
+            ("edge f32", K7_EDGE, torch.float32, dict(rtol=1e-4, atol=2e-5))):
+        q, k, v = _k7_inputs(gen, shape, dtype)
+        kw = dict(window=shape["window"], n_rep=shape["H"] // shape["Hk"])
+        got = ff.flash_fwd_cuda(q, k, v, **kw)
+        check(torch.equal(got, ff.flash_fwd_cuda(q, k, v, **kw)),
+              f"K7 not bit-stable at {shape}")
+        want = ff.flash_fwd_plain(q, k, v, **kw)
+        check(torch.allclose(got.float(), want.float(), **tol),
+              f"K7 differs from its plain version at {shape}, {dtype}: max "
+              f"|diff| {(got.float() - want.float()).abs().max().item():.3g}")
+        errs[name] = (got.float() - want.float()).abs().max().item()
+    sh = K7_PATH
+    q, k, v = _k7_inputs(gen, sh, torch.bfloat16)
+    n_rep = sh["H"] // sh["Hk"]
+    B, S, H, Hk, D = sh["B"], sh["S"], sh["H"], sh["Hk"], sh["D"]
+    # the causal half of QK^T and of PV: 4 flops per (query, key <= query,
+    # dim); Q, K, V read once and O written once, in bf16
+    n_ops = 4 * B * H * D * S * (S + 1) / 2
+    n_bytes = 2 * (2 * B * S * H * D + 2 * B * S * Hk * D)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    ms = device_ms(lambda: ops.flash_fwd(q, k, v, n_rep=n_rep), calls=5,
+                   reps=3)
+    return {"flash_fwd": dict(
+        source="src/repro_torch/kernels/csrc/flash_fwd.cu",
+        replaces="src/repro/kernels/flash_fwd.py:82",
+        max_abs_err=max(errs.values()),
+        ms=ms, call_ms=call_ms(lambda: ops.flash_fwd(q, k, v, n_rep=n_rep),
+                               reps=5),
+        plain_ms=device_ms(lambda: ff.flash_fwd_plain(q, k, v, n_rep=n_rep),
+                           calls=1, reps=3),
+        bound=bound_ms(n_bytes, n_ops, BF16_OPS_PER_S),
+        library_ms=device_ms(sdpa, calls=5, reps=3),
+        library="F.scaled_dot_product_attention(is_causal, enable_gqa)",
+        note=f"B={B} S={S} H={H}/{Hk} D={D} bf16: {n_ops / 1e9:.1f} GFLOP, "
+             f"{n_ops / ms / 1e9:.1f} TFLOP/s achieved; f32 CUDA-core "
+             f"bound {n_ops / F32_OPS_PER_S * 1e3:.3f} ms; max |diff| "
+             + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))}
 
 
 def phase_solves(gen):
@@ -790,6 +893,170 @@ def phase_continuous_reference(gen):
         f"{[streams['hopper'][r.rid][:3] for r in reqs]}")
 
 
+def phase_train():
+    """launch.train's main in-process at internlm2-1.8b's full width:
+    losses, K7 and K2 launches per step, step time, tokens per second,
+    peak memory, and the last step under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    per_step, prof = [], {}
+
+    def on_step(step, metrics):
+        # launches of this step; the profiler brackets TRAIN_PROFILED_STEP
+        per_step.append(dict(ops.LAUNCHES))
+        if step == TRAIN_PROFILED_STEP - 1:
+            prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            prof["t0"] = time.perf_counter()
+        elif step == TRAIN_PROFILED_STEP:
+            torch.cuda.synchronize()
+            prof["wall_ms"] = (time.perf_counter() - prof["t0"]) * 1e3
+            prof["p"].__exit__(None, None, None)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = train.main(TRAIN_ARGV, on_step=on_step)
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["losses"]
+    check(len(losses) == 6 and all(map(math.isfinite, losses)),
+          f"training losses not all finite: {losses}")
+    n_layers = 24
+    prev = {name: 0 for name in launches}
+    for i, snap in enumerate(per_step):
+        k7 = snap["flash_fwd"] - prev["flash_fwd"]
+        k2 = snap["multi_count"] - prev["multi_count"]
+        check(k7 == 2 * n_layers, f"step {i}: K7 launched {k7} times, "
+                                  f"expected {2 * n_layers}")
+        check(k2 > 0, f"step {i}: the quantile clip did not launch K2")
+        prev = snap
+    timed = out["step_seconds"][1:TRAIN_PROFILED_STEP]
+    ms = statistics.median(timed) * 1e3
+    n_tok = 2 * 4096
+    say(f"phase 11 train: internlm2-1.8b full width (24 layers, d_model "
+        f"2048, GQA 16/8, vocab 92544), batch 2 x 4096, remat, quantile "
+        f"clip | losses {[round(x, 4) for x in losses]} | warm-up step "
+        f"{out['step_seconds'][0] * 1e3:.0f} ms, steps 1-4 "
+        f"{[round(t * 1e3, 1) for t in timed]} ms, median {ms:.1f} ms = "
+        f"{n_tok / ms * 1e3:.0f} tok/s | peak memory {peak_gb:.2f} GB | "
+        f"K7 {2 * n_layers} and K2 {per_step[0]['multi_count']} launches per "
+        f"step | launches {launches}")
+    p = prof["p"]
+    kernels = [e for e in p.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    say_profile("phase 11", busy_ms, prof["wall_ms"], kernels,
+                f"; one step (step {TRAIN_PROFILED_STEP})")
+    k7_ms = sum(e.self_device_time_total for e in kernels
+                if "flash_fwd_kernel" in e.key) / 1e3
+    if kernels:
+        say(f"phase 11 profile: K7 {k7_ms:.1f} ms of {busy_ms:.1f} ms device "
+            f"busy ({k7_ms / busy_ms:.3f}), {k7_ms / (2 * n_layers):.3f} ms "
+            f"per call | by group: "
+            + ", ".join(f"{g} {ms_:.1f} ms ({n_} launches)" for g, (ms_, n_)
+                        in _kernel_groups(kernels).items()))
+    return launches
+
+
+def _kernel_groups(kernels) -> dict:
+    """Device time and launches by kind of kernel: the hand-written ones,
+    f32 GEMMs (the chunked flash_attend's einsums in the attention
+    backward), the other GEMMs (the model's bf16 matmuls), elementwise
+    and copy kernels, reductions, the rest."""
+    groups = {}
+    for e in kernels:
+        key = e.key
+        if "flash_fwd_kernel" in key:
+            g = "K7"
+        elif "multi_count" in key:
+            g = "K2"
+        elif "sgemm" in key:
+            g = "f32 GEMM"
+        elif any(w in key for w in ("gemm", "nvjet", "cutlass", "cublas")):
+            g = "other GEMM"
+        elif any(w in key for w in ("elementwise", "copy", "Copy")):
+            g = "elementwise"
+        elif "reduce" in key.lower():
+            g = "reduction"
+        else:
+            g = "other"
+        ms_, n_ = groups.get(g, (0.0, 0))
+        groups[g] = (ms_ + e.self_device_time_total / 1e3, n_ + e.count)
+    return dict(sorted(groups.items(), key=lambda kv: -kv[1][0]))
+
+
+def _capture_log(name: str):
+    import logging
+
+    lines = []
+
+    class Handler(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Handler()
+    logging.getLogger(name).addHandler(handler)
+    return lines, handler
+
+
+def phase_fault():
+    """Reduced internlm2-1.8b on the card: killed at step 7 in a
+    subprocess, resumed from step_5 in-process; the resumed losses and
+    final checkpoint equal an uninterrupted run's."""
+    import json as _json
+    import logging
+    import os
+    import tempfile
+
+    from repro_torch.launch import train
+
+    src = Path(__file__).resolve().parent / "src"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        killed, straight = os.path.join(tmp, "killed"), os.path.join(
+            tmp, "straight")
+        env = dict(os.environ, PYTHONPATH=str(src))
+        died = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *FAULT_ARGV,
+             "--ckpt-dir", killed, "--die-at-step", "7"],
+            capture_output=True, text=True, env=env, timeout=600)
+        check(died.returncode == 42, f"the killed run exited "
+              f"{died.returncode}, not 42: {died.stderr[-2000:]}")
+        check("step_5" in os.listdir(killed), f"no step_5 after the kill: "
+              f"{os.listdir(killed)}")
+        lines, handler = _capture_log("repro_torch.train")
+        try:
+            resumed = train.main(FAULT_ARGV + ["--ckpt-dir", killed])
+        finally:
+            logging.getLogger("repro_torch.train").removeHandler(handler)
+        check("resumed from checkpoint step 5" in lines,
+              f"the rerun did not resume from step 5: {lines[:3]}")
+        check("step_10" in os.listdir(killed), "no final step_10")
+        whole = train.main(FAULT_ARGV + ["--ckpt-dir", straight])
+
+        def hashes(d):
+            with open(os.path.join(d, "step_10", "manifest.json")) as f:
+                return {k: v["sha256"] for k, v in
+                        _json.load(f)["leaves"].items()}
+
+        same_state = hashes(killed) == hashes(straight)
+        check(resumed["losses"] == whole["losses"][5:],
+              f"resumed losses {resumed['losses']} != uninterrupted "
+              f"{whole['losses'][5:]}")
+        check(same_state, "the resumed run's final checkpoint differs from "
+                          "the uninterrupted run's")
+    say(f"phase 12 fault: reduced internlm2-1.8b killed at step 7 (exit 42, "
+        f"step_5 on disk), resumed from step 5; losses 5-9 "
+        f"{resumed['losses']} equal the uninterrupted run's bit for bit, and "
+        f"so does the final step_10 checkpoint (every leaf's sha256)")
+
+
 def main() -> int:
     import torch
 
@@ -815,11 +1082,13 @@ def main() -> int:
                         "paper": phase_paper(),
                         "continuous": phase_continuous()}
     phase_continuous_reference(gen)
+    launches_by_path["train"] = phase_train()
+    phase_fault()
 
     # the path whose run each kernel's launch count is read on: K2 is not
     # on the static-k serving path (phase 4's engine solves launch it)
     paths = {"taylor_sincos_eval": "paper", "multi_count": "solves",
-             "paged_attend": "continuous"}
+             "paged_attend": "continuous", "flash_fwd": "train"}
     kernels = []
     for name, r in rows.items():
         path = paths.get(name, "serve")

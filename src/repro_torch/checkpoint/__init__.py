@@ -1,0 +1,8 @@
+"""Atomic, hash-verified, async checkpoints (port of ``repro.checkpoint``)."""
+from repro_torch.checkpoint.manager import (
+    CheckpointManager,
+    restore_pytree,
+    save_pytree,
+)
+
+__all__ = ["CheckpointManager", "restore_pytree", "save_pytree"]

@@ -2,8 +2,10 @@
 
 ``params_from_jax`` takes the JAX parameter pytree AFTER ``jax.device_get``
 (nested dicts and lists of numpy arrays) and returns the same tree of torch
-tensors, so both packages can run on identical weights.  It takes numpy
-only: this module imports neither JAX nor anything of the JAX package.
+tensors, so both packages can run on identical weights;
+``adamw_state_from_jax`` carries a JAX ``AdamWState`` across the same way.
+They take numpy only: this module imports neither JAX nor anything of the
+JAX package.
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` rejects; they cross bit for bit through a ``uint16``
@@ -13,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.optim.adamw import AdamWState
 
 
 def _leaf(a, device, dtype) -> torch.Tensor:
@@ -37,3 +41,17 @@ def params_from_jax(np_tree, device, dtype: torch.dtype | None = None):
     if isinstance(np_tree, (list, tuple)):
         return type(np_tree)(params_from_jax(v, device, dtype) for v in np_tree)
     return _leaf(np_tree, device, dtype)
+
+
+def adamw_state_from_jax(np_state, device) -> AdamWState:
+    """A JAX ``AdamWState`` after ``jax.device_get`` (a NamedTuple of
+    numpy trees, ``error`` None unless int8 error feedback is on) -> the
+    port's ``AdamWState`` on ``device``, every leaf in its own dtype."""
+    step, master, mu, nu, error = np_state
+    return AdamWState(
+        step=_leaf(step, device, None),
+        master=params_from_jax(master, device),
+        mu=params_from_jax(mu, device),
+        nu=params_from_jax(nu, device),
+        error=None if error is None else params_from_jax(error, device),
+    )

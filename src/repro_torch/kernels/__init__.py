@@ -11,4 +11,7 @@ kernels as the engine's ``"hopper"`` backend (imported lazily).
   multi_entropy.py       K5  one-round multi-temperature entropy moments
   taylor_eval.py         K1  the paper's Taylor-series f at M points
   paged_attend.py        K6  paged decode attention over a page table
+  flash_fwd.py           K7  causal flash-attention forward (training,
+                             long prefill), with its autograd rule
+  blocks.py                  chunk geometry (divisor_chunk)
 """

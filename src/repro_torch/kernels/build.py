@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("multi_count", "runahead_threshold", "multi_mass", "multi_entropy",
-           "taylor_eval", "paged_attend")
+           "taylor_eval", "paged_attend", "flash_fwd")
 NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import blocks
+from repro_torch.kernels import flash_fwd as _ff
 from repro_torch.kernels import multi_count as _mc
 from repro_torch.kernels import multi_entropy as _me
 from repro_torch.kernels import multi_mass as _mm
@@ -25,6 +27,7 @@ LAUNCHES: dict[str, int] = {
     "multi_mass": 0,
     "multi_entropy_moments": 0,
     "paged_attend": 0,
+    "flash_fwd": 0,
 }
 
 
@@ -113,4 +116,21 @@ def paged_attend(pool_k: torch.Tensor, pool_v: torch.Tensor,
     out = _pa.paged_attend_cuda(pool_k, pool_v, table, pos, q,
                                 context=context)
     LAUNCHES["paged_attend"] += 1
+    return out
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              window: int = 0, n_rep: int = 1) -> torch.Tensor:
+    """Causal flash attention, (B, S, H, D) in q's dtype; k, v carry
+    H // n_rep heads.  Differentiable: the backward is the chunked
+    ``flash_attend``'s vjp at the JAX wrapper's fixed geometry, q chunk
+    ``divisor_chunk(S, Q_CHUNK)`` and kv chunk ``divisor_chunk(S,
+    KV_CHUNK)`` (the plain version's tiles too)."""
+    on_cpu = _on_cpu(q, k, v)
+    S = q.shape[1]
+    out = _ff.FlashFwd.apply(q, k, v, window, n_rep,
+                             blocks.divisor_chunk(S, blocks.Q_CHUNK),
+                             blocks.divisor_chunk(S, blocks.KV_CHUNK))
+    if not on_cpu:
+        LAUNCHES["flash_fwd"] += 1
     return out

@@ -20,8 +20,10 @@ gathered chain) or ``hopper`` (the hand-written kernel K6):
       --page-impl hopper --top-k 40 --top-p 0.9 --target-entropy 3.0 \
       --backend hopper
 
-Runs on the card unless ``--device cpu`` is given (on the CPU the
-``hopper`` backend and page impl run their kernels' plain versions).
+Runs on the card unless ``--device cpu`` is given.  On the card the
+sampler backend and the page impl default to ``hopper`` (the kernels); on
+the CPU to ``torch`` and ``gather`` (where ``hopper`` would run the
+kernels' plain versions).
 Weights are random, drawn from ``--seed``.  Meshes, speculative decoding,
 fused horizons and autotuning are not ported yet.
 """
@@ -173,8 +175,8 @@ def run_continuous(session: Session) -> ServedContinuous:
     return ServedContinuous(done, dt, s)
 
 
-def setup(argv=None) -> Session:
-    """Parse the flags, then draw the model's weights on the device."""
+def parse_args(argv=None) -> argparse.Namespace:
+    """The flags, with ``--backend`` and ``--page-impl`` resolved."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--reduced", action="store_true")
@@ -185,8 +187,10 @@ def setup(argv=None) -> Session:
     ap.add_argument("--top-p", type=float, default=0.0)
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--target-entropy", type=float, default=None)
-    ap.add_argument("--backend", default="torch", choices=["torch", "hopper"],
-                    help="engine backend for every sampler solve")
+    ap.add_argument("--backend", default=None, choices=["torch", "hopper"],
+                    help="engine backend for every sampler solve (default: "
+                         "hopper with --device cuda, torch with --device "
+                         "cpu)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--continuous", action="store_true",
@@ -203,14 +207,27 @@ def setup(argv=None) -> Session:
     ap.add_argument("--cache-pages", type=int, default=None,
                     help="[continuous] page-pool size (requires "
                          "--page-size; default fits slots*context + null)")
-    ap.add_argument("--page-impl", default="gather",
+    ap.add_argument("--page-impl", default=None,
                     choices=["gather", "hopper"],
                     help="[continuous] paged attention: the gather (bit-"
-                         "exact vs dense) or the hand-written kernel K6")
+                         "exact vs dense) or the hand-written kernel K6 "
+                         "(default: hopper with --device cuda, gather with "
+                         "--device cpu)")
     args = ap.parse_args(argv)
+    # on the card the kernels carry the path; the CPU keeps the plain ones
+    on_card = args.device == "cuda"
+    if args.backend is None:
+        args.backend = "hopper" if on_card else "torch"
+    if args.page_impl is None:
+        args.page_impl = "hopper" if on_card else "gather"
     if not args.continuous and (args.page_size or args.cache_pages):
         ap.error("--page-size and --cache-pages need --continuous")
+    return args
 
+
+def setup(argv=None) -> Session:
+    """Parse the flags, then draw the model's weights on the device."""
+    args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     device = resolve_device(args.device)

@@ -12,9 +12,15 @@ the gathered chain, or ``"hopper"``, the hand-written kernel K6 through
 writes caches and page pools in place, where the JAX functions return
 new ones.
 
-Not ported yet: the chunked ``flash_attend`` (``attend`` raises for
-``S >= FLASH_MIN_SEQ``), int8 KV, cross attention, and the speculative
-verify path (``decode_attend_multi``, the paged stash for rollback).
+Long sequences: at ``S >= FLASH_MIN_SEQ`` causal self-attention goes
+through ``kernels/ops.py::flash_fwd`` (the hand-written kernel K7 on the
+card, its plain version on the CPU), whose backward is the vjp of the
+chunked ``flash_attend`` below, as in the JAX package's ``custom_vjp``.
+
+Not ported yet: int8 KV, cross attention, the tensor-parallel head
+padding of ``attend``'s flash branch (it waits for the mesh), and the
+speculative verify path (``decode_attend_multi``, the paged stash for
+rollback).
 """
 from __future__ import annotations
 
@@ -22,13 +28,16 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.blocks import KV_CHUNK, Q_CHUNK
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import NEG_INF, apply_rope, dense_init, rmsnorm
 
 Params = dict
-FLASH_MIN_SEQ = 4096     # the JAX package switches to chunked attention here
+FLASH_MIN_SEQ = 4096     # full-materialisation attention below this
 
 
 def init_attention(gen, cfg: ModelConfig, dtype, lead: tuple = ()) -> Params:
@@ -95,6 +104,101 @@ def _sdpa(q, k, v, mask, n_rep: int):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def flash_attend(q, k, v, *, causal: bool = True, window: int = 0,
+                 q_chunk: int = Q_CHUNK, kv_chunk: int = KV_CHUNK,
+                 n_rep: int = 1):
+    """Chunked online-softmax attention (flash-style, plain PyTorch).
+
+    Replaces the (B, h, S, S) score materialisation with a loop over query
+    chunks; each chunk runs an online softmax over KV chunks and is
+    wrapped in ``torch.utils.checkpoint`` (where JAX uses
+    ``jax.checkpoint``), so backward recomputes the chunk instead of
+    storing its probabilities: memory O(S * chunk) instead of O(S**2).
+
+    Sliding window: when ``0 < window < S`` each query chunk reads only
+    its [start - window, end) KV band (length window + q_chunk).  GQA: q
+    has n_kv * n_rep heads while k, v keep n_kv; the grouped einsums
+    never repeat K/V.  P.V runs in V's dtype, as in the JAX function.
+
+    q: (B, S, Hq, hd); k, v: (B, S, Hq // n_rep, hd).  Positions are
+    implicit (0..S-1).
+    """
+    B, S, Hq, D = q.shape
+    H, R = Hq // n_rep, n_rep
+    scale = 1.0 / math.sqrt(D)
+    q = F.pad(q, (0, 0, 0, 0, 0, (-S) % q_chunk))
+    n_q = q.shape[1] // q_chunk
+    banded = bool(causal) and 0 < window < S
+    if banded:
+        band = window + q_chunk                  # KV slice length
+        # left pad: the band before position 0; right pad: the last
+        # chunk's band past S (keys above every real query).  JAX pads
+        # left only, and its dynamic_slice then clamps the last band's
+        # start when S is not a multiple of q_chunk, which shifts its
+        # keys against kpos; the port keeps every slice in bounds.
+        pad = (0, 0, 0, 0, window, n_q * q_chunk - S)
+        k_p, v_p = F.pad(k, pad), F.pad(v, pad)
+    else:
+        pad_kv = (-S) % kv_chunk
+        k_p = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v_p = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
+        n_kv = k_p.shape[1] // kv_chunk
+    dev = q.device
+
+    def inner(m, l, o, qf, qpos, k_c, v_c, kpos):
+        s = torch.einsum("bqhrd,bkhd->bhrqk", qf, k_c.float()) * scale
+        mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                          device=dev)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+            if window > 0:
+                mask &= kpos[None, :] > qpos[:, None] - window
+        mask &= (kpos[None, :] >= 0) & (qpos[:, None] < S)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        o = o * corr[..., None] + torch.einsum(
+            "bhrqk,bkhd->bhrqd", p.to(v_c.dtype), v_c).float()
+        return m_new, l, o
+
+    def one_q_chunk(qi: int, q_c):
+        """q_c: (B, q_chunk, Hq, D) -> (B, q_chunk, Hq, D)."""
+        q_start = qi * q_chunk
+        qpos = q_start + torch.arange(q_chunk, device=dev)
+        qf = q_c.float().reshape(B, q_chunk, H, R, D)
+        m = torch.full((B, H, R, q_chunk), -math.inf, device=dev)
+        l = torch.zeros((B, H, R, q_chunk), device=dev)
+        o = torch.zeros((B, H, R, q_chunk, D), device=dev)
+        if banded:
+            # [q_start, q_start + band) of the left-padded K/V is
+            # [q_start - window, q_end) of the unpadded sequence
+            kpos = q_start - window + torch.arange(band, device=dev)
+            m, l, o = inner(m, l, o, qf, qpos, k_p[:, q_start:q_start + band],
+                            v_p[:, q_start:q_start + band], kpos)
+        else:
+            for ki in range(n_kv):
+                sl = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
+                kpos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
+                m, l, o = inner(m, l, o, qf, qpos, k_p[:, sl], v_p[:, sl],
+                                kpos)
+        out = o / torch.clamp_min(l[..., None], 1e-30)
+        # (B, H, R, qc, D) -> (B, qc, H * R, D)
+        out = out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, Hq, D)
+        return out.to(q.dtype)
+
+    chunks = []
+    for qi in range(n_q):
+        q_c = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        if torch.is_grad_enabled():
+            chunks.append(checkpoint(one_q_chunk, qi, q_c,
+                                     use_reentrant=False))
+        else:
+            chunks.append(one_q_chunk(qi, q_c))
+    return torch.cat(chunks, dim=1)[:, :S]
+
+
 def attend(
     p: Params,
     cfg: ModelConfig,
@@ -105,26 +209,32 @@ def attend(
     causal: bool = True,
     return_kv: bool = False,
 ):
-    """Full-sequence self-attention (train / prefill)."""
+    """Full-sequence self-attention (train / prefill).
+
+    At ``S >= FLASH_MIN_SEQ`` causal attention runs K7 through
+    ``ops.flash_fwd`` with implicit positions 0..S-1, grouped GQA and K/V
+    never repeated (the JAX function's single-device branch); below it,
+    the full-materialisation ``_sdpa``.
+    """
     B, S, _ = x.shape
-    if causal and S >= FLASH_MIN_SEQ:
-        raise NotImplementedError(
-            f"sequence length {S} >= {FLASH_MIN_SEQ} needs the chunked "
-            "flash_attend path, which is not ported yet")
     q = _project_q(p, cfg, x)
     k, v = _project_kv(p, cfg, x)
     if not cfg.learned_pos:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    mask = None
-    if causal:
-        qp = positions[:, :, None]
-        kp = positions[:, None, :]
-        mask = kp <= qp
-        if window > 0:
-            mask &= kp > qp - window
-        mask = mask[:, None]
-    out = _sdpa(q, k, v, mask, cfg.n_heads // cfg.n_kv_heads)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    if causal and S >= FLASH_MIN_SEQ:
+        out = ops.flash_fwd(q, k, v, window=window, n_rep=n_rep)
+    else:
+        mask = None
+        if causal:
+            qp = positions[:, :, None]
+            kp = positions[:, None, :]
+            mask = kp <= qp
+            if window > 0:
+                mask &= kp > qp - window
+            mask = mask[:, None]
+        out = _sdpa(q, k, v, mask, n_rep)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     out = out @ p["wo"].to(x.dtype)
     if return_kv:

@@ -26,7 +26,7 @@ from repro_torch.models.layers import apply_mlp, apply_norm, embed, unembed
 from repro_torch.models.transformer import (
     dense_plan,
     layer_plan,
-    layer_slice,
+    layer_unbind,
     unembed_table,
 )
 
@@ -93,9 +93,8 @@ def prefill(
     cache: Cache = []
     for run_params, (_, count) in zip(params["runs"], dense_plan(cfg)):
         ks, vs = [], []
-        for i in range(count):
-            x, k, v = _prefill_block(cfg, layer_slice(run_params, i), x,
-                                     positions, context)
+        for p_l in layer_unbind(run_params, count):
+            x, k, v = _prefill_block(cfg, p_l, x, positions, context)
             ks.append(k)
             vs.append(v)
         cache.append({"kv": KVCache(k=torch.stack(ks), v=torch.stack(vs))})
@@ -137,9 +136,9 @@ def decode_step(
     x = embed(params["embed"], token[:, None], compute_dtype)  # (B, 1, D)
     for run_params, entry, (_, count) in zip(params["runs"], cache,
                                              dense_plan(cfg)):
-        for i in range(count):
-            x = _step_block(cfg, layer_slice(run_params, i), x, pos,
-                            layer_slice(entry["kv"], i))
+        for p_l, kv_l in zip(layer_unbind(run_params, count),
+                             layer_unbind(entry["kv"], count)):
+            x = _step_block(cfg, p_l, x, pos, kv_l)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = unembed(unembed_table(cfg, params), x[:, 0], cfg.vocab)
     return logits, cache
@@ -315,9 +314,8 @@ def paged_prefill(
     for run_params, entry, (_, count) in zip(params["runs"], pool,
                                              dense_plan(cfg)):
         kv = entry["kv"]
-        for i in range(count):
-            p_l = layer_slice(run_params, i)
-            k_l, v_l = kv.k[i], kv.v[i]
+        for p_l, k_l, v_l in zip(layer_unbind(run_params, count), kv.k,
+                                 kv.v):
             k_pre = k_l[pre].reshape((1, start) + k_l.shape[2:])
             v_pre = v_l[pre].reshape((1, start) + v_l.shape[2:])
             h = apply_norm(cfg.norm, p_l["ln1"], x, cfg.norm_eps)
@@ -353,11 +351,11 @@ def decode_step_paged(
     x = embed(params["embed"], token[:, None], compute_dtype)  # (B, 1, D)
     for run_params, entry, (_, count) in zip(params["runs"], pool,
                                              dense_plan(cfg)):
-        for i in range(count):
-            p_l = layer_slice(run_params, i)
+        for p_l, kv_l in zip(layer_unbind(run_params, count),
+                             layer_unbind(entry["kv"], count)):
             h = apply_norm(cfg.norm, p_l["ln1"], x, cfg.norm_eps)
             a, _ = attn_lib.paged_decode_attend_multi(
-                p_l["attn"], cfg, h, pos, layer_slice(entry["kv"], i), table,
+                p_l["attn"], cfg, h, pos, kv_l, table,
                 context=context, impl=impl)
             x = x + a
             h = apply_norm(cfg.norm, p_l["ln2"], x, cfg.norm_eps)

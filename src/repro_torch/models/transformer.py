@@ -6,10 +6,15 @@ leading layer axis as in the JAX package.  A Python loop over that axis
 replaces ``lax.scan``.  ``layer_plan`` covers every family (it is data);
 ``init_params`` and ``forward`` build and run ``"dense"`` runs only and
 raise ``ValueError`` for the other block kinds.
+
+``forward(remat=True)`` checkpoints each layer (non-reentrant
+``torch.utils.checkpoint``, where JAX wraps the scan body in
+``jax.checkpoint``): backward recomputes the layer from its input.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.config import ModelConfig
@@ -80,13 +85,18 @@ def dense_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
     return plan
 
 
-def layer_slice(tree, i: int):
-    """Layer ``i`` of a run's stacked parameter (or cache) tree."""
+def layer_unbind(tree, count: int) -> list:
+    """Every layer of a run's stacked parameter (or cache) tree at once, as
+    views: one ``unbind`` per leaf, so backward stacks the layers'
+    gradients once instead of scattering each into a zeroed copy of the
+    whole stack.  Dicts and (named) tuples keep their type per layer."""
     if isinstance(tree, dict):
-        return {k: layer_slice(v, i) for k, v in tree.items()}
+        per_key = {k: layer_unbind(v, count) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(count)]
     if isinstance(tree, tuple):
-        return type(tree)(*(layer_slice(v, i) for v in tree))
-    return tree[i]
+        per_field = [layer_unbind(v, count) for v in tree]
+        return [type(tree)(*(f[i] for f in per_field)) for i in range(count)]
+    return list(tree.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -146,16 +156,26 @@ def forward(
     params: Params,
     tokens: torch.Tensor,                 # (B, S) integer
     *,
+    remat: bool = True,
     compute_dtype=torch.bfloat16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits (B,S,V) f32, aux_loss)."""
+    """Full-sequence forward.  Returns (logits (B,S,V) f32, aux_loss).
+
+    ``remat`` checkpoints every layer when autograd records the forward;
+    without gradients it changes nothing.
+    """
     B, S = tokens.shape
     x = embed(params["embed"], tokens, compute_dtype)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
+    remat = remat and torch.is_grad_enabled()
     for run_params, (_, count) in zip(params["runs"], dense_plan(cfg)):
-        for i in range(count):
-            x = _apply_block(cfg, layer_slice(run_params, i), x, positions)
+        for p_l in layer_unbind(run_params, count):
+            if remat:
+                x = checkpoint(_apply_block, cfg, p_l, x, positions,
+                               use_reentrant=False)
+            else:
+                x = _apply_block(cfg, p_l, x, positions)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = unembed(unembed_table(cfg, params), x, cfg.vocab)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)

@@ -6,12 +6,20 @@ GPU machine run ``python -m pytest -m cuda tests/test_torch_cuda.py``
 K5 within rtol=1e-5, atol=1e-6 (f32 sums in another order) and bit for
 bit from one run to the next; K6 within rtol=atol=1e-5 on f32 pools and
 1e-2 on bf16 pools compared in f32 (exp and the sums in another order),
-and bit for bit from one run to the next.
+and bit for bit from one run to the next.  K7 (flash_fwd) within atol
+2e-5 / rtol 1e-4 on f32 (JAX's own K7 tolerance: the online softmax
+rescales at other tile edges) and one bf16 ulp on bf16 (rtol 2**-7,
+atol 1e-6: both round the same f32 sums to bf16), bit for
+bit from one run to the next and between grouped GQA and K/V repeated to
+every head (the same values summed in the same order); its gradients
+against the chunked flash_attend's on the card within 1e-4 (the same
+backward, another forward summation).
 """
 import pytest
 import torch
 
 from repro_torch.core import solver
+from repro_torch.kernels import flash_fwd as ff
 from repro_torch.kernels import multi_count as mc
 from repro_torch.kernels import multi_entropy as me
 from repro_torch.kernels import multi_mass as mm
@@ -142,7 +150,7 @@ def test_paged_attend(gen, shape, dtype):
     assert torch.equal(got, pa.paged_attend_cuda(*args, context=C))
     want = pa.paged_attend_plain(*args, context=C)
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
-           else dict(rtol=1e-2, atol=1e-2))
+           else dict(rtol=2 ** -7, atol=1e-6))
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
@@ -166,3 +174,61 @@ def test_new_wrappers_count_launches_and_refuse_bad_input(gen):
                              context=8)
     with pytest.raises(ValueError, match="CUDA"):
         ops.paged_attend(pk.cpu(), pv, table, pos, q, context=8)
+
+
+# (B, S, heads, kv heads, head_dim, window): one row, ragged S with GQA,
+# a band, n_rep 4 with a band that skips tiles, and the training heads
+K7_SHAPES = [(1, 1, 2, 2, 16, 0), (2, 130, 4, 2, 32, 0),
+             (1, 1000, 2, 2, 128, 128), (2, 257, 8, 2, 64, 17),
+             (1, 700, 16, 8, 128, 0)]
+
+
+def _flash_inputs(gen, B, S, H, Hk, D, dtype):
+    return [torch.randn((B, S, h, D), generator=gen, device="cuda").to(dtype)
+            for h in (H, Hk, Hk)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K7_SHAPES)
+def test_flash_fwd(gen, shape, dtype):
+    B, S, H, Hk, D, window = shape
+    q, k, v = _flash_inputs(gen, B, S, H, Hk, D, dtype)
+    kw = dict(window=window, n_rep=H // Hk)
+    got = ff.flash_fwd_cuda(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, ff.flash_fwd_cuda(q, k, v, **kw))
+    rep = [t.repeat_interleave(H // Hk, dim=2) for t in (k, v)]
+    assert torch.equal(got, ff.flash_fwd_cuda(q, *rep, window=window))
+    want = ff.flash_fwd_plain(q, k, v, **kw)
+    tol = (dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-6))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_flash_fwd_wrapper_counts_launches_differentiates_and_refuses(gen):
+    from repro_torch.models.attention import flash_attend
+
+    q, k, v = (t.requires_grad_(True)
+               for t in _flash_inputs(gen, 1, 300, 4, 2, 32, torch.float32))
+    ops.reset_launches()
+    out = ops.flash_fwd(q, k, v, window=40, n_rep=2)
+    assert ops.LAUNCHES["flash_fwd"] == 1
+    ct = torch.randn(out.shape, generator=gen, device="cuda")
+    got = torch.autograd.grad(out, (q, k, v), ct)
+    ref = flash_attend(q, k, v, window=40, q_chunk=300, kv_chunk=300,
+                       n_rep=2)
+    want = torch.autograd.grad(ref, (q, k, v), ct)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    assert ops.LAUNCHES["flash_fwd"] == 1      # the backward launches no K7
+    q, k, v = (t.detach() for t in (q, k, v))
+    with pytest.raises(ValueError, match="head_dim"):
+        ff.flash_fwd_cuda(q[..., :24], k[..., :24], v[..., :24], n_rep=2)
+    with pytest.raises(ValueError, match="dtype"):
+        ff.flash_fwd_cuda(q.half(), k.half(), v.half(), n_rep=2)
+    with pytest.raises(ValueError, match="n_rep"):
+        ff.flash_fwd_cuda(q, k, v, n_rep=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ff.flash_fwd_cuda(q.cpu(), k, v, n_rep=2)
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        ops.flash_fwd(q, k.cpu(), v, n_rep=2)

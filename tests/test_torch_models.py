@@ -25,7 +25,7 @@ from repro.models import testing as jtesting
 from repro.models import transformer as jtransformer
 from repro_torch.configs import registry
 from repro_torch.convert import params_from_jax
-from repro_torch.models import attention, decode, testing, transformer
+from repro_torch.models import decode, testing, transformer
 
 ARCH = "qwen3-4b"
 S, CONTEXT, N_DECODE = 6, 12, 3
@@ -135,8 +135,9 @@ def test_unported_paths_raise():
     moe = testing.reduced_config("qwen2-moe-a2.7b")
     with pytest.raises(ValueError, match="not ported"):
         transformer.init_params(moe, torch.Generator(), torch.float32)
-    cfg = testing.reduced_config(ARCH)
-    with pytest.raises(NotImplementedError, match="flash_attend"):
-        attention.attend({}, cfg, torch.zeros((1, attention.FLASH_MIN_SEQ,
-                                               cfg.d_model)),
-                         torch.zeros((1, attention.FLASH_MIN_SEQ)))
+    # attend's flash branch (S >= FLASH_MIN_SEQ) is ported now
+    # (tests/test_torch_flash.py); training a non-dense family is not
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    with pytest.raises(NotImplementedError, match="dense only"):
+        make_train_step(moe, TrainConfig(), lambda step: step)

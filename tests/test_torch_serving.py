@@ -177,3 +177,16 @@ def test_sampler_config_mirrors_jax_fields():
     port = {f.name for f in dataclasses.fields(SamplerConfig)}
     ref = {f.name for f in dataclasses.fields(jsampler.SamplerConfig)}
     assert port == ref
+
+
+def test_serve_defaults_follow_the_device():
+    """On the card the kernels carry the path by default (K2-K5 through
+    the hopper backend, K6 through the hopper page impl); on the CPU the
+    plain torch backend and the gather stay the defaults."""
+    card = serve.parse_args(["--continuous", "--page-size", "16"])
+    assert (card.device, card.backend, card.page_impl) == (
+        "cuda", "hopper", "hopper")
+    cpu = serve.parse_args(["--device", "cpu"])
+    assert (cpu.backend, cpu.page_impl) == ("torch", "gather")
+    chosen = serve.parse_args(["--backend", "torch", "--page-impl", "gather"])
+    assert (chosen.backend, chosen.page_impl) == ("torch", "gather")
