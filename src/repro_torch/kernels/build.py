@@ -98,10 +98,15 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+        lib = _LIBS[name] = load(_target(name))
+    return lib
+
+
+def load(path) -> ctypes.CDLL:
+    """A built kernel library, with its error-string entry point typed."""
+    lib = ctypes.CDLL(str(path))
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -19,13 +19,16 @@ Tolerances and why:
     apart; at bf16 both round to the same bf16 values.)
   * K6's plain version against JAX ``paged_attend(interpret=True)``:
     rtol = atol = 1e-5 in f32, the JAX test's own, and 1e-2 for bf16
-    inputs compared in f32 (bf16 rounding of the output);
+    inputs compared in f32 (bf16 rounding of the output); its split
+    version (the kernel's split-chain merge, any ``n_split``) at the same
+    f32 tolerance (the merge reorders the sums);
   * token streams: greedy, on a workload screened for ties (every step's
     top-1/top-2 logit gap above 10x the bf16 tolerance 2**-6 * max|logit|
     along JAX's own one-shot stream), equal to JAX's streams, dense and
     paged, and to one-shot streams per request.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -460,6 +463,46 @@ def test_k6_plain_matches_pallas_interpret(case, dtype):
     ops.reset_launches()
     assert torch.equal(ops.paged_attend(*targs, context=C), got)
     assert ops.LAUNCHES["paged_attend"] == 0
+
+
+# (P, C, n_kv, hd, L, n_heads, positions, live pages per row): a page
+# size that does not divide the context (5 | 12), L = 3 verify positions
+# with a row that wraps and a row that sees page 0 only, so later splits
+# hold only masked rows; and a chain whose tail names the null page
+K6_SPLIT_CASES = {
+    "P5C12_L3": (5, 12, 2, 16, 3, 4, [1, 9, 14], None),
+    "null_tail": (4, 16, 2, 8, 1, 4, [5, 6], 2),
+}
+
+
+@functools.cache
+def _k6_split_case(case):
+    P, C, nkv, hd, L, nq, pos, live = K6_SPLIT_CASES[case]
+    B, chain_len = len(pos), paged.pages_for(C, P)
+    pk, pv, table, q = _paged_state(5, B * chain_len + 1, P, nkv, hd, B, L,
+                                    nq, chain_len)
+    if live is not None:
+        table[:, live:] = 0
+    want = np.asarray(jpaged_attend(
+        jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(table),
+        jnp.asarray(pos, jnp.int32), jnp.asarray(q), context=C,
+        interpret=True))
+    return [torch.from_numpy(a) for a in (pk, pv, table)] + [
+        torch.tensor(pos, dtype=torch.int32), torch.from_numpy(q)], want
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, "chain"])
+@pytest.mark.parametrize("case", list(K6_SPLIT_CASES))
+def test_k6_split_plain_matches_pallas_interpret(case, n_split):
+    """The kernel's split-and-merge, mirrored by the plain version, at
+    split counts up to one page per split: splits whose pages are all
+    masked or null weigh exactly 0."""
+    args, want = _k6_split_case(case)
+    C = K6_SPLIT_CASES[case][1]
+    n = args[2].shape[1] if n_split == "chain" else n_split
+    got = pa.paged_attend_plain(*args, context=C, n_split=n)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    assert torch.isfinite(got).all()
 
 
 def test_k6_masks_the_null_page_exactly():

@@ -5,15 +5,22 @@ GPU machine run ``python -m pytest -m cuda tests/test_torch_cuda.py``
 (this file imports no JAX).  K1, K2 and K3 must match exactly; K4 and
 K5 within rtol=1e-5, atol=1e-6 (f32 sums in another order) and bit for
 bit from one run to the next; K6 within rtol=atol=1e-5 on f32 pools and
-1e-2 on bf16 pools compared in f32 (exp and the sums in another order),
-and bit for bit from one run to the next.  K7 (flash_fwd) within atol
-2e-5 / rtol 1e-4 on f32 (JAX's own K7 tolerance: the online softmax
-rescales at other tile edges) and one bf16 ulp on bf16 (rtol 2**-7,
-atol 1e-6: both round the same f32 sums to bf16), bit for
-bit from one run to the next and between grouped GQA and K/V repeated to
-every head (the same values summed in the same order); its gradients
-against the chunked flash_attend's on the card within 1e-4 (the same
-backward, another forward summation).
+one bf16 ulp on bf16 pools compared in f32 (exp and the sums in another
+order), against the plain version with one split and with the kernel's
+own split count (1 to 34 splits, masked splits included), and bit for
+bit from one run to the next.  K7 (flash_fwd) within atol 2e-5
+/ rtol 1e-4 on f32 (JAX's own K7 tolerance: the online softmax rescales
+at other tile edges); on bf16 (tensor cores, p rounded to bf16 before
+P.V) by ``flash_fwd.bf16_check``: its largest |diff| from the f32
+reference on the same inputs at most the bf16 plain version's plus one
+bf16 ulp, and every element within one bf16 ulp of itself plus one of
+its row's largest of the bf16 plain version at the kernel's key tile;
+and that check fails kernels built with faults planted in rows past
+2560 of 4096.  Both dtypes bit for bit from one run to the next and
+between grouped GQA and K/V repeated to every head (the same values
+summed in the same order); its gradients against the chunked
+flash_attend's on the card within 1e-4 (the same backward, another
+forward summation).
 """
 import pytest
 import torch
@@ -154,6 +161,30 @@ def test_paged_attend(gen, shape, dtype):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+# (slots, kv heads) whose split geometry at the served chain (34 pages of
+# 16, head_dim 128, n_rep 4) gives 9, 17, 34 (one page each) and 1 split;
+# each has a slot at position 5, whose later splits see only masked pages
+K6_SPLITS = [(4, 8), (2, 4), (1, 2), (33, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,nkv", K6_SPLITS)
+def test_paged_attend_splits(gen, B, nkv, dtype):
+    """The kernel against the plain version's split and merge at the same
+    split count; splits with no valid page weigh 0."""
+    P, C = 16, 544
+    pos = [5, 300, 543, 600][:B] + [37 * i % 700 for i in range(B - 4)]
+    args = _paged_inputs(gen, P, C, nkv, 128, 1, 4 * nkv, pos, dtype)
+    n_split = pa.split_geometry(B, nkv, -(-C // P))[0]
+    assert n_split == {(4, 8): 9, (2, 4): 17, (1, 2): 34, (33, 8): 1}[B, nkv]
+    got = pa.paged_attend_cuda(*args, context=C)
+    assert torch.equal(got, pa.paged_attend_cuda(*args, context=C))
+    want = pa.paged_attend_plain(*args, context=C, n_split=n_split)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-6))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
 def test_new_wrappers_count_launches_and_refuse_bad_input(gen):
     ops.reset_launches()
     ops.taylor_sincos_eval(torch.ones(3, device="cuda"), terms=4)
@@ -174,13 +205,17 @@ def test_new_wrappers_count_launches_and_refuse_bad_input(gen):
                              context=8)
     with pytest.raises(ValueError, match="CUDA"):
         ops.paged_attend(pk.cpu(), pv, table, pos, q, context=8)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_attend_cuda(*(t[..., :8].contiguous() for t in (pk, pv)),
+                             table, pos, q[..., :8].contiguous(), context=8)
 
 
 # (B, S, heads, kv heads, head_dim, window): one row, ragged S with GQA,
-# a band, n_rep 4 with a band that skips tiles, and the training heads
+# a band, n_rep 4 with a band that skips tiles, the training heads, and
+# the training length
 K7_SHAPES = [(1, 1, 2, 2, 16, 0), (2, 130, 4, 2, 32, 0),
              (1, 1000, 2, 2, 128, 128), (2, 257, 8, 2, 64, 17),
-             (1, 700, 16, 8, 128, 0)]
+             (1, 700, 16, 8, 128, 0), (1, 4096, 4, 2, 128, 0)]
 
 
 def _flash_inputs(gen, B, S, H, Hk, D, dtype):
@@ -199,10 +234,60 @@ def test_flash_fwd(gen, shape, dtype):
     assert torch.equal(got, ff.flash_fwd_cuda(q, k, v, **kw))
     rep = [t.repeat_interleave(H // Hk, dim=2) for t in (k, v)]
     assert torch.equal(got, ff.flash_fwd_cuda(q, *rep, window=window))
-    want = ff.flash_fwd_plain(q, k, v, **kw)
-    tol = (dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32
-           else dict(rtol=2 ** -7, atol=1e-6))
-    torch.testing.assert_close(got.float(), want.float(), **tol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ff.flash_fwd_plain(q, k, v, **kw),
+                                   rtol=1e-4, atol=2e-5)
+    else:
+        accuracy = ff.bf16_check(got, q, k, v, **kw)
+        assert accuracy.ok, str(accuracy)
+
+
+# Faults planted in a copy of the bf16 kernel's source, each confined to
+# query rows past 2560 (keys at or past 2560 at head_dim 128's 64-key
+# tiles): the P.V of one key tile dropped, one rescale of acc skipped,
+# and the diagonal key masked.
+_PV = "pv_tile<D>(o, pa, s_v + prev * G::kKvBytes);"
+_RESCALE = "rescale(o, corr);\n    mbar_wait(bar_v + 8 * prev"
+_MASK = "if (kpos > qpos || (window"
+_AT_2560 = "if ((kt_lo + it - 1) * kKeys != 2560) "
+K7_FAULTS = {
+    "tile dropped": (_PV, _AT_2560 + _PV),
+    "rescale skipped": (_RESCALE, _AT_2560 + _RESCALE),
+    "diagonal masked": (_MASK, "if (kpos > qpos || (qpos >= 2560 && kpos == "
+                               "qpos) || (window"),
+}
+
+
+def test_flash_fwd_bf16_check_fails_planted_faults(gen, tmp_path,
+                                                   monkeypatch):
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    q, k, v = _flash_inputs(gen, 1, 4096, 4, 2, 128, torch.bfloat16)
+    assert ff.bf16_check(ff.flash_fwd_cuda(q, k, v, n_rep=2), q, k, v,
+                         n_rep=2).ok
+    procs = {}
+    for i, (name, (old, new)) in enumerate(K7_FAULTS.items()):
+        src = tmp_path / f"fault{i}"
+        shutil.copytree(build.CSRC, src)
+        text = (src / "flash_fwd.cu").read_text()
+        assert text.count(old) == 1, name
+        (src / "flash_fwd.cu").write_text(text.replace(old, new))
+        procs[name] = (src / "flash_fwd.so", subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(src / "flash_fwd.so"),
+             str(src / "flash_fwd.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    for name, (lib, proc) in procs.items():
+        out, _ = proc.communicate(timeout=build.NVCC_TIMEOUT_S)
+        assert proc.returncode == 0, out
+        monkeypatch.setattr(ff, "_entry", lambda lib=lib: ff.bind(
+            build.load(lib)))
+        accuracy = ff.bf16_check(ff.flash_fwd_cuda(q, k, v, n_rep=2), q, k,
+                                 v, n_rep=2)
+        print(f"K7 planted fault '{name}': {accuracy}")
+        assert not accuracy.ok, name
 
 
 def test_flash_fwd_wrapper_counts_launches_differentiates_and_refuses(gen):

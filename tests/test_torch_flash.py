@@ -8,10 +8,12 @@ runs in Pallas interpret mode, as its own tests run it.  Tolerances:
   * gradients: atol 5e-4, rtol 1e-3, JAX's own for K7's vjp;
   * bf16 ``flash_attend``: atol 1e-2, rtol 1e-2 compared in f32: both
     packages cast p to bf16 before P.V and the output to bf16, so a
-    rounding flip moves an output by one bf16 ulp (2**-8 relative);
+    rounding flip moves an output by one bf16 ulp (2**-8 relative); the
+    bf16 plain K7 against JAX's bf16 ``flash_attend`` at the same: it
+    rounds p to bf16 too (JAX also rounds each chunk's P.V to bf16);
   * the port's bf16 ``attend`` against JAX's: atol 3e-2 compared in f32:
-    K7 keeps p in f32 where JAX's ``flash_attend`` casts it to bf16, and
-    the bf16 projections before and after round in other places;
+    the bf16 projections before and after attention round in other
+    places, and JAX rounds each chunk's P.V to bf16;
   * grouped GQA against repeated K/V: bit for bit for K7's plain version
     (it reads kv head h // n_rep, the same values), 2e-5 for
     ``flash_attend`` (its grouped einsums sum in another order).
@@ -94,6 +96,37 @@ def test_flash_attend_bf16_matches_jax():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("n_rep", [1, 2])
+def test_plain_k7_bf16_matches_jax_flash_attend(n_rep):
+    q, k, v = _qkv(2, 512, 2 * n_rep, 32, seed=10, n_kv=2)
+    want = jattention.flash_attend(*_j(q, k, v, dtype=jnp.bfloat16),
+                                   causal=True, q_chunk=128, kv_chunk=128,
+                                   n_rep=n_rep)
+    got = ff.flash_fwd_plain(*_t(q, k, v, dtype=torch.bfloat16),
+                             n_rep=n_rep, q_chunk=128, kv_chunk=128)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=1e-2, rtol=1e-2)
+
+
+def test_bf16_check_passes_the_tiled_plain_version_and_fails_a_dropped_tile():
+    """``flash_fwd.bf16_check``, which holds the bf16 kernel on the card:
+    the bf16 plain version at the kernel's key tile (128 at head_dim 32,
+    the tile the test above holds against JAX) passes it; the same with
+    the P.V of one key tile dropped, for the rows past that tile, fails."""
+    q, k, v = _t(*_qkv(1, 512, 2, 32, seed=12, n_kv=1), dtype=torch.bfloat16)
+    tile = ff.tc_kv_tile(32)
+    good = ff.flash_fwd_plain(q, k, v, n_rep=2, kv_chunk=tile)
+    accuracy = ff.bf16_check(good, q, k, v, n_rep=2)
+    assert accuracy.ok and accuracy.worst == 0, str(accuracy)
+    v_dropped = v.clone()
+    v_dropped[:, 256:256 + tile] = 0
+    bad = ff.flash_fwd_plain(q, k, v_dropped, n_rep=2, kv_chunk=tile)
+    assert torch.equal(bad[:, :256], good[:, :256])
+    assert not ff.bf16_check(bad, q, k, v, n_rep=2).ok
 
 
 def test_flash_attend_banded_ragged_matches_dense_reference():
