@@ -6,13 +6,21 @@
 Phases, one line each (a failed phase raises and the script exits non-zero):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
      TF32 is switched off for matmuls and cuDNN.
-  2. the kernel build: every csrc/*.cu through nvcc, in parallel, timed.
+  2. the kernel build: every csrc/*.cu through nvcc, in parallel, timed;
+     ptxas's registers, shared memory and spills for every kernel, and the
+     SASS of K1's library counted for IEEE division (FCHK, MUFU.RCP,
+     CALL) kernel by kernel.
   3. each kernel against its plain PyTorch version on the card, at its
      path's shapes: K2-K5 at the sampler's (B=4, V=151936, M=31 and M=1)
      and at ragged V (1000, 257): K2 and K3 bit for bit (K3 also against
      the generic engine loop over K2), K4 and K5 within rtol 1e-5 / atol
      1e-6 and bit for bit run to run; K1 at M in {1, 7, 31} and terms in
-     {10, 10**4}, bit for bit; K6 at the served decode shape (B=4, n_kv=8,
+     {10, 10**4}, bit for bit, timed against a latency bound (2 (terms - 1)
+     dependent steps of 4 FMA latencies at the card's top SM clock, the
+     FMA latency measured beside it) and beside the first version's
+     division (an __fdiv_rn a step, also with a zero numerator skipping
+     it); K3 with its cluster geometry, and with the other cluster size;
+     K6 at the served decode shape (B=4, n_kv=8,
      n_rep=4, head_dim 128, page 16, the chain of a 544-token context,
      L=1), at that shape with short positions (splits of the chain that
      hold only masked pages) and at L=3 with a page size that does not
@@ -83,7 +91,10 @@ rate (989 TFLOP/s); the achieved TFLOP/s is printed beside it.
 The line before the last is a JSON object listing the kernels, each with
 the path its launch count was read on ("serve": phase 5; "solves": phase
 4, for K2, which the static-k serve does not launch; "paper": phase 8;
-"continuous": phase 9; "train": phase 11, for K7); the last line is
+"continuous": phase 9; "train": phase 11, for K7).  Each entry's
+bound_ms is the larger of its bytes and operations bounds; K1's chain of
+dependent steps is bounded by latency instead, which its entry carries
+as latency_bound_ms beside the operations bound.  The last line is
 {"ok": true, "device": {...}}.
 Nothing is printed as a result when torch sees no CUDA device or the
 port's sources are not beside this file.
@@ -113,6 +124,10 @@ CONT_ARGV = ["--arch", "qwen3-4b", "--continuous", "--requests", "8",
              "--new-tokens", "32", "--page-size", "16", "--page-impl",
              "hopper"] + SAMPLER_ARGV
 K1_TERMS = 10_000                 # the paper's term count
+# K1's latency bound: a bit-exact step is 4 dependent operations (the
+# numerator's multiply, q0, rho, q: csrc/taylor_eval.cu) of 4 cycles each
+# (an f32 FMA's dependent-issue latency)
+K1_CHAIN_DEPTH, FMA_LATENCY = 4, 4
 # K6 at the served decode shape: B=4 slots, n_kv=8, n_rep=4, head_dim 128,
 # page 16, the 34-page chain of a 512 + 32 token context
 K6_PATH = dict(B=4, nkv=8, nq=32, hd=128, P=16, C=544, L=1,
@@ -193,6 +208,15 @@ def bound_ms(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def max_sm_clock_hz() -> float:
+    """The card's top SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
 def phase_card():
     import torch
 
@@ -216,9 +240,60 @@ def phase_build():
     say(f"phase 2 build: {len(build.SOURCES)} kernels in {seconds:.1f}s "
         f"(parallel nvcc, sm_90a)")
     for name in build.SOURCES:
+        kernel = ""
         for line in build.BUILD_LOG.get(name, "").splitlines():
-            if "Used" in line or "spill" in line:
-                say(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1] if "'" in line else ""
+            elif "Used" in line or "spill" in line:
+                say(f"  ptxas {name} {_short(kernel)}: {line.strip()}")
+    say(f"  sass taylor_eval: {_sass_division_sites('taylor_eval')}")
+
+
+def _short(symbol: str) -> str:
+    """A kernel's name from its mangled symbol (the last name of a nested
+    one), with a bool template argument as <true> / <false>."""
+    i = 3 if symbol.startswith("_ZN") else 2 if symbol.startswith("_Z") else 0
+    name = ""
+    while i and i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        name, i = symbol[j:j + int(symbol[i:j])], j + int(symbol[i:j])
+        if not symbol.startswith("_ZN"):
+            break
+    rest = symbol[i:]
+    return (name or symbol[:40]) + ("<true>" if rest.startswith("ILb1E") else
+                                    "<false>" if rest.startswith("ILb0E")
+                                    else "")
+
+
+def _sass_division_sites(name: str) -> str:
+    """Per kernel of a built library, the SASS instructions of IEEE f32
+    division: FCHK (the range check that sends an operand to the slow
+    path), MUFU.RCP and CALL (the slow path's subroutine); "not measured"
+    where the toolkit has no cuobjdump."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return "not measured (no cuobjdump)"
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = _short(line.split("Function :")[1].strip())
+            counts[fn] = {"FCHK": 0, "MUFU.RCP": 0, "CALL": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                if op in line:
+                    counts[fn][op] += 1
+    return "; ".join(f"{fn} " + " ".join(f"{op} {n}" for op, n in c.items())
+                     for fn, c in counts.items())
 
 
 def phase_kernels(gen):
@@ -288,16 +363,26 @@ def phase_kernels(gen):
     # per step of the serial bisection it equals bit for bit (the other
     # 2**spec_k - 1 - spec_k candidates of a round are runahead's spare work)
     n_cmp = 2 + 1 + kw["rounds"] * kw["spec_k"]
+    clusters, size = rt.cluster_geometry(PATH_B, PATH_V)
+    k3_ms = device_ms(lambda: ops.runahead_topk_threshold(x, **kw))
+    topk_ms = device_ms(lambda: torch.topk(x, 40, dim=-1))
+    other = 8 if clusters == 16 else 16
+    ms_other = device_ms(lambda: rt.runahead_topk_threshold_cuda(
+        x, clusters=other, **kw))
     rows["runahead_topk_threshold"] = dict(
         source="src/repro_torch/kernels/csrc/runahead_threshold.cu",
         replaces="src/repro/kernels/runahead_threshold.py:123",
-        max_abs_err=err,
-        ms=device_ms(lambda: ops.runahead_topk_threshold(x, **kw)),
+        max_abs_err=err, ms=k3_ms,
         call_ms=call_ms(lambda: ops.runahead_topk_threshold(x, **kw)),
         plain_ms=device_ms(
             lambda: rt.runahead_topk_threshold_plain(x, **kw), calls=2),
         bound=bound_ms(4 * (x.numel() + 2 * PATH_B), 2 * x.numel() * n_cmp),
-        library_ms=device_ms(lambda: torch.topk(x, 40, dim=-1)))
+        library_ms=topk_ms,
+        note=f"a cluster of {clusters} CTAs per row, {size} elements "
+             f"({size * 4 / 1024:.1f} KiB) of shared memory each: "
+             f"{PATH_B * clusters} CTAs of the card's 132 SMs for "
+             f"B={PATH_B}; {k3_ms / topk_ms:.3f}x torch.topk; {other} CTAs "
+             f"a row {ms_other:.4f} ms")
 
     # K4: multi_mass, tolerance and bit-stable run to run
     err = 0.0
@@ -359,7 +444,9 @@ def phase_kernels(gen):
         say(f"phase 3 {name}: parity ok (max_abs_err {r['max_abs_err']:.3g}) "
             f"| device {r['ms']:.4f} ms per call ({r['call_ms']:.4f} ms with "
             f"the host's launch), plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound'][0]:.6f} ms ({r['bound'][1]})"
+            + (f"{r['latency_bound'][0]:.6f} ms (latency; the operations "
+               f"bound {r['bound'][0]:.6f} ms)" if "latency_bound" in r else
+               f"{r['bound'][0]:.6f} ms ({r['bound'][1]})")
             + (f", {r['library']} {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
             + (f" | M=1 probe device {r['probe_ms']:.4f} ms"
@@ -385,12 +472,21 @@ def _rows_k1(gen):
                   f"terms={terms}")
     x = torch.rand((31,), generator=gen, device="cuda") + 1.0
     x1 = x[:1].clone()
-    # the dependent chain: per term and recurrence a multiply, a division,
-    # an add and the two-operation denominator
-    n_ops = 5 * 2 * (K1_TERMS - 1) * x.numel()
+    steps = 2 * (K1_TERMS - 1)
+    # operations: per term and recurrence a multiply, a division, an add
+    # and the two-operation denominator
+    n_ops = 5 * steps * x.numel()
+    # latency: each point is one chain of `steps` steps of K1_CHAIN_DEPTH
+    # dependent operations of FMA_LATENCY cycles at the card's top SM clock
+    f_sm = max_sm_clock_hz()
+    lat_ms = steps * K1_CHAIN_DEPTH * FMA_LATENCY / f_sm * 1e3
     ms = device_ms(lambda: ops.taylor_sincos_eval(x, terms=K1_TERMS), calls=5)
     ms1 = device_ms(lambda: ops.taylor_sincos_eval(x1, terms=K1_TERMS),
                     calls=5)
+    old_ms = [device_ms(lambda z=z: te.taylor_sincos_reference_cuda(
+        x, terms=K1_TERMS, zero_shortcut=z), calls=2, reps=3)
+        for z in (False, True)]
+    fma = te.fma_latency_cycles()
     return {"taylor_sincos_eval": dict(
         source="src/repro_torch/kernels/csrc/taylor_eval.cu",
         replaces="src/repro/kernels/taylor_eval.py:61", max_abs_err=0.0,
@@ -399,9 +495,15 @@ def _rows_k1(gen):
         plain_ms=device_ms(lambda: te.taylor_sincos_plain(x, terms=K1_TERMS),
                            calls=1, reps=3),
         bound=bound_ms(8 * x.numel(), n_ops), library_ms=None,
-        note=f"M=31, terms={K1_TERMS}: {ms / (2 * (K1_TERMS - 1)) * 1e6:.2f} "
-             f"ns per dependent term; M=1 (a serial step) device "
-             f"{ms1:.4f} ms")}
+        latency_bound=(lat_ms, "latency"),
+        note=f"M=31, terms={K1_TERMS}: {ms / steps * 1e6:.2f} ns per "
+             f"dependent term against the latency bound's "
+             f"{lat_ms / steps * 1e6:.2f} ({K1_CHAIN_DEPTH} x {FMA_LATENCY} "
+             f"cycles at {f_sm / 1e9:.3f} GHz; measured FMA latency "
+             f"{fma:.2f} cycles); M=1 (a serial step) device {ms1:.4f} ms; "
+             f"the first version's division (an __fdiv_rn a step) "
+             f"{old_ms[0]:.4f} ms, with a zero numerator skipping it "
+             f"{old_ms[1]:.4f} ms")}
 
 
 def _k6_inputs(gen, shape, dtype):
@@ -819,6 +921,12 @@ def phase_continuous():
         say(f"phase 9 profile: K6 (split and combine kernels) {k6_ms:.1f} ms "
             f"of {busy_ms:.1f} ms device busy ({k6_ms / busy_ms:.3f}), "
             f"{k6_ms / max(1, n_k6):.4f} ms per call ({n_k6} calls)")
+        k3 = [e for e in kernels if "runahead_topk" in e.key]
+        k3_ms = sum(e.self_device_time_total for e in k3) / 1e3
+        n_k3 = sum(e.count for e in k3)
+        say(f"phase 9 profile: K3 {k3_ms:.1f} ms of {busy_ms:.1f} ms device "
+            f"busy ({k3_ms / busy_ms:.3f}), {k3_ms / max(1, n_k3):.4f} ms per "
+            f"call ({n_k3} calls)")
 
     # the device part of a step never syncs; the token read stays outside
     server = serve.server_for(session)
@@ -1123,6 +1231,8 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"]))
+        if "latency_bound" in r:
+            kernels[-1]["latency_bound_ms"] = r["latency_bound"][0]
     say(f"total {time.perf_counter() - t0:.1f}s")
     say(smi)
     say(json.dumps({"kernels": kernels}))

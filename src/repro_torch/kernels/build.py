@@ -93,6 +93,11 @@ def build_all(names=SOURCES) -> float:
     return time.perf_counter() - t0
 
 
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s built library is (or will be)."""
+    return _target(name)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)

@@ -2,7 +2,9 @@
 
 Marked ``cuda``: each test skips where torch sees no CUDA device.  On a
 GPU machine run ``python -m pytest -m cuda tests/test_torch_cuda.py``
-(this file imports no JAX).  K1, K2 and K3 must match exactly; K4 and
+(this file imports no JAX).  K1, K2 and K3 must match exactly (K3's
+cluster kernel also against the CPU emulation of its scheme, K1's
+division step against the card's IEEE division); K4 and
 K5 within rtol=1e-5, atol=1e-6 (f32 sums in another order) and bit for
 bit from one run to the next; K6 within rtol=atol=1e-5 on f32 pools and
 one bf16 ulp on bf16 pools compared in f32 (exp and the sums in another
@@ -124,6 +126,137 @@ def test_taylor_sincos(gen, m, terms):
     x = torch.rand((m,), generator=gen, device="cuda") * 2.0 + 0.5
     assert torch.equal(te.taylor_sincos_cuda(x, terms=terms),
                        te.taylor_sincos_plain(x, terms=terms))
+
+
+# K3's cluster: (B, V, clusters, k, rounds, spec_k, rows) -- V around a
+# slice boundary (C*s - 1, C*s, C*s + 1), V < C, -inf lanes (lo0 = -inf),
+# 30 rounds (repeated grid points), spec_k 1 and 8, a row with +inf and
+# -inf (NaN midpoints: counted directly), no round, brackets that climb
+# until midpoints overflow (direct counting after compacting rounds); then
+# the served width at B = 1, 4 and 64 with the default geometry (16 CTAs
+# a row at B <= 8, else 8)
+CLUSTER_CASES = [
+    (3, 1023, 4, 40, 8, 5, "randn"), (3, 1024, 4, 40, 8, 5, "randn"),
+    (3, 1025, 4, 40, 8, 5, "randn"), (3, 3, 8, 2, 8, 5, "randn"),
+    (2, 10, 16, 3, 8, 3, "randn"), (3, 1000, 4, 40, 8, 5, "neg_inf"),
+    (3, 4096, 8, 40, 30, 5, "randn"), (3, 777, 2, 5, 10, 1, "randn"),
+    (3, 2000, 4, 40, 3, 8, "randn"), (3, 500, 4, 40, 8, 5, "both_inf"),
+    (1, 151936, None, 40, 8, 5, "randn"), (4, 151936, None, 40, 8, 5, "randn"),
+    (64, 151936, None, 40, 8, 5, "randn"),
+    (4, 151936, None, 40, 30, 5, "neg_inf"), (4, 151936, 16, 40, 8, 5, "randn"),
+    (4, 151935, 8, 1, 8, 5, "randn"), (4, 151937, 8, 40, 8, 8, "randn"),
+    (3, 700, 4, 40, 0, 5, "randn"), (3, 1000, 4, 40, 8, 2, "huge"),
+    (4, 151936, None, 40, 8, 2, "huge"), (4, 151936, 8, 40, 1, 5, "randn"),
+]
+
+
+@pytest.mark.parametrize("B,V,clusters,k_target,rounds,spec_k,kind",
+                         CLUSTER_CASES)
+def test_runahead_topk_cluster(gen, B, V, clusters, k_target, rounds, spec_k,
+                               kind):
+    """The cluster kernel bit for bit against the plain version, the
+    generic engine loop over K2 and the CPU emulation of its scheme."""
+    x = torch.randn((B, V), generator=gen, device="cuda") * 2.0
+    if kind == "neg_inf":
+        x[1, ::7] = float("-inf")
+        x[-1, 5:] = float("-inf")           # fewer real lanes than k
+    elif kind == "both_inf":
+        x[0, 3], x[0, 9] = float("inf"), float("-inf")
+    elif kind == "huge":
+        x[:, 0] = -1e38
+        x[:, 1:101] = torch.empty((B, 100), device="cuda").uniform_(
+            1.76e38, 1.8e38, generator=gen)
+    kw = dict(k_target=k_target, rounds=rounds, spec_k=spec_k)
+    got = rt.runahead_topk_threshold_cuda(x, clusters=clusters, **kw)
+    want = rt.runahead_topk_threshold_plain(x, **kw)
+    emulated = rt.runahead_topk_threshold_clustered(x, clusters=clusters, **kw)
+    prob = solver.problem("count_above", x, backend="hopper", k=k_target)
+    loop = solver._solve_rounds(prob.multi_eval, prob.lo0, prob.hi0,
+                                rounds=rounds, spec_k=spec_k)
+    for g, w, e, l in zip(got, want, emulated, loop):
+        bits = g.view(torch.int32)
+        assert torch.equal(bits, w.view(torch.int32))
+        assert torch.equal(bits, e.view(torch.int32))
+        assert torch.equal(bits, l.view(torch.int32))
+
+
+def test_runahead_topk_refuses_geometry_it_cannot_hold(gen):
+    x = torch.randn((2, 300), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="clusters"):
+        rt.runahead_topk_threshold_cuda(x, k_target=3, clusters=17)
+    wide = torch.zeros((1, 16 * rt.SLICE_MAX + 1), device="cuda")
+    with pytest.raises(ValueError, match="does not fit"):
+        rt.runahead_topk_threshold_cuda(wide, k_target=3)
+
+
+@pytest.mark.parametrize("m", [1, 31, 130])
+@pytest.mark.parametrize("terms", [1, 2, 3, 25, 2500, 10_000])
+def test_taylor_sincos_wide(gen, m, terms):
+    """Bit for bit (signed zeros included) at x in (-4, 4) and at 1, 2,
+    +0 and -0, through the zero tail of both series."""
+    x = torch.rand((m,), generator=gen, device="cuda") * 8.0 - 4.0
+    special = torch.tensor([1.0, 2.0, 0.0, -0.0], device="cuda")
+    x[:min(m, 4)] = special[:min(m, 4)]
+    got = te.taylor_sincos_cuda(x, terms=terms)
+    want = te.taylor_sincos_plain(x, terms=terms)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(
+        te.taylor_sincos_reference_cuda(x, terms=terms).view(torch.int32),
+        want.view(torch.int32))
+
+
+def test_taylor_division_matches_ieee(gen):
+    """K1's division step, RN(RN(t * x2n) / den), against the card's IEEE
+    multiply and division on 10**7 triples: the series' denominators and
+    adversarial ones (significands just below 2, up to 2**48); numerators
+    across the fast range, both zeros, subnormal and near-underflow ones,
+    huge and infinite ones; x2n tiny enough to leave the fast range."""
+    N = 10_000_000
+    dev = "cuda"
+
+    def u(lo, hi):
+        return torch.empty(N, device=dev).uniform_(lo, hi, generator=gen)
+
+    i = torch.randint(0, 100_000, (N,), generator=gen, device=dev).float()
+    first = torch.randint(1, 3, (N,), generator=gen, device=dev).float()
+    den = (2 * i + first) * (2 * i + (first + 1))
+    odd = torch.rand(N, generator=gen, device=dev) < 0.3
+    adversarial = torch.exp2(torch.floor(u(1, 48))) * (
+        2 - torch.floor(u(1, 2 ** 14)) * 2 ** -23)
+    den = torch.where(odd, adversarial, den)
+    x = u(-4, 4)
+    x = torch.where(torch.rand(N, generator=gen, device=dev) < 0.02,
+                    x * 2 ** -31, x)                    # |x2n| < 2**-60
+    x2n = -(x * x)
+    sign = torch.where(torch.rand(N, generator=gen, device=dev) < 0.5, -1.0,
+                       1.0).to(dev)
+    # the numerator's scale: mostly the fast range, then the region where
+    # t underflows (normal down to subnormal), then huge
+    scale = torch.exp2(u(-130, 60))
+    scale = torch.where(torch.rand(N, generator=gen, device=dev) < 0.1,
+                        torch.exp2(u(-160, -100)), scale)
+    scale = torch.where(torch.rand(N, generator=gen, device=dev) < 0.01,
+                        torch.exp2(u(100, 127)), scale)
+    t = sign * scale * (2 - torch.floor(u(0, 2 ** 23)) * 2 ** -23)
+    t = torch.where(torch.rand(N, generator=gen, device=dev) < 0.05,
+                    sign * 0.0, t)                      # +0 and -0
+    t[:4] = torch.tensor([float("inf"), float("-inf"), 1e-45, -1e-45],
+                         device=dev)
+    x2n[:4] = -1.0
+    got = te.taylor_division_cuda(t, x2n, den)
+    want = (t * x2n) / den
+    assert torch.equal(got.isnan(), want.isnan())
+    keep = ~want.isnan()
+    assert torch.equal(got[keep].view(torch.int32),
+                       want[keep].view(torch.int32))
+    n = (t * x2n).abs()
+    assert int((n == 0).sum()) > 100_000 and int(
+        ((n > 0) & (n < 2 ** -126)).sum()) > 10_000
+
+
+def test_fma_latency_probe(gen):
+    cycles = te.fma_latency_cycles(reps=200)
+    assert 1.0 <= cycles < 64.0
 
 
 # (P, context, n_kv, head_dim, L, n_heads, positions): page sizes that

@@ -18,6 +18,7 @@ from repro.kernels import runahead_threshold as jrt
 from repro_torch.core import solver
 from repro_torch.kernels import multi_count as mc
 from repro_torch.kernels import ops
+from repro_torch.kernels import runahead_threshold as rt
 
 B = 3
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -95,6 +96,84 @@ def test_runahead_topk_matches_pallas_and_generic_loop(V, k_target, rounds,
     for g, w, l in zip(got, want, loop):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
         np.testing.assert_array_equal(g.numpy(), l.numpy())
+
+
+# K3's cluster scheme (clusters, rows): V at a slice boundary (C*s - 1,
+# C*s, C*s + 1 with s = 256), V < C, rows with -inf lanes (lo0 = -inf),
+# 30 rounds (the bracket shrinks to a few ulps: repeated grid points),
+# spec_k 1 and 8, a row holding +inf and -inf (NaN midpoints: the kernel
+# counts directly), no round, and rows whose brackets climb to where
+# midpoints overflow (direct counting after rounds of compaction)
+CLUSTER_CASES = [
+    (1023, 4, 40, 8, 5, "randn"), (1024, 4, 40, 8, 5, "randn"),
+    (1025, 4, 40, 8, 5, "randn"), (3, 8, 2, 8, 5, "randn"),
+    (10, 16, 3, 8, 3, "randn"), (1000, 4, 40, 8, 5, "neg_inf"),
+    (4096, 8, 40, 30, 5, "randn"), (777, 2, 5, 10, 1, "randn"),
+    (2000, 4, 40, 3, 8, "randn"), (500, 4, 40, 8, 5, "both_inf"),
+    (700, 4, 40, 0, 5, "randn"), (1000, 4, 40, 8, 2, "huge"),
+]
+
+
+def _cluster_rows(V, kind):
+    x = _logits(V, seed=V)
+    if kind == "neg_inf":
+        x[1, ::7] = -np.inf
+        x[2, 5:] = -np.inf                # fewer real lanes than k
+    elif kind == "both_inf":
+        x[0, 3], x[0, 9] = np.inf, -np.inf
+        x[2, 11] = -np.inf
+    elif kind == "huge":
+        x = _huge_rows(x)
+    return x
+
+
+def _huge_rows(x):
+    """-1e38 and 100 values in [1.76e38, 1.8e38] among small ones: at
+    spec_k 2 two rounds compact, then the top-k bracket's midpoints
+    overflow and the kernel counts directly."""
+    rng = np.random.default_rng(x.shape[1])
+    x[:, 0] = -1e38
+    x[:, 1:101] = rng.uniform(1.76e38, 1.8e38, size=(x.shape[0], 100))
+    return x
+
+
+@pytest.mark.parametrize("V,clusters,k_target,rounds,spec_k,kind",
+                         CLUSTER_CASES)
+def test_runahead_topk_clustered_matches_plain_and_pallas(
+        V, clusters, k_target, rounds, spec_k, kind):
+    """The CUDA kernel's counting scheme, emulated (slices, binary search
+    over the grid, suffix sums of bins), bit for bit against the plain
+    version and the Pallas kernel in interpret mode."""
+    x = _cluster_rows(V, kind)
+    kw = dict(k_target=k_target, rounds=rounds, spec_k=spec_k)
+    got = rt.runahead_topk_threshold_clustered(torch.from_numpy(x),
+                                               clusters=clusters, **kw)
+    plain = rt.runahead_topk_threshold_plain(torch.from_numpy(x), **kw)
+    want = jrt.runahead_topk_threshold(jnp.asarray(x), interpret=True, **kw)
+    for g, p, w in zip(got, plain, want):
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      p.numpy().view(np.int32))
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      np.asarray(w).view(np.int32))
+
+
+def test_cluster_geometry():
+    """K3's split: 16 CTAs a row at the served vocab while B * 16 CTAs fit
+    the card's SMs, else 8; one CTA for a small row; 16 wherever 8 slices
+    would not fit shared memory; a clear refusal past 16 full CTAs."""
+    assert rt.cluster_geometry(4, 151936) == (16, 9496)
+    assert rt.cluster_geometry(8, 151936) == (16, 9496)
+    assert rt.cluster_geometry(9, 151936) == (8, 18992)
+    assert rt.cluster_geometry(64, 151936) == (8, 18992)
+    assert rt.cluster_geometry(3, 1000) == (1, 1000)
+    assert rt.cluster_geometry(3, 257) == (1, 260)
+    assert rt.cluster_geometry(64, 8 * rt.SLICE_MAX + 1)[0] == 16
+    for B, V in [(4, 151936), (1, 5), (2, 12289), (1, 16 * rt.SLICE_MAX)]:
+        clusters, size = rt.cluster_geometry(B, V)
+        assert size % 4 == 0 and size <= rt.SLICE_MAX
+        assert (clusters - 1) * size < V <= clusters * size
+    with pytest.raises(ValueError, match="does not fit"):
+        rt.cluster_geometry(1, 16 * rt.SLICE_MAX + 1)
 
 
 def test_wrappers_refuse_what_the_kernels_cannot_take():
