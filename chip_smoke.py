@@ -13,13 +13,19 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
   3. each kernel against its plain PyTorch version on the card, at its
      path's shapes: K2-K5 at the sampler's (B=4, V=151936, M=31 and M=1)
      and at ragged V (1000, 257): K2 and K3 bit for bit (K3 also against
-     the generic engine loop over K2), K4 and K5 within rtol 1e-5 / atol
-     1e-6 and bit for bit run to run; K1 at M in {1, 7, 31} and terms in
-     {10, 10**4}, bit for bit, timed against a latency bound (2 (terms - 1)
-     dependent steps of 4 FMA latencies at the card's top SM clock, the
-     FMA latency measured beside it) and beside the first version's
-     division (an __fdiv_rn a step, also with a zero numerator skipping
-     it); K3 with its cluster geometry, and with the other cluster size;
+     the generic engine loop over K2, and on rows holding NaN, whose
+     bracket is (NaN, NaN)), K4 and K5 within rtol 1e-5 / atol 1e-6 (K5 at
+     the engine's extreme temperatures 0.05 and 20 too), bit for bit run
+     to run and between an eager call and CUDA-graph replay, one kernel
+     launch a call (profiled), with K5's bound restated for its
+     exponentials on the SFU and the stage clock of K4 and K5 (where a
+     call's time goes, csrc/row_reduce.cuh); K1 at M in {1, 7, 31} and
+     terms in {10, 10**4}, bit for bit, timed against a latency bound
+     (2 (terms - 1) dependent steps of 4 FMA latencies at the card's top
+     SM clock, the FMA latency measured beside it) and beside the first
+     version's division (an __fdiv_rn a step, also with a zero numerator
+     skipping it); K3 with its cluster geometry, and with the other
+     cluster size;
      K6 at the served decode shape (B=4, n_kv=8,
      n_rep=4, head_dim 128, page 16, the chain of a 544-token context,
      L=1), at that shape with short positions (splits of the chain that
@@ -43,7 +49,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
   6. a reference check: the sampler's masked logits on both backends, and
      greedy generate on reduced qwen3-4b, "hopper" against "torch".
   7. phase 5's serve.run on its session again, warm, timed, and once more
-     under torch.profiler (device busy time, idle share, top kernels).
+     under torch.profiler (device busy time, idle share, top kernels, and
+     the sampler kernels K3-K5 each).
   8. the paper path: repro_torch.launch.paper (its main, in-process): the
      Fig. 4 sweep (terms 10**4, n=24, k=1..5) and the Fig. 7 sweep (n=6,
      k=3, terms 10..5000) through K1, every runahead root equal to the
@@ -55,9 +62,10 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      over 4 slots on a paged cache (page 16) through K6 and the sampler
      kernels: every request served, K6 launched 36 times per decode step,
      K3 once and K4, K5 nine times per sample; tok/s, latency, host syncs
-     per step; a second run under torch.profiler; three decode steps of a
-     fresh server under set_sync_debug_mode("error") with the once-per-step
-     token read outside that window.
+     per step; a second run under torch.profiler (K6 and K3-K5 each);
+     three decode steps of a fresh server under
+     set_sync_debug_mode("error") with the once-per-step token read
+     outside that window.
  10. a reference check of the continuous path on reduced qwen3-4b (f32,
      prompts screened for greedy ties): paged K6 streams equal paged
      gather streams and the one-shot stream of every request.
@@ -112,6 +120,8 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+SFU_PER_CLOCK = 16              # exponentials an SM issues a clock (cc 9.0)
+FP32_LANES = 128                # FP32 lanes of an SM: one instruction each
 TOL = dict(rtol=1e-5, atol=1e-6)
 PATH_B, PATH_V, PATH_M = 4, 151936, 31
 SAMPLER_ARGV = ["--top-k", "40", "--top-p", "0.9", "--target-entropy", "3.0",
@@ -201,6 +211,60 @@ def call_ms(fn, reps: int = 20) -> float:
     return statistics.median(_event_ms(fn) for _ in range(reps))
 
 
+def replay_equals_eager(fn) -> bool:
+    """fn()'s outputs from a CUDA-graph replay of one call equal an eager
+    call's, bit for bit."""
+    import torch
+
+    def bits(out):
+        return [t.view(torch.int32) for t in
+                (out if isinstance(out, tuple) else (out,))]
+
+    want = bits(fn())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = bits(fn())
+    graph.replay()
+    torch.cuda.synchronize()
+    del graph
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def kernels_per_call(fn) -> dict:
+    """The device kernels one eager fn() call launches, by name, counted
+    under torch.profiler after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _stage_note(stages: dict) -> str:
+    """The stage clock (csrc/row_reduce.cuh): us since a call's first
+    block started, the median over blocks, then over 9 calls (min-max)."""
+    return ("stage clock, us since the first block's start (median over "
+            "blocks, then over 9 calls, min-max): " + ", ".join(
+                f"{stage} {med:.2f} ({lo:.2f}-{hi:.2f})"
+                for stage, (lo, med, hi) in stages.items()))
+
+
+def _one_kernel(fn, name: str) -> str:
+    """Checks that one eager fn() call launches the one device kernel
+    ``name`` and nothing else; says so."""
+    kernels = kernels_per_call(fn)
+    check(len(kernels) == 1 and all(name in k and n == 1
+                                    for k, n in kernels.items()),
+          f"a call launched {kernels}, not one {name}")
+    return f"1 {name} a call, profiled"
+
+
 def bound_ms(n_bytes: float, n_ops: float,
              ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -234,11 +298,12 @@ def phase_card():
 
 
 def phase_build():
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, row_reduce
 
-    seconds = build.build_all()
-    say(f"phase 2 build: {len(build.SOURCES)} kernels in {seconds:.1f}s "
-        f"(parallel nvcc, sm_90a)")
+    seconds = build.build_all(build.SOURCES + row_reduce.STAGE_BUILDS)
+    say(f"phase 2 build: {len(build.SOURCES)} kernels and "
+        f"{len(row_reduce.STAGE_BUILDS)} stage-clock variants in "
+        f"{seconds:.1f}s (parallel nvcc, sm_90a)")
     for name in build.SOURCES:
         kernel = ""
         for line in build.BUILD_LOG.get(name, "").splitlines():
@@ -304,6 +369,7 @@ def phase_kernels(gen):
     from repro_torch.kernels import multi_entropy as me
     from repro_torch.kernels import multi_mass as mm
     from repro_torch.kernels import ops
+    from repro_torch.kernels import row_reduce
     from repro_torch.kernels import runahead_threshold as rt
 
     dev = torch.device("cuda")
@@ -358,6 +424,20 @@ def phase_kernels(gen):
             check(torch.equal(g, w), f"K3 differs from plain at {(B, V)}")
             check(torch.equal(g, l), f"K3 differs from the loop at {(B, V)}")
             err = max(err, (g - w).abs().max().item())
+    # rows holding NaN (one lane; every lane): (NaN, NaN), as the plain
+    # version and the reference give
+    x = logits(PATH_B, PATH_V)
+    x[1, 40] = float("nan")
+    x[2] = float("nan")
+    got = rt.runahead_topk_threshold_cuda(x, **kw)
+    want = rt.runahead_topk_threshold_plain(x, **kw)
+    for g, w in zip(got, want):
+        check(torch.equal(g.isnan(), w.isnan())
+              and torch.equal(g[~g.isnan()].view(torch.int32),
+                              w[~w.isnan()].view(torch.int32))
+              and bool(g[1:3].isnan().all()),
+              f"K3 differs from plain on NaN rows: {g.tolist()} vs "
+              f"{w.tolist()}")
     x = logits(PATH_B, PATH_V)
     # the work the bracket needs: min, max, the sign at lo0, and one count
     # per step of the serial bisection it equals bit for bit (the other
@@ -382,7 +462,8 @@ def phase_kernels(gen):
              f"({size * 4 / 1024:.1f} KiB) of shared memory each: "
              f"{PATH_B * clusters} CTAs of the card's 132 SMs for "
              f"B={PATH_B}; {k3_ms / topk_ms:.3f}x torch.topk; {other} CTAs "
-             f"a row {ms_other:.4f} ms")
+             f"a row {ms_other:.4f} ms; rows holding NaN (one lane, a whole "
+             f"row) give (NaN, NaN) as the plain version")
 
     # K4: multi_mass, tolerance and bit-stable run to run
     err = 0.0
@@ -398,6 +479,17 @@ def phase_kernels(gen):
         err = max(err, (got - want).abs().max().item())
     p = torch.softmax(logits(PATH_B, PATH_V), dim=-1)
     taus = between(p, PATH_M)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f_sm = max_sm_clock_hz()
+    nb = row_reduce.blocks_per_row(PATH_B, PATH_V, sms)
+    one = _one_kernel(lambda: ops.multi_mass(p, taus), "multi_mass_kernel")
+    grid = (f"one launch per call ({one}); grid {PATH_B * nb} blocks of "
+            f"{row_reduce.THREADS} ({nb} a row) on {sms} SMs")
+    check(replay_equals_eager(lambda: mm.multi_mass_cuda(p, taus)),
+          "K4 differs between eager and CUDA-graph replay")
+    pairs = p.numel() * PATH_M
+    # a compare, a select and an add a pair, one FP32 lane each
+    issue_ms = 3 * pairs / (sms * FP32_LANES * f_sm) * 1e3
     rows["multi_mass"] = dict(
         source="src/repro_torch/kernels/csrc/multi_mass.cu",
         replaces="src/repro/kernels/multi_mass.py:65", max_abs_err=err,
@@ -405,16 +497,23 @@ def phase_kernels(gen):
         call_ms=call_ms(lambda: ops.multi_mass(p, taus)),
         plain_ms=device_ms(lambda: mm.multi_mass_plain(p, taus)),
         probe_ms=device_ms(lambda: ops.multi_mass(p, taus[:, :1])),
-        bound=bound_ms(4 * (p.numel() + 2 * taus.numel()),
-                       2 * p.numel() * PATH_M), library_ms=None)
+        bound=bound_ms(4 * (p.numel() + 2 * taus.numel()), 3 * pairs),
+        library_ms=None,
+        note=f"{grid}; eager == graph replay bit for bit; instruction "
+             f"issue of 3 a pair {issue_ms:.6f} ms ({FP32_LANES} FP32 lanes "
+             f"x {sms} SMs at {f_sm / 1e9:.3f} GHz); " + _stage_note(
+                 row_reduce.stage_times("multi_mass", p, taus, 1)))
 
     # K5: multi_entropy_moments, tolerance and bit-stable run to run
     err = 0.0
     for B, V, M in shapes:
         x = logits(B, V)
         z = x - x.amax(-1, keepdim=True)
-        ts = torch.exp(torch.empty((B, M + 2), device=dev).uniform_(
-            -3.0, 3.0, generator=gen))[:, 1:-1]
+        grid = torch.exp(torch.empty((B, M + 2), device=dev).uniform_(
+            -3.0, 3.0, generator=gen))
+        grid[:, -2] = 20.0                # the engine's bracket (t_hi)
+        grid[:, 1] = 0.05                 # (t_lo)
+        ts = grid[:, 1:-1]
         got = me.multi_entropy_moments_cuda(z, ts)
         again = me.multi_entropy_moments_cuda(z, ts)
         want = me.multi_entropy_moments_plain(z, ts)
@@ -426,6 +525,17 @@ def phase_kernels(gen):
     z = x - x.amax(-1, keepdim=True)
     ts = torch.exp(torch.empty((PATH_B, PATH_M + 2), device=dev).uniform_(
         -3.0, 3.0, generator=gen))[:, 1:-1]
+    check(replay_equals_eager(lambda: me.multi_entropy_moments_cuda(z, ts)),
+          "K5 differs between eager and CUDA-graph replay")
+    pairs = z.numel() * PATH_M
+    # one exponential a pair on the SFU, and 4 FP32 flops (a multiply, an
+    # add, an FMA); the larger bounds
+    sfu_ms = pairs / (sms * SFU_PER_CLOCK * f_sm) * 1e3
+    fp32 = bound_ms(4 * (z.numel() + 3 * ts.numel()), 4 * pairs)
+    one = _one_kernel(lambda: ops.multi_entropy_moments(z, ts),
+                      "multi_entropy_kernel")
+    grid = (f"one launch per call ({one}); grid {PATH_B * nb} blocks of "
+            f"{row_reduce.THREADS} ({nb} a row) on {sms} SMs")
     rows["multi_entropy_moments"] = dict(
         source="src/repro_torch/kernels/csrc/multi_entropy.cu",
         replaces="src/repro/kernels/multi_entropy.py:84", max_abs_err=err,
@@ -433,8 +543,13 @@ def phase_kernels(gen):
         call_ms=call_ms(lambda: ops.multi_entropy_moments(z, ts)),
         plain_ms=device_ms(lambda: me.multi_entropy_moments_plain(z, ts)),
         probe_ms=device_ms(lambda: ops.multi_entropy_moments(z, ts[:, :1])),
-        bound=bound_ms(4 * (z.numel() + 3 * ts.numel()),
-                       5 * z.numel() * PATH_M), library_ms=None)
+        bound=max((sfu_ms, "operations"), fp32), library_ms=None,
+        note=f"{grid}; eager == graph replay bit for bit; bound: one "
+             f"exponential a pair at the SFU's {SFU_PER_CLOCK} a clock per "
+             f"SM ({sms} SMs at {f_sm / 1e9:.3f} GHz) {sfu_ms:.6f} ms, "
+             f"beside 4 FP32 flops a pair and the bytes {fp32[0]:.6f} ms "
+             f"({fp32[1]}); " + _stage_note(
+                 row_reduce.stage_times("multi_entropy", z, ts, 2)))
 
     rows["runahead_topk_threshold"]["library"] = "torch.topk"
     rows.update(_rows_k1(gen))
@@ -798,6 +913,22 @@ def say_profile(phase: str, busy_ms: float, wall_ms: float, kernels,
             f"{e.key[:90]}")
 
 
+SAMPLER_KERNELS = (("K3", "runahead_topk"), ("K4", "multi_mass_kernel"),
+                   ("K5", "multi_entropy_kernel"))
+
+
+def say_kernel_times(phase: str, kernels, busy_ms: float) -> None:
+    """Each sampler kernel's device time under the profiler, its share of
+    the device's busy time, and its time a call."""
+    for label, key in SAMPLER_KERNELS:
+        sel = [e for e in kernels if key in e.key]
+        ms = sum(e.self_device_time_total for e in sel) / 1e3
+        n = sum(e.count for e in sel)
+        say(f"{phase} profile: {label} {ms:.2f} ms of {busy_ms:.1f} ms device "
+            f"busy ({ms / busy_ms:.4f}), {ms / max(1, n):.4f} ms per call "
+            f"({n} calls)")
+
+
 def phase_warm(session):
     """The one-shot serve.run on phase 5's session again, warm (nothing
     built or loaded for the first time), then once more under
@@ -813,6 +944,8 @@ def phase_warm(session):
     say(f"phase 7 warm serve: {n_tok} tokens in {warm_s:.3f}s = "
         f"{n_tok / warm_s:.1f} tok/s on {torch.cuda.get_device_name(0)}")
     say_profile("phase 7", busy_ms, wall_ms, kernels)
+    if kernels:
+        say_kernel_times("phase 7", kernels, busy_ms)
 
 
 def phase_paper():
@@ -921,12 +1054,7 @@ def phase_continuous():
         say(f"phase 9 profile: K6 (split and combine kernels) {k6_ms:.1f} ms "
             f"of {busy_ms:.1f} ms device busy ({k6_ms / busy_ms:.3f}), "
             f"{k6_ms / max(1, n_k6):.4f} ms per call ({n_k6} calls)")
-        k3 = [e for e in kernels if "runahead_topk" in e.key]
-        k3_ms = sum(e.self_device_time_total for e in k3) / 1e3
-        n_k3 = sum(e.count for e in k3)
-        say(f"phase 9 profile: K3 {k3_ms:.1f} ms of {busy_ms:.1f} ms device "
-            f"busy ({k3_ms / busy_ms:.3f}), {k3_ms / max(1, n_k3):.4f} ms per "
-            f"call ({n_k3} calls)")
+        say_kernel_times("phase 9", kernels, busy_ms)
 
     # the device part of a step never syncs; the token read stays outside
     server = serve.server_for(session)

@@ -13,5 +13,7 @@ kernels as the engine's ``"hopper"`` backend (imported lazily).
   paged_attend.py        K6  paged decode attention over a page table
   flash_fwd.py           K7  causal flash-attention forward (training,
                              long prefill), with its autograd rule
+  row_reduce.py              K4 and K5's shared grid, scratch, launch and
+                             stage clock (csrc/row_reduce.cuh)
   blocks.py                  chunk geometry (divisor_chunk)
 """

@@ -7,8 +7,10 @@ a plain C interface,
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so
 
 keyed by a hash of the source, the shared headers and the flags, so an
-edited source rebuilds and an unchanged one loads at once.  No fast-math
-flag is passed: the kernels' parity contracts need IEEE division and expf.
+edited source rebuilds and an unchanged one loads at once.  A variant
+adds -D flags (``library(name, defines)``: the row_reduce kernels' stage
+clock).  No fast-math flag is passed: the kernels' parity contracts need
+IEEE division and expf.
 ``build_all`` starts one nvcc per source, all at once.  Nothing here runs
 at import time: the CPU tests import every module without nvcc.
 """
@@ -33,7 +35,7 @@ NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_TIMEOUT_S = 600
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-BUILD_LOG: dict[str, str] = {}        # name -> nvcc output of the last build
+BUILD_LOG: dict[str, str] = {}        # label -> nvcc output of the last build
 
 
 def _nvcc() -> str:
@@ -47,31 +49,48 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
+def _job(job) -> tuple[str, tuple[str, ...]]:
+    """A build job: a source's name, or (name, defines) for a variant
+    compiled with a -D flag for each define."""
+    return (job, ()) if isinstance(job, str) else (job[0], tuple(job[1]))
+
+
+def label(job) -> str:
+    """A job's key in ``BUILD_LOG``: the name, then ``+DEFINE`` each."""
+    name, defines = _job(job)
+    return "+".join((name, *defines))
+
+
+def _target(job) -> Path:
+    name, defines = _job(job)
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     h = hashlib.sha256()
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    stem = "-".join((name, *(d.lower() for d in defines)))
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=SOURCES) -> float:
-    """Compile every source in ``names`` not built yet, one nvcc process
-    each, all started together.  Returns the wall seconds; raises with the
-    compiler's output if any build fails."""
+    """Compile every job in ``names`` (see ``_job``) not built yet, one
+    nvcc process each, all started together.  Returns the wall seconds;
+    raises with the compiler's output if any build fails."""
     t0 = time.perf_counter()
     nvcc = None
     procs = {}
-    for name in names:
-        target = _target(name)
+    for job in names:
+        name, defines = _job(job)
+        target = _target(job)
         if target.exists():
             continue
         nvcc = nvcc or _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        procs[name] = (target, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        procs[label(job)] = (target, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     try:
@@ -98,12 +117,14 @@ def library_path(name: str) -> Path:
     return _target(name)
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    lib = _LIBS.get(name)
+def library(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (compiled with a -D flag
+    for each of ``defines``), built on first use."""
+    job = (name, tuple(defines))
+    lib = _LIBS.get(label(job))
     if lib is None:
-        build_all((name,))
-        lib = _LIBS[name] = load(_target(name))
+        build_all((job,))
+        lib = _LIBS[label(job)] = load(_target(job))
     return lib
 
 

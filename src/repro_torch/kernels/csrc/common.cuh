@@ -1,4 +1,4 @@
-// Shared helpers for the hand-written kernels (K1-K6).
+// Shared helpers for the hand-written kernels (K1-K7).
 //
 // Every C entry point of these libraries returns cudaGetLastError() as an
 // int; the Python wrapper raises when it is not 0 and asks
@@ -31,24 +31,6 @@ __device__ __forceinline__ int warp_sum_i32(int v) {
   return v;
 }
 
-// Second pass of the two-pass float reductions (K4, K5): out[b, j] is the
-// sum of partial[b, c, j] over the chunks c, taken in chunk order 0, 1, ...
-// Grid (ceil(width / blockDim), B).
-__global__ void sum_chunks_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ out, int n_chunks,
-                                  int width) {
-  const int b = blockIdx.y;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= width) return;
-  const float* p = partial + static_cast<long long>(b) * n_chunks * width + j;
-  float s = 0.0f;
-  for (int c = 0; c < n_chunks; ++c) s = __fadd_rn(s, p[static_cast<long long>(c) * width]);
-  out[static_cast<long long>(b) * width + j] = s;
-}
-
-inline void launch_sum_chunks(const float* partial, float* out, int B,
-                              int n_chunks, int width, cudaStream_t stream) {
-  const int threads = 128;
-  dim3 grid((width + threads - 1) / threads, B);
-  sum_chunks_kernel<<<grid, threads, 0, stream>>>(partial, out, n_chunks, width);
-}
+// Only a NaN is unequal to itself (no fast-math flag is passed: see
+// kernels/build.py).
+__device__ __forceinline__ bool is_nan(float x) { return x != x; }

@@ -57,7 +57,13 @@
 //      the bulk-copied body); barrier.cluster; warp 0 of every CTA reads
 //      the C partials through distributed shared memory (map_shared_rank)
 //      and forms lo0 = min - 1, hi0 = max + 1.  fminf/fmaxf do not depend
-//      on order, so any split gives the same bits.
+//      on order, so any split gives the same bits.  They skip a NaN, and
+//      the reference's jnp.min / jnp.max do not, so each thread carries a
+//      flag of the NaN lanes it loaded; a warp with one makes its min and
+//      max NaN, and from there on min_nan / max_nan let NaN win.  A row
+//      holding a NaN gets lo0 = hi0 = NaN, a grid of NaN, direct counts of
+//      0 at every point, and the final bracket (NaN, NaN), as the plain
+//      version gives.
 //   2. each round warp 0 of every CTA builds the same midpoint grid from
 //      the same (lo, hi) with the same _rn operations; the CTA counts its
 //      lists into n partial counts; warps q < C push them into CTA q's
@@ -75,7 +81,8 @@
 //
 // It mirrors the Pallas kernel step for step, and so equals the generic
 // engine loop over K2 bit for bit:
-//   * lo0 = min(row) - 1, hi0 = max(row) + 1 over the real lanes (:51-53);
+//   * lo0 = min(row) - 1, hi0 = max(row) + 1 over the real lanes, NaN if
+//     any lane is NaN (:51-53);
 //   * the sign of f(lo0) = k - count(row > lo0) comes from a count at lo0
 //     (:60), not from the engine's statically known sign;
 //   * midpoints are (a + b) / 2 in f32, level by level (:33-41);
@@ -133,6 +140,17 @@ static_assert(sizeof(Static) + dyn_bytes(kSliceMax, kMaxN, kMaxClusters) <=
 // sign bit of f(tau) = k - count(row > tau): 1 iff negative.
 __device__ __forceinline__ bool count_sign(int k_target, int count) {
   return __fsub_rn(static_cast<float>(k_target), static_cast<float>(count)) < 0.0f;
+}
+
+// min and max in which a NaN operand wins (fminf / fmaxf skip it)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return is_nan(a) || is_nan(b) ? __int_as_float(0x7fffffff)
+                                : fminf(a, b);
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return is_nan(a) || is_nan(b) ? __int_as_float(0x7fffffff)
+                                : fmaxf(a, b);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -267,15 +285,18 @@ runahead_topk_cluster_kernel(const float* __restrict__ x, long long ld_x,
   }
   float mn = __int_as_float(0x7f800000);
   float mx = __int_as_float(0xff800000);
+  bool nan = false;                          // this thread saw a NaN
   for (int v = tid; v < head; v += kThreads) {
     row[v] = src[v];
     mn = fminf(mn, row[v]);
     mx = fmaxf(mx, row[v]);
+    nan |= is_nan(row[v]);
   }
   for (int v = head + body + tid; v < len; v += kThreads) {
     row[v] = src[v];
     mn = fminf(mn, row[v]);
     mx = fmaxf(mx, row[v]);
+    nan |= is_nan(row[v]);
   }
   if (body > 0) {
     unsigned done = 0;
@@ -294,12 +315,16 @@ runahead_topk_cluster_kernel(const float* __restrict__ x, long long ld_x,
       const float4 q = body4[v];
       mn = fminf(mn, fminf(fminf(q.x, q.y), fminf(q.z, q.w)));
       mx = fmaxf(mx, fmaxf(fmaxf(q.x, q.y), fmaxf(q.z, q.w)));
+      nan |= is_nan(q.x) | is_nan(q.y) | is_nan(q.z) | is_nan(q.w);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       mn = fminf(mn, __shfl_xor_sync(kFull, mn, off));
       mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
     }
+    // a NaN lane makes the warp's min and max NaN, as jnp.min / jnp.max
+    // have it; every later step lets a NaN win
+    if (__any_sync(kFull, nan)) mn = mx = __int_as_float(0x7fffffff);
     if (lane == 0) {
       s.wmin[warp] = mn;
       s.wmax[warp] = mx;
@@ -307,8 +332,8 @@ runahead_topk_cluster_kernel(const float* __restrict__ x, long long ld_x,
     __syncthreads();
     if (tid == 0) {
       for (int w = 1; w < kWarps; ++w) {
-        mn = fminf(mn, s.wmin[w]);
-        mx = fmaxf(mx, s.wmax[w]);
+        mn = min_nan(mn, s.wmin[w]);
+        mx = max_nan(mx, s.wmax[w]);
       }
       s.mm[0] = mn;
       s.mm[1] = mx;
@@ -320,13 +345,13 @@ runahead_topk_cluster_kernel(const float* __restrict__ x, long long ld_x,
     float hi_mx = __int_as_float(0xff800000);
     for (int q = lane; q < C; q += 32) {
       const float* peer = cluster.map_shared_rank(s.mm, q);
-      lo_mn = fminf(lo_mn, peer[0]);
-      hi_mx = fmaxf(hi_mx, peer[1]);
+      lo_mn = min_nan(lo_mn, peer[0]);
+      hi_mx = max_nan(hi_mx, peer[1]);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      lo_mn = fminf(lo_mn, __shfl_xor_sync(kFull, lo_mn, off));
-      hi_mx = fmaxf(hi_mx, __shfl_xor_sync(kFull, hi_mx, off));
+      lo_mn = min_nan(lo_mn, __shfl_xor_sync(kFull, lo_mn, off));
+      hi_mx = max_nan(hi_mx, __shfl_xor_sync(kFull, hi_mx, off));
     }
     const float lo = __fsub_rn(lo_mn, 1.0f);
     const float hi = __fadd_rn(hi_mx, 1.0f);

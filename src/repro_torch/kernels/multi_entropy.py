@@ -5,21 +5,22 @@ multi_entropy.py:84``): for max-shifted logits ``z <= 0`` and candidate
 temperatures ``T``, ``s = sum_v exp(z / T)`` and
 ``w = sum_v (z / T) exp(z / T)``; ``H = log s - w / s`` is finalised by the
 ``multi_entropy`` wrapper in ``kernels/ops.py``.  The kernel is
-``csrc/multi_entropy.cu`` (true division, precise expf, a chunk-order
-two-pass sum, bit-stable run to run).  ``multi_entropy_moments_plain`` is
-the plain PyTorch version.
+``csrc/multi_entropy.cu``: one exponential a pair (``ex2.approx`` of
+``z * log2(e) / T``), ``w`` as ``(sum z e) / T``, in one launch of one
+wave of the card with a fixed summing order (``row_reduce.py``), so
+results are bit-stable run to run.  ``multi_entropy_moments_plain`` is
+the plain PyTorch version; ``multi_entropy_moments_emulated`` is the
+kernel's arithmetic and block split in PyTorch, for the CPU tests.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, row_reduce
 
-CHUNK = 2048          # vocab elements per block (8 per thread)
-MAX_M = 8192
+LOG2E = 1.4426950408889634       # rounded to f32 where it is used
 
 
 def multi_entropy_moments_plain(z: torch.Tensor, ts: torch.Tensor
@@ -30,6 +31,26 @@ def multi_entropy_moments_plain(z: torch.Tensor, ts: torch.Tensor
     return e.sum(dim=-1), (zt * e).sum(dim=-1)
 
 
+def multi_entropy_moments_emulated(z: torch.Tensor, ts: torch.Tensor
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's scheme in PyTorch: a = RN(log2(e) / T) per candidate, every
+    term e = 2 ** RN(z * a) (``exp2`` standing for ``ex2.approx``, which
+    is within 2 ulp of it), s and u = sum z * e per block of the kernel's
+    split on the H100, the blocks summed in block order, and
+    w = RN(u / T)."""
+    z, ts = z.float(), ts.float()
+    B, V = z.shape
+    a = torch.full_like(ts, LOG2E) / ts                     # (B, M)
+    s = u = torch.zeros_like(ts)
+    nb = row_reduce.blocks_per_row(B, V, row_reduce.CARD_SMS)
+    for idx in row_reduce.block_indices(V, nb):
+        seg = z[:, None, idx.to(z.device)]                  # (B, 1, n)
+        e = torch.exp2(seg * a[:, :, None])
+        s = s + e.sum(dim=-1)
+        u = u + (seg * e).sum(dim=-1)
+    return s, u / ts
+
+
 def entropy_from_moments(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """H = log s - w / s (``multi_entropy.py:110``)."""
     return torch.log(s) - w / s
@@ -38,34 +59,14 @@ def entropy_from_moments(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 @functools.cache
 def _entry():
     lib = build.library("multi_entropy")
-    fn = lib.multi_entropy_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
+    return lib, row_reduce.bind(lib, "multi_entropy_launch")
 
 
 def multi_entropy_moments_cuda(z: torch.Tensor, ts: torch.Tensor
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K5 on CUDA tensors: z (B, V) f32 with every element <= 0,
     ts (B, M) f32 positive -> (s, w), each (B, M) f32."""
-    build.check_rows(z, "z")
-    build.check_rows(ts, "ts")
-    B, V = z.shape
-    M = ts.shape[1]
-    if ts.shape[0] != B or ts.device != z.device or M > MAX_M:
-        raise ValueError(f"ts must be ({B}, M <= {MAX_M}) on {z.device}, "
-                         f"got {tuple(ts.shape)} on {ts.device}")
     lib, fn = _entry()
-    n_chunks = -(-V // CHUNK)
-    with torch.cuda.device(z.device):
-        partial = torch.empty((B, n_chunks, 2, M), dtype=torch.float32,
-                              device=z.device)
-        out = torch.empty((B, 2, M), dtype=torch.float32, device=z.device)
-        err = fn(z.data_ptr(), z.stride(0), ts.data_ptr(), ts.stride(0),
-                 partial.data_ptr(), out.data_ptr(), B, V, M, CHUNK,
-                 build.stream_ptr(z))
-        build.check_launch(lib, err, "multi_entropy_moments")
-        return out[:, 0], out[:, 1]
+    out = row_reduce.launch(lib, fn, "multi_entropy_moments", z, ts,
+                            ("z", "ts"), 2)
+    return out[:, 0], out[:, 1]

@@ -111,14 +111,16 @@ def runahead_topk_threshold_clustered(x: torch.Tensor, *, k_target: int,
                                       clusters: int | None = None
                                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """The CUDA kernel's scheme in PyTorch: each row split into the
-    kernel's ``clusters`` slices; per slice, min and max (NaN ignored, as
-    fminf does), and per round the bin b'(x) = #{m < n : x > pts[m]} of
-    every element (0 if not above lo, n if above hi, else 1 + a spec_k-step
-    binary search over pts[1..n-1]), a histogram of the bins and its
-    suffix sum; the slices' counts summed, then the serial-exact walk.
-    Rows whose grid is not non-decreasing (NaN midpoints) are counted
+    kernel's ``clusters`` slices; per slice, min and max (NaN if the slice
+    holds one, as the kernel's NaN flag makes them), and per round the bin
+    b'(x) = #{m < n : x > pts[m]} of every element (0 if not above lo, n
+    if above hi, else 1 + a spec_k-step binary search over pts[1..n-1]), a
+    histogram of the bins and its suffix sum; the slices' counts summed,
+    then the serial-exact walk.  Rows whose grid is not non-decreasing
+    (NaN midpoints, and every point of a row holding NaN) are counted
     directly, as the kernel counts them.  Equals
-    ``runahead_topk_threshold_plain`` bit for bit on rows without NaN."""
+    ``runahead_topk_threshold_plain`` bit for bit, NaN payloads apart: a
+    row holding a NaN gets (NaN, NaN) from both."""
     x = x.float()
     B, V = x.shape
     if clusters is None:
@@ -129,10 +131,10 @@ def runahead_topk_threshold_clustered(x: torch.Tensor, *, k_target: int,
     kf = torch.full((), k_target, dtype=torch.float32, device=x.device)
     slices = [x[:, q * size:(q + 1) * size] for q in range(clusters)]
     inf = torch.tensor(float("inf"), device=x.device)
-    mins = [torch.where(seg.isnan(), inf, seg).amin(-1) if seg.shape[1]
-            else inf.expand(B) for seg in slices]
-    maxs = [torch.where(seg.isnan(), -inf, seg).amax(-1) if seg.shape[1]
-            else (-inf).expand(B) for seg in slices]
+    mins = [seg.amin(-1) if seg.shape[1] else inf.expand(B)
+            for seg in slices]
+    maxs = [seg.amax(-1) if seg.shape[1] else (-inf).expand(B)
+            for seg in slices]
     lo = torch.stack(mins).amin(0) - 1.0
     hi = torch.stack(maxs).amax(0) + 1.0
     rows = torch.arange(B, device=x.device)[:, None]

@@ -4,9 +4,12 @@ Marked ``cuda``: each test skips where torch sees no CUDA device.  On a
 GPU machine run ``python -m pytest -m cuda tests/test_torch_cuda.py``
 (this file imports no JAX).  K1, K2 and K3 must match exactly (K3's
 cluster kernel also against the CPU emulation of its scheme, K1's
-division step against the card's IEEE division); K4 and
-K5 within rtol=1e-5, atol=1e-6 (f32 sums in another order) and bit for
-bit from one run to the next; K6 within rtol=atol=1e-5 on f32 pools and
+division step against the card's IEEE division; K3's NaN brackets with
+every NaN taken as one); K4 and K5 within rtol=1e-5, atol=1e-6 (f32 sums
+in another order, K5's exponentials by ex2.approx) up to the served
+vocab, and bit for bit from one run to the next, between eager calls and
+CUDA-graph replay and across calls at two batch sizes, one kernel launch
+a call; K6 within rtol=atol=1e-5 on f32 pools and
 one bf16 ulp on bf16 pools compared in f32 (exp and the sums in another
 order), against the plain version with one split and with the kernel's
 own split count (1 to 34 splits, masked splits included), and bit for
@@ -88,6 +91,146 @@ def test_multi_entropy_moments(gen, B, V, M):
         torch.testing.assert_close(g, w, **TOL)
 
 
+# K4 and K5 at the served vocab and its ragged neighbours (rows off 16-byte
+# alignment past row 0), one row to 64, M across the 32-candidate tile
+ROW_REDUCE_SERVED = [(B, V) for B in (1, 4, 64)
+                     for V in (151935, 151936, 151937)]
+ROW_REDUCE_M = (1, 31, 32, 33, 255)
+
+
+def _by_tiles(plain, x, cand):
+    """The plain version 32 candidates at a time (its (B, M, V)
+    intermediates stay small at B = 64, M = 255), joined."""
+    parts = [plain(x, cand[:, i:i + 32]) for i in range(0, cand.shape[1], 32)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+    return torch.cat(parts, dim=1)
+
+
+@pytest.mark.parametrize("B,V", ROW_REDUCE_SERVED)
+def test_multi_mass_served_width(gen, B, V):
+    """K4 within tolerance of the plain version and bit for bit run to run,
+    candidates as strided rows of a grid (the engine's grid[:, 1:-1]), one
+    equal to an element and the engine's tau = 0 probe among them."""
+    p = torch.softmax(torch.randn((B, V), generator=gen, device="cuda") * 3.0,
+                      dim=-1)
+    for M in ROW_REDUCE_M:
+        grid = torch.rand((B, M + 2), generator=gen, device="cuda") * p.amax()
+        grid[:, -2] = 0.0
+        grid[:, 1] = p[:, 7]
+        taus = grid[:, 1:-1]
+        got = mm.multi_mass_cuda(p, taus)
+        assert torch.equal(got, mm.multi_mass_cuda(p, taus))
+        torch.testing.assert_close(got, _by_tiles(mm.multi_mass_plain, p,
+                                                  taus), **TOL)
+
+
+@pytest.mark.parametrize("B,V", ROW_REDUCE_SERVED)
+def test_multi_entropy_served_width(gen, B, V):
+    """K5 within tolerance of the plain version and bit for bit run to run,
+    temperatures as strided rows of a grid holding the engine's bracket
+    (0.05 and 20), rows with JAX's -1e30 pad sentinel."""
+    x = torch.randn((B, V), generator=gen, device="cuda") * 2.0
+    z = x - x.amax(dim=-1, keepdim=True)
+    z[0, 1::97] = -1e30
+    for M in ROW_REDUCE_M:
+        grid = torch.exp(torch.empty((B, M + 2), device="cuda").uniform_(
+            -3.0, 3.0, generator=gen))
+        grid[:, -2] = 20.0
+        grid[:, 1] = 0.05
+        ts = grid[:, 1:-1]
+        got = me.multi_entropy_moments_cuda(z, ts)
+        again = me.multi_entropy_moments_cuda(z, ts)
+        want = _by_tiles(me.multi_entropy_moments_plain, z, ts)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a)
+            torch.testing.assert_close(g, w, **TOL)
+
+
+def _row_reduce_calls(gen, B):
+    """Inputs of K4 and K5 at the served vocab, and a call of both."""
+    x = torch.randn((B, 151936), generator=gen, device="cuda") * 2.0
+    p = torch.softmax(x, dim=-1)
+    z = x - x.amax(dim=-1, keepdim=True)
+    taus = (torch.rand((B, 33), generator=gen, device="cuda") * 1e-4)[:, 1:-1]
+    ts = torch.exp(torch.empty((B, 33), device="cuda").uniform_(
+        -3.0, 3.0, generator=gen))[:, 1:-1]
+    return lambda: (mm.multi_mass_cuda(p, taus),
+                    *me.multi_entropy_moments_cuda(z, ts))
+
+
+def test_row_reduce_graph_replay_and_batches_back_to_back(gen):
+    """K4 and K5 bit for bit between eager calls and CUDA-graph replay,
+    and across back-to-back calls at B = 4 and B = 64 (a ticket left
+    non-zero, or one call's sums read by another, would show)."""
+    calls = {B: _row_reduce_calls(gen, B) for B in (4, 64)}
+    eager = {B: call() for B, call in calls.items()}
+    for B in (64, 4, 64, 4):
+        for got, want in zip(calls[B](), eager[B]):
+            assert torch.equal(got, want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls[4]()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls[4]()
+    for _ in range(3):
+        graph.replay()
+        calls[64]()
+    torch.cuda.synchronize()
+    for got, want in zip(outs, eager[4]):
+        assert torch.equal(got, want)
+    for got, want in zip(calls[64](), eager[64]):
+        assert torch.equal(got, want)
+
+
+def test_row_reduce_one_launch_per_call(gen):
+    """One device kernel per K4 and per K5 call, and the wrappers count it;
+    both refuse candidates of another row count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call = _row_reduce_calls(gen, 4)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert len(kernels) == 2 and set(kernels.values()) == {1}, kernels
+    assert any("multi_mass_kernel" in k for k in kernels), kernels
+    assert any("multi_entropy_kernel" in k for k in kernels), kernels
+    x = torch.rand((2, 300), generator=gen, device="cuda")
+    ops.reset_launches()
+    ops.multi_mass(x, x[:, :5])
+    ops.multi_entropy_moments(-x, x[:, :5] + 0.1)
+    assert ops.LAUNCHES["multi_mass"] == 1
+    assert ops.LAUNCHES["multi_entropy_moments"] == 1
+    with pytest.raises(ValueError, match="taus must be"):
+        mm.multi_mass_cuda(x, x[:1, :5])
+    with pytest.raises(ValueError, match="ts must be"):
+        me.multi_entropy_moments_cuda(-x, x[:1, :5])
+
+
+def test_row_reduce_stage_clock(gen):
+    """The stage-clock builds of K4 and K5 run, and every stage's time
+    comes after the one before it."""
+    from repro_torch.kernels import row_reduce as rr
+
+    x = torch.randn((4, 151936), generator=gen, device="cuda")
+    cand = torch.rand((4, 31), generator=gen, device="cuda") + 0.5
+    for name, operand, k_acc in (("multi_mass", torch.softmax(x, -1), 1),
+                                 ("multi_entropy",
+                                  x - x.amax(-1, keepdim=True), 2)):
+        stages = rr.stage_times(name, operand, cand, k_acc, calls=3)
+        medians = [stages[s][1] for s in rr.STAGES]
+        assert all(a <= b for a, b in zip(medians, medians[1:])), stages
+        assert medians[-1] > 0, stages
+
+
 @pytest.mark.parametrize("B,V,M", SHAPES)
 @pytest.mark.parametrize("k_target,rounds,spec_k", [(1, 8, 5), (40, 3, 8),
                                                     (7, 10, 1)])
@@ -134,7 +277,8 @@ def test_taylor_sincos(gen, m, terms):
 # -inf (NaN midpoints: counted directly), no round, brackets that climb
 # until midpoints overflow (direct counting after compacting rounds); then
 # the served width at B = 1, 4 and 64 with the default geometry (16 CTAs
-# a row at B <= 8, else 8)
+# a row at B <= 8, else 8); rows holding NaN (one lane, every lane), whose
+# bracket is (NaN, NaN)
 CLUSTER_CASES = [
     (3, 1023, 4, 40, 8, 5, "randn"), (3, 1024, 4, 40, 8, 5, "randn"),
     (3, 1025, 4, 40, 8, 5, "randn"), (3, 3, 8, 2, 8, 5, "randn"),
@@ -147,7 +291,17 @@ CLUSTER_CASES = [
     (4, 151935, 8, 1, 8, 5, "randn"), (4, 151937, 8, 40, 8, 8, "randn"),
     (3, 700, 4, 40, 0, 5, "randn"), (3, 1000, 4, 40, 8, 2, "huge"),
     (4, 151936, None, 40, 8, 2, "huge"), (4, 151936, 8, 40, 1, 5, "randn"),
+    (3, 1000, 4, 40, 8, 5, "nan"), (3, 1000, 4, 40, 8, 5, "all_nan"),
+    (3, 700, 4, 40, 0, 5, "nan"), (4, 151936, None, 40, 8, 5, "nan"),
+    (4, 151936, None, 40, 8, 5, "all_nan"),
 ]
+
+
+def _bits(t):
+    """t's bits, every NaN as one NaN: the card's arithmetic makes the
+    canonical NaN, while min and max on the CPU keep the input's."""
+    return torch.where(t.isnan(), torch.full_like(t, float("nan")),
+                       t).view(torch.int32)
 
 
 @pytest.mark.parametrize("B,V,clusters,k_target,rounds,spec_k,kind",
@@ -166,6 +320,10 @@ def test_runahead_topk_cluster(gen, B, V, clusters, k_target, rounds, spec_k,
         x[:, 0] = -1e38
         x[:, 1:101] = torch.empty((B, 100), device="cuda").uniform_(
             1.76e38, 1.8e38, generator=gen)
+    elif kind == "nan":
+        x[1, 40] = float("nan")
+    elif kind == "all_nan":
+        x[-1] = float("nan")
     kw = dict(k_target=k_target, rounds=rounds, spec_k=spec_k)
     got = rt.runahead_topk_threshold_cuda(x, clusters=clusters, **kw)
     want = rt.runahead_topk_threshold_plain(x, **kw)
@@ -174,10 +332,13 @@ def test_runahead_topk_cluster(gen, B, V, clusters, k_target, rounds, spec_k,
     loop = solver._solve_rounds(prob.multi_eval, prob.lo0, prob.hi0,
                                 rounds=rounds, spec_k=spec_k)
     for g, w, e, l in zip(got, want, emulated, loop):
-        bits = g.view(torch.int32)
-        assert torch.equal(bits, w.view(torch.int32))
-        assert torch.equal(bits, e.view(torch.int32))
-        assert torch.equal(bits, l.view(torch.int32))
+        bits = _bits(g)
+        assert torch.equal(bits, _bits(w))
+        assert torch.equal(bits, _bits(e))
+        assert torch.equal(bits, _bits(l))
+    if kind in ("nan", "all_nan"):
+        row = 1 if kind == "nan" else B - 1
+        assert got[0][row].isnan() and got[1][row].isnan()
 
 
 def test_runahead_topk_refuses_geometry_it_cannot_hold(gen):

@@ -3,7 +3,9 @@ against the JAX package's Pallas kernels in interpret mode.
 
 Tolerances: K2 counts and K3 brackets are bit-exact (integer counts and
 IEEE midpoints); K4 and K5 use rtol=1e-5, atol=1e-6 because their f32
-sums are taken in a different order.
+sums are taken in a different order (and K5's kernel forms exp(z / T) as
+2 ** (z * log2(e) / T)).  NaN brackets compare as NaN bits: every version
+here propagates the input's NaN.
 """
 import jax
 import jax.numpy as jnp
@@ -17,7 +19,10 @@ from repro.kernels import multi_mass as jmm
 from repro.kernels import runahead_threshold as jrt
 from repro_torch.core import solver
 from repro_torch.kernels import multi_count as mc
+from repro_torch.kernels import multi_entropy as me
+from repro_torch.kernels import multi_mass as mm
 from repro_torch.kernels import ops
+from repro_torch.kernels import row_reduce as rr
 from repro_torch.kernels import runahead_threshold as rt
 
 B = 3
@@ -102,8 +107,10 @@ def test_runahead_topk_matches_pallas_and_generic_loop(V, k_target, rounds,
 # C*s, C*s + 1 with s = 256), V < C, rows with -inf lanes (lo0 = -inf),
 # 30 rounds (the bracket shrinks to a few ulps: repeated grid points),
 # spec_k 1 and 8, a row holding +inf and -inf (NaN midpoints: the kernel
-# counts directly), no round, and rows whose brackets climb to where
-# midpoints overflow (direct counting after rounds of compaction)
+# counts directly), no round, rows whose brackets climb to where
+# midpoints overflow (direct counting after rounds of compaction), and
+# rows holding NaN (one lane, every lane: the bracket is (NaN, NaN), as
+# jnp.min / jnp.max give lo0 and hi0)
 CLUSTER_CASES = [
     (1023, 4, 40, 8, 5, "randn"), (1024, 4, 40, 8, 5, "randn"),
     (1025, 4, 40, 8, 5, "randn"), (3, 8, 2, 8, 5, "randn"),
@@ -111,6 +118,8 @@ CLUSTER_CASES = [
     (4096, 8, 40, 30, 5, "randn"), (777, 2, 5, 10, 1, "randn"),
     (2000, 4, 40, 3, 8, "randn"), (500, 4, 40, 8, 5, "both_inf"),
     (700, 4, 40, 0, 5, "randn"), (1000, 4, 40, 8, 2, "huge"),
+    (1000, 4, 40, 8, 5, "nan"), (1000, 4, 40, 8, 5, "all_nan"),
+    (700, 4, 40, 0, 5, "nan"),
 ]
 
 
@@ -124,6 +133,10 @@ def _cluster_rows(V, kind):
         x[2, 11] = -np.inf
     elif kind == "huge":
         x = _huge_rows(x)
+    elif kind == "nan":                   # one NaN lane in row 1
+        x[1, 40] = np.nan
+    elif kind == "all_nan":               # row 2 all NaN
+        x[2] = np.nan
     return x
 
 
@@ -155,6 +168,83 @@ def test_runahead_topk_clustered_matches_plain_and_pallas(
                                       p.numpy().view(np.int32))
         np.testing.assert_array_equal(g.numpy().view(np.int32),
                                       np.asarray(w).view(np.int32))
+
+
+# K4 and K5 in their kernels' scheme: ragged V (1000: one block a row,
+# its last unit part-filled; 4093: four blocks a row and a one-element
+# tail), M of one candidate, one short of a 32-candidate tile and one
+# past it; K5 at the engine's extreme temperatures with JAX's -1e30 pad
+# sentinel in the rows
+ROW_REDUCE_CASES = [(V, M) for V in (1000, 4093) for M in (1, 31, 33)]
+
+
+@pytest.mark.parametrize("t", [0.05, 20.0])
+@pytest.mark.parametrize("V,M", ROW_REDUCE_CASES)
+def test_multi_entropy_emulated_matches_plain_and_pallas(V, M, t):
+    """K5's arithmetic (one exp2 of z * RN(log2(e) / T) a pair, w as
+    (sum z e) / T) summed in its block split, against the plain version
+    and the Pallas kernel in interpret mode."""
+    x = _logits(V, seed=V + M)
+    z = x - x.max(-1, keepdims=True)
+    z[1, ::5] = -1e30
+    z[2, 3] = -1e30
+    ts = np.full((B, M), t, np.float32)
+    if M > 1:
+        ts[:, 1:] = np.linspace(1.0, t, M - 1)
+    got = me.multi_entropy_moments_emulated(torch.from_numpy(z),
+                                            torch.from_numpy(ts))
+    plain = me.multi_entropy_moments_plain(torch.from_numpy(z),
+                                           torch.from_numpy(ts))
+    want = jme.multi_entropy_moments(jnp.asarray(z), jnp.asarray(ts),
+                                     interpret=True)
+    for g, p, w in zip(got, plain, want):
+        np.testing.assert_allclose(g.numpy(), p.numpy(), **TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("V,M", ROW_REDUCE_CASES)
+def test_multi_mass_emulated_matches_plain_and_pallas(V, M):
+    x = _logits(V, seed=V + M)
+    p = np.array(jax.nn.softmax(jnp.asarray(x), axis=-1))
+    taus = _between(p, M)
+    taus[:, -1] = 0.0                     # the engine's bracket probe
+    got = mm.multi_mass_emulated(torch.from_numpy(p), torch.from_numpy(taus))
+    want = jmm.multi_mass(jnp.asarray(p), jnp.asarray(taus), interpret=True)
+    np.testing.assert_allclose(got.numpy(), mm.multi_mass_plain(
+        torch.from_numpy(p), torch.from_numpy(taus)).numpy(), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_row_reduce_geometry():
+    """K4/K5's grid: one block per SM spread over the rows, at least one a
+    row, no more than the row's 128-element units fill; and every element
+    of a row in exactly one block, whatever its alignment."""
+    assert rr.blocks_per_row(4, 151936, 132) == 33
+    assert rr.blocks_per_row(1, 151936, 132) == 132
+    assert rr.blocks_per_row(64, 151936, 132) == 2
+    assert rr.blocks_per_row(200, 151936, 132) == 1
+    assert rr.blocks_per_row(3, 1000, 132) == 1
+    assert rr.blocks_per_row(3, 4093, 132) == 4
+    for V in (1, 3, 5, 127, 129, 1000, 4093, 4099):
+        for nb in (1, 2, 3, 7, 33):
+            for head in range(4):
+                idx = torch.cat(rr.block_indices(V, nb, head))
+                assert torch.equal(idx.sort().values, torch.arange(V))
+
+
+def test_row_reduce_scratch_grows_and_keeps_what_it_outgrew():
+    """K4/K5's cached scratch: reused while it is big enough; outgrown, a
+    new one at the larger of each size (tickets at 0), the old one kept
+    alive for a CUDA graph captured on it."""
+    dev = torch.device("cpu")
+    rr._SCRATCH.pop(dev.index, None)
+    first = rr.scratch(dev, 100, 4)
+    assert rr.scratch(dev, 50, 2)[0] is first[0]
+    grown = rr.scratch(dev, 40, 8)
+    assert grown[0].numel() == 100 and grown[1].numel() == 8
+    assert not grown[1].any() and grown[1].dtype == torch.int32
+    held = rr._SCRATCH.pop(dev.index)
+    assert len(held) == 2 and held[0][0] is first[0]
 
 
 def test_cluster_geometry():
