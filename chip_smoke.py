@@ -8,18 +8,22 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      TF32 is switched off for matmuls and cuDNN.
   2. the kernel build: every csrc/*.cu through nvcc, in parallel, timed;
      ptxas's registers, shared memory and spills for every kernel, and the
-     SASS of K1's library counted for IEEE division (FCHK, MUFU.RCP,
-     CALL) kernel by kernel.
+     SASS counted kernel by kernel: K1's library for IEEE division (FCHK,
+     MUFU.RCP, CALL), K2's for the instructions of a (v, m) pair (FSET,
+     FADD).
   3. each kernel against its plain PyTorch version on the card, at its
      path's shapes: K2-K5 at the sampler's (B=4, V=151936, M=31 and M=1)
-     and at ragged V (1000, 257): K2 and K3 bit for bit (K3 also against
-     the generic engine loop over K2, and on rows holding NaN, whose
-     bracket is (NaN, NaN)), K4 and K5 within rtol 1e-5 / atol 1e-6 (K5 at
-     the engine's extreme temperatures 0.05 and 20 too), bit for bit run
-     to run and between an eager call and CUDA-graph replay, one kernel
-     launch a call (profiled), with K5's bound restated for its
-     exponentials on the SFU and the stage clock of K4 and K5 (where a
-     call's time goes, csrc/row_reduce.cuh); K1 at M in {1, 7, 31} and
+     and at ragged V (1000, 257): K2 and K3 bit for bit (K2 counting above
+     and below, also at B=64 with M=33, two candidate tiles, at the
+     quantile clip's (1, 300, 15), and on rows of NaN, +-inf and +-0; K3
+     also against the generic engine loop over K2, and on rows holding
+     NaN, whose bracket is (NaN, NaN)), K4 and K5 within rtol 1e-5 / atol
+     1e-6 (K5 at the engine's extreme temperatures 0.05 and 20 too), bit
+     for bit run to run and between an eager call and CUDA-graph replay,
+     one kernel launch a call (profiled), with K2's bound restated for
+     the SASS's instructions a pair and K5's for its exponentials on the
+     SFU, and the stage clock of K2, K4 and K5 (where a call's time goes,
+     csrc/row_reduce.cuh); K1 at M in {1, 7, 31} and
      terms in {10, 10**4}, bit for bit, timed against a latency bound
      (2 (terms - 1) dependent steps of 4 FMA latencies at the card's top
      SM clock, the FMA latency measured beside it) and beside the first
@@ -39,7 +43,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
   4. one solve per kind on the "hopper" backend under
      torch.cuda.set_sync_debug_mode("error") (the round loop never syncs),
      including count_above with a (B,) k tensor, which runs K2 through the
-     engine; brackets against the "torch" backend.
+     engine; brackets against the "torch" backend; count_below profiled:
+     one K2 a round (x < c counted in place) and no negation kernel.
   5. the one-shot serving path: repro_torch.launch.serve (setup, then run,
      as its main does) for qwen3-4b at full width (36 layers, d_model
      2560, vocab 151936; random bf16 weights from a seed), 4 x 16 tokens
@@ -75,13 +80,24 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      from seed 0), batch 2 x seq 4096 of SyntheticTokens, remat on, the
      quantile clip, AdamW: 1 warm-up step, 4 timed steps and 1 step under
      torch.profiler.  Every loss finite; K7 launched exactly 48 times per
-     step (24 layers forward, 24 remat recomputes) and K2 on every step
-     (the quantile clip's solve); ms per step, tokens per second, peak
-     memory, device busy time, idle share and K7's share of it.
+     step (24 layers forward, 24 remat recomputes) and K2 exactly once
+     per round of the quantile clip's solve (8 a step); ms per step,
+     tokens per second, peak memory, device busy time, idle share and
+     K7's share of it.
  12. checkpoint and fault injection on the card: reduced internlm2-1.8b
      in a subprocess (--ckpt-every 5 --die-at-step 7) exits 42 with
      step_5 on disk; the rerun resumes from step 5, and its losses and
      final checkpoint equal an uninterrupted run's, bit for bit.
+ 13. the continuous path with a top_k per request: phase 9's serve (same
+     8 requests, 4 slots, paged cache, "hopper" backends) with top_k 20,
+     40, 50, 100 in turn, so a decode step whose live slots' k differ
+     solves top-k per row on the engine through K2: every request served,
+     K2 launched rounds + 1 times per such step (the probe at lo0: a
+     per-row k leaves its sign unknown), K3 once per other sample; tok/s
+     first and warm, a profiled run of the first 4 requests (K2's time in
+     situ; device busy time, idle share), three mixed-k decode steps under
+     set_sync_debug_mode("error"), and the masked logits of a mixed-k
+     batch at V=151936 on both backends (top-k alone bit for bit).
 
 Phase 3 also holds K7 (flash_fwd) at the training shape (B=2, S=4096,
 16 q heads, 8 kv heads, head_dim 128) against its plain version in f32
@@ -97,9 +113,10 @@ bound counts the causal half of the score matrix at the bf16 tensor-core
 rate (989 TFLOP/s); the achieved TFLOP/s is printed beside it.
 
 The line before the last is a JSON object listing the kernels, each with
-the path its launch count was read on ("serve": phase 5; "solves": phase
-4, for K2, which the static-k serve does not launch; "paper": phase 8;
-"continuous": phase 9; "train": phase 11, for K7).  Each entry's
+the path its launch count was read on ("serve": phase 5; "paper": phase
+8; "continuous": phase 9; "train": phase 11, for K7;
+"continuous-mixed-k": phase 13, for K2, which the static-k serves do not
+launch).  Each entry's
 bound_ms is the larger of its bytes and operations bounds; K1's chain of
 dependent steps is bounded by latency instead, which its entry carries
 as latency_bound_ms beside the operations bound.  The last line is
@@ -109,6 +126,7 @@ port's sources are not beside this file.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import statistics
@@ -134,6 +152,14 @@ CONT_ARGV = ["--arch", "qwen3-4b", "--continuous", "--requests", "8",
              "--new-tokens", "32", "--page-size", "16", "--page-impl",
              "hopper"] + SAMPLER_ARGV
 K1_TERMS = 10_000                 # the paper's term count
+# K2: its SASS opcodes of a pair (a compare to 1.0 or 0.0, an f32 add), the
+# first version's times (three launches a call; graph replay and eager, on
+# an H100 80GB HBM3 at 700 W), and the quantile clip's shape
+K2_SASS = ("FSET", "FADD")
+K2_FIRST_MS = (0.0106, 0.0738)
+K2_CLIP = (1, 300, 15)
+# phase 13: the per-request top_k of the continuous serve, in turn
+MIXED_TOP_K = (20, 40, 50, 100)
 # K1's latency bound: a bit-exact step is 4 dependent operations (the
 # numerator's multiply, q0, rho, q: csrc/taylor_eval.cu) of 4 cycles each
 # (an f32 FMA's dependent-issue latency)
@@ -311,7 +337,10 @@ def phase_build():
                 kernel = line.split("'")[1] if "'" in line else ""
             elif "Used" in line or "spill" in line:
                 say(f"  ptxas {name} {_short(kernel)}: {line.strip()}")
-    say(f"  sass taylor_eval: {_sass_division_sites('taylor_eval')}")
+    # IEEE division in K1 (FCHK, its range check; MUFU.RCP; CALL, the slow
+    # path's subroutine); K2's compare and add a pair
+    _say_sass("taylor_eval", ("FCHK", "MUFU.RCP", "CALL"))
+    _say_sass("multi_count", K2_SASS)
 
 
 def _short(symbol: str) -> str:
@@ -332,11 +361,11 @@ def _short(symbol: str) -> str:
                                     else "")
 
 
-def _sass_division_sites(name: str) -> str:
-    """Per kernel of a built library, the SASS instructions of IEEE f32
-    division: FCHK (the range check that sends an operand to the slow
-    path), MUFU.RCP and CALL (the slow path's subroutine); "not measured"
-    where the toolkit has no cuobjdump."""
+def _sass_counts(name: str, ops: tuple[str, ...]) -> dict | None:
+    """Per kernel of a built library, how many SASS instructions have each
+    opcode of ``ops`` (an opcode and its modifiers: "FSET" counts
+    FSET.BF.GT.AND, not FSETP); None where the toolkit has no cuobjdump."""
+    import re
     import shutil
 
     from repro_torch.kernels import build
@@ -347,18 +376,29 @@ def _sass_division_sites(name: str) -> str:
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout
     except (OSError, subprocess.SubprocessError):
-        return "not measured (no cuobjdump)"
+        return None
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = _short(line.split("Function :")[1].strip())
-            counts[fn] = {"FCHK": 0, "MUFU.RCP": 0, "CALL": 0}
-        elif fn is not None:
-            for op in counts[fn]:
-                if op in line:
+            counts[fn] = dict.fromkeys(ops, 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                      line)
+        if fn is not None and m:
+            for op in ops:
+                if m.group(1) == op or m.group(1).startswith(op + "."):
                     counts[fn][op] += 1
-    return "; ".join(f"{fn} " + " ".join(f"{op} {n}" for op, n in c.items())
-                     for fn, c in counts.items())
+    return counts
+
+
+def _say_sass(name: str, ops: tuple[str, ...]) -> dict | None:
+    counts = _sass_counts(name, ops)
+    say(f"  sass {name}: " + ("not measured (no cuobjdump)" if counts is None
+                              else "; ".join(
+        f"{fn} " + " ".join(f"{op} {n}" for op, n in c.items())
+        for fn, c in counts.items())))
+    return counts
 
 
 def phase_kernels(gen):
@@ -390,25 +430,8 @@ def phase_kernels(gen):
     shapes = [(PATH_B, PATH_V, PATH_M), (PATH_B, PATH_V, 1), (3, 1000, 31),
               (3, 257, 31), (3, 1000, 1)]
 
-    # K2: multi_count, exact
-    err = 0.0
-    for B, V, M in shapes:
-        x = logits(B, V)
-        taus = between(x, M)
-        got, want = mc.multi_count_cuda(x, taus), mc.multi_count_plain(x, taus)
-        check(torch.equal(got, want), f"K2 differs at {(B, V, M)}")
-        err = max(err, (got - want).abs().max().item())
-    x = logits(PATH_B, PATH_V)
-    taus = between(x, PATH_M)
-    n_bytes = 4 * (x.numel() + 2 * taus.numel())
-    rows["multi_count"] = dict(
-        source="src/repro_torch/kernels/csrc/multi_count.cu",
-        replaces="src/repro/kernels/multi_count.py:69", max_abs_err=err,
-        ms=device_ms(lambda: ops.multi_count(x, taus)),
-        call_ms=call_ms(lambda: ops.multi_count(x, taus)),
-        plain_ms=device_ms(lambda: mc.multi_count_plain(x, taus)),
-        probe_ms=device_ms(lambda: ops.multi_count(x, taus[:, :1])),
-        bound=bound_ms(n_bytes, 2 * x.numel() * PATH_M), library_ms=None)
+    # K2: multi_count, exact, in both directions, one launch a call
+    rows["multi_count"] = _row_k2(gen, logits, between, shapes)
 
     # K3: runahead_topk_threshold, exact against plain and the generic loop
     kw = dict(k_target=40, rounds=8, spec_k=5)
@@ -568,6 +591,104 @@ def phase_kernels(gen):
                if "probe_ms" in r else "")
             + (f" | {r['note']}" if "note" in r else ""))
     return rows
+
+
+def _special_rows(x):
+    """x with +0 and -0 in every fifth lane, NaN lanes in the first row,
+    +inf and -inf lanes in the last."""
+    x = x.clone()
+    x[:, 1::5] = 0.0
+    x[:, 2::5] = -0.0
+    x[0, 3::7] = float("nan")
+    x[-1, 4::11] = float("inf")
+    x[-1, 6::13] = float("-inf")
+    return x
+
+
+def _row_k2(gen, logits, between, shapes):
+    """K2 against its plain version, bit for bit, counting above and below,
+    at the sampler's shapes, B = 64 with two candidate tiles and the
+    quantile clip's single row, on random rows and rows of NaN, +-inf and
+    +-0 with candidates -0, +0, +-inf and NaN among them; run to run and
+    between an eager call and graph replay; one launch a call; timed in
+    both directions beside the first version, with its bound restated for
+    the SASS's instructions a pair and its stage clock."""
+    import torch
+
+    from repro_torch.kernels import multi_count as mc
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import row_reduce
+
+    err = 0.0
+    for B, V, M in shapes + [(64, PATH_V, 33), K2_CLIP]:
+        for special in (False, True):
+            x = logits(B, V)
+            taus = between(x, M)
+            if special:
+                x = _special_rows(x)
+                specials = (-0.0, 0.0, float("inf"), float("-inf"),
+                            float("nan"))
+                for i, v in enumerate(specials[:max(0, M - 1)]):
+                    taus[:, i + 1] = v
+            for below in (False, True):
+                got = mc.multi_count_cuda(x, taus, below)
+                want = mc.multi_count_plain(x, taus, below)
+                check(torch.equal(got, mc.multi_count_cuda(x, taus, below)),
+                      f"K2 not bit-stable at {(B, V, M)}, below={below}")
+                check(torch.equal(got, want), f"K2 differs at {(B, V, M)}, "
+                      f"below={below}, special rows={special}")
+                err = max(err, (got - want).abs().max().item())
+    x = logits(PATH_B, PATH_V)
+    taus = between(x, PATH_M)
+    both = lambda: (mc.multi_count_cuda(x, taus),
+                    mc.multi_count_cuda(x, taus, True))
+    check(replay_equals_eager(both),
+          "K2 differs between eager and CUDA-graph replay")
+    one = [_one_kernel(lambda b=b: ops.multi_count(x, taus, below=b),
+                       "multi_count_kernel") for b in (False, True)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f_sm = max_sm_clock_hz()
+    nb = row_reduce.blocks_per_row(PATH_B, PATH_V, sms)
+    pairs = x.numel() * PATH_M
+    # instructions a pair from the SASS: the unrolled bodies compare each
+    # of 32 candidates with 4 elements (add4) and 1 (add1), and add each
+    # hit, beside 32 more FADDs (to_acc)
+    sass = _sass_counts("multi_count", K2_SASS) or {}
+    per_pair = [(c["FSET"] + c["FADD"] - 32) / (5 * 32)
+                for c in sass.values()]
+    ipp = max(per_pair) if per_pair else 2.0
+    issue_ms = ipp * pairs / (sms * FP32_LANES * f_sm) * 1e3
+    n_bytes = 4 * (x.numel() + 2 * taus.numel())
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    below_ms = device_ms(lambda: ops.multi_count(x, taus, below=True))
+    below_call = call_ms(lambda: ops.multi_count(x, taus, below=True))
+    clip = torch.rand(K2_CLIP[:2], generator=gen, device="cuda")
+    clip_t = clip[:, :K2_CLIP[2]] * 0.9
+    clip_ms = device_ms(lambda: ops.multi_count(clip, clip_t, below=True))
+    return dict(
+        source="src/repro_torch/kernels/csrc/multi_count.cu",
+        replaces="src/repro/kernels/multi_count.py:69", max_abs_err=err,
+        ms=device_ms(lambda: ops.multi_count(x, taus)),
+        call_ms=call_ms(lambda: ops.multi_count(x, taus)),
+        plain_ms=device_ms(lambda: mc.multi_count_plain(x, taus)),
+        probe_ms=device_ms(lambda: ops.multi_count(x, taus[:, :1])),
+        bound=bound_ms(n_bytes, ipp * pairs), library_ms=None,
+        library="none (no single PyTorch call counts a row against M "
+                "thresholds: torch.searchsorted needs a sort first)",
+        note=f"one launch per call ({one[0]}; below: {one[1]}); grid "
+             f"{PATH_B * nb} blocks of {row_reduce.THREADS} ({nb} a row); "
+             f"eager == graph replay bit for bit; below (x < tau) device "
+             f"{below_ms:.4f} ms ({below_call:.4f} eager); the first "
+             f"version (3 launches: zero fill, count, cast) "
+             f"{K2_FIRST_MS[0]:.4f} ms ({K2_FIRST_MS[1]:.4f} eager, H100 80GB "
+             f"HBM3 at 700 W); the quantile clip's {K2_CLIP} below "
+             f"{clip_ms:.4f} ms; bound: bytes "
+             f"{bytes_ms:.6f} ms, issue of {ipp:g} instructions a pair "
+             f"(SASS: " + "; ".join(
+                 f"{fn} " + " ".join(f"{op} {n}" for op, n in c.items())
+                 for fn, c in sass.items()) + f") {issue_ms:.6f} ms "
+             f"({FP32_LANES} lanes x {sms} SMs at {f_sm / 1e9:.3f} GHz); "
+             + _stage_note(row_reduce.stage_times("multi_count", x, taus, 1)))
 
 
 def _rows_k1(gen):
@@ -811,8 +932,19 @@ def phase_solves(gen):
                       "multi_entropy_moments")
     check(all(launches[name] > 0 for name in solver_kernels),
           f"a solver kernel did not run in the solves: {launches}")
+    # count_below counts x < c in place: one K2 a round (q > 0 makes the
+    # sign at lo0 known) and no negation kernel, of the operand or the
+    # candidates
+    kernels = kernels_per_call(lambda: solver.solve_kind(
+        "count_below", x, backend="hopper", rounds=8, spec_k=5, q=0.3))
+    neg = {k: n for k, n in kernels.items() if "neg" in k.lower()}
+    k2 = sum(n for k, n in kernels.items() if "multi_count_kernel" in k)
+    check(not neg and k2 == 8, f"count_below launched {k2} K2 kernels for "
+          f"8 rounds and negation kernels {neg}")
     say(f"phase 4 solves: {len(cases)} hopper solves with no host sync, "
-        f"brackets match the torch backend | launches {launches}")
+        f"brackets match the torch backend; count_below: {k2} K2 launches "
+        f"for 8 rounds, no negation kernel ({sum(kernels.values())} "
+        f"kernels a solve, profiled) | launches {launches}")
     return launches
 
 
@@ -917,10 +1049,11 @@ SAMPLER_KERNELS = (("K3", "runahead_topk"), ("K4", "multi_mass_kernel"),
                    ("K5", "multi_entropy_kernel"))
 
 
-def say_kernel_times(phase: str, kernels, busy_ms: float) -> None:
+def say_kernel_times(phase: str, kernels, busy_ms: float,
+                     which=SAMPLER_KERNELS) -> None:
     """Each sampler kernel's device time under the profiler, its share of
     the device's busy time, and its time a call."""
-    for label, key in SAMPLER_KERNELS:
+    for label, key in which:
         sel = [e for e in kernels if key in e.key]
         ms = sum(e.self_device_time_total for e in sel) / 1e3
         n = sum(e.count for e in sel)
@@ -1006,6 +1139,7 @@ def phase_continuous():
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
+    t0 = time.perf_counter()
     session = serve.setup(CONT_ARGV)
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -1072,8 +1206,9 @@ def phase_continuous():
         finally:
             torch.cuda.set_sync_debug_mode(0)
         sched.commit(nxt)
-    say("phase 9 continuous: 3 paged decode steps (K6, sample_slots) ran "
-        "under set_sync_debug_mode('error'); one token read per step")
+    say(f"phase 9 continuous: 3 paged decode steps (K6, sample_slots) ran "
+        f"under set_sync_debug_mode('error'); one token read per step "
+        f"(phase 9 took {time.perf_counter() - t0:.1f}s)")
     return launches
 
 
@@ -1161,6 +1296,7 @@ def phase_train():
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.optim.clip import clip_by_quantile
 
     per_step, prof = [], {}
 
@@ -1188,13 +1324,18 @@ def phase_train():
     check(len(losses) == 6 and all(map(math.isfinite, losses)),
           f"training losses not all finite: {losses}")
     n_layers = 24
+    # the clip's solve: one K2 a round, q > 0 making the sign at lo0 known
+    clip_rounds = inspect.signature(clip_by_quantile).parameters[
+        "rounds"].default
     prev = {name: 0 for name in launches}
     for i, snap in enumerate(per_step):
         k7 = snap["flash_fwd"] - prev["flash_fwd"]
         k2 = snap["multi_count"] - prev["multi_count"]
         check(k7 == 2 * n_layers, f"step {i}: K7 launched {k7} times, "
                                   f"expected {2 * n_layers}")
-        check(k2 > 0, f"step {i}: the quantile clip did not launch K2")
+        check(k2 == clip_rounds, f"step {i}: the quantile clip launched K2 "
+                                 f"{k2} times, not once a round "
+                                 f"({clip_rounds})")
         prev = snap
     timed = out["step_seconds"][1:TRAIN_PROFILED_STEP]
     ms = statistics.median(timed) * 1e3
@@ -1316,6 +1457,156 @@ def phase_fault():
         f"so does the final step_10 checkpoint (every leaf's sha256)")
 
 
+def mixed_k_requests(session):
+    """Phase 9's requests, each with its own top_k (MIXED_TOP_K in turn)."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+
+    reqs = serve.continuous_requests(session.cfg, session.args,
+                                     session.sampler)
+    for i, r in enumerate(reqs):
+        r.sampler = dataclasses.replace(
+            r.sampler, top_k=MIXED_TOP_K[i % len(MIXED_TOP_K)])
+    return reqs
+
+
+def phase_mixed_k(gen):
+    """Phase 9's continuous serve, but with a top_k per request: while the
+    live slots' k differ, a decode step's top-k is the engine's per-row
+    solve through K2 (rounds, plus the probe at lo0 whose sign a per-row k
+    leaves unknown); while they agree, K3.  Launch counts against that,
+    tok/s, a profiled run (K2 in situ), sync-free decode steps, and the
+    masked logits of a mixed-k batch on both backends."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import solver
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import sampler as smp
+    from repro_torch.serving.scheduler import _enable_bits, _static_top_k
+
+    t0 = time.perf_counter()
+    session = serve.setup(CONT_ARGV)
+    sc = session.sampler
+    # K2 launches a per-row-k solve makes: one a round, and one more for
+    # the sign at lo0, which the engine knows only for a static k
+    probe = solver.problem("count_above", torch.zeros((1, 2)),
+                           backend="torch",
+                           k=torch.ones(1, dtype=torch.long)).sign_lo is None
+    per_solve = sc.rounds + int(probe)
+
+    def serve_mixed(n_requests=None):
+        server = serve.server_for(session)
+        sched = server.scheduler
+        mixed = []
+        inner = sched.step_device
+
+        def step_device():            # is this step's top-k per row?
+            _, _, enable, k_static, _ = sched._step_args
+            mixed.append(enable[1] and k_static is None)
+            return inner()
+
+        sched.step_device = step_device
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = server.run(mixed_k_requests(session)[:n_requests])
+        torch.cuda.synchronize()
+        return done, time.perf_counter() - t0, sched, sum(mixed)
+
+    ops.reset_launches()
+    done, secs, sched, n_mixed = serve_mixed()
+    launches = dict(ops.LAUNCHES)
+    n_samples = sched.n_decode_steps + sched.n_admissions
+    n_tok = sum(len(c.tokens) for c in done)
+    check(len(done) == 8, f"served {len(done)} of 8 requests")
+    check(n_mixed > 0, "no decode step had mixed top_k")
+    check(launches["multi_count"] == per_solve * n_mixed
+          and launches["runahead_topk_threshold"] == n_samples - n_mixed
+          and launches["multi_mass"] == 9 * n_samples
+          and launches["multi_entropy_moments"] == 9 * n_samples,
+          f"{n_mixed} mixed-k steps of {n_samples} samples: expected K2 "
+          f"{per_solve} a mixed step, K3 on the rest, K4 and K5 9 a "
+          f"sample; got {launches}")
+    say(f"phase 13 mixed top-k: qwen3-4b full width, 8 requests with top_k "
+        f"{MIXED_TOP_K} in turn / {n_tok} tokens in {secs:.3f}s = "
+        f"{n_tok / secs:.1f} tok/s on {torch.cuda.get_device_name(0)} "
+        f"(first run) | {sched.n_decode_steps} decode steps "
+        f"({n_mixed} with mixed top_k), {sched.n_admissions} admissions | "
+        f"K2 {per_solve} launches per mixed-k sample ({sc.rounds} rounds + "
+        f"{int(probe)} probe at lo0), {launches['multi_count']} in all | "
+        f"launches {launches}")
+
+    done, secs, sched, n_mixed = serve_mixed()
+    n_tok = sum(len(c.tokens) for c in done)
+    say(f"phase 13 mixed top-k warm: {n_tok} tokens in {secs:.3f}s = "
+        f"{n_tok / secs:.1f} tok/s, {sched.n_decode_steps} steps "
+        f"({secs / sched.n_decode_steps * 1e3:.1f} ms per step incl. "
+        f"admissions)")
+    # the profiled run serves the first 4 requests only: the profiler's
+    # processing of phase 9's whole run takes most of that phase's time
+    (done, secs, sched, n_mixed), busy_ms, wall_ms, kernels = profiled(
+        lambda: serve_mixed(4))
+    say_profile("phase 13", busy_ms, wall_ms, kernels,
+                f"; the first {len(done)} requests, {sched.n_decode_steps} "
+                f"decode steps, {n_mixed} mixed-k")
+    if kernels:
+        say_kernel_times("phase 13", kernels, busy_ms,
+                         (("K2", "multi_count_kernel"),) + SAMPLER_KERNELS)
+
+    # the device part of a mixed-k step never syncs
+    server = serve.server_for(session)
+    for r in mixed_k_requests(session)[:4]:
+        server.submit(r)
+    server._admit_pending()
+    sched = server.scheduler
+    for _ in range(3):
+        sched._ensure_step_args()
+        check(sched._step_args[3] is None, "the four slots share a top_k")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            nxt = sched.step_device()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(ops.LAUNCHES["multi_count"] == per_solve,
+              f"a mixed-k step launched K2 {ops.LAUNCHES['multi_count']} "
+              f"times, not {per_solve}")
+        sched.commit(nxt)
+
+    # masked logits of one mixed-k batch, "hopper" against "torch": the
+    # top-k masks bit for bit; with top-p and the entropy temperature (K4,
+    # K5: float sums) the masks equal and the values within 1e-4
+    x = torch.randn((len(MIXED_TOP_K), PATH_V), generator=gen,
+                    device=session.device) * 3.0
+    diffs = []
+    for base in (smp.SamplerConfig(), sc):
+        scs = [dataclasses.replace(base, top_k=k, backend="torch")
+               for k in MIXED_TOP_K]
+        kw = dict(spec_k=sc.spec_k, rounds=sc.rounds,
+                  enable=_enable_bits(scs), top_k_static=_static_top_k(scs))
+        slots = smp.SlotSamplers.stack(scs, x.device)
+        zh, zt = (smp._masked_slot_logits(x, slots, backend=be, **kw)
+                  for be in ("hopper", "torch"))
+        check(torch.equal(zh > -1e29, zt > -1e29),
+              f"mixed-k masks differ between backends ({base})")
+        if base.top_p == 0.0 and base.target_entropy is None:
+            check(torch.equal(zh, zt), "mixed top-k masked logits differ")
+        check(torch.allclose(zh, zt, rtol=1e-4, atol=1e-5),
+              "mixed-k masked logits differ")
+        diffs.append((zh - zt).abs().max().item())
+    say(f"phase 13 mixed top-k: 3 decode steps with top_k {MIXED_TOP_K} ran "
+        f"under set_sync_debug_mode('error'), K2 {per_solve} times each; "
+        f"masked logits ({len(MIXED_TOP_K)}, {PATH_V}) hopper == torch: "
+        f"top-k alone bit for bit, with top-p and entropy masks equal (max "
+        f"|diff| {diffs[1]:.3g}) (phase 13 took "
+        f"{time.perf_counter() - t0:.1f}s)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1343,10 +1634,12 @@ def main() -> int:
     phase_continuous_reference(gen)
     launches_by_path["train"] = phase_train()
     phase_fault()
+    launches_by_path["continuous-mixed-k"] = phase_mixed_k(gen)
 
-    # the path whose run each kernel's launch count is read on: K2 is not
-    # on the static-k serving path (phase 4's engine solves launch it)
-    paths = {"taylor_sincos_eval": "paper", "multi_count": "solves",
+    # the path whose run each kernel's launch count is read on: K2 runs
+    # where the served requests' top_k differ (phase 13)
+    paths = {"taylor_sincos_eval": "paper",
+             "multi_count": "continuous-mixed-k",
              "paged_attend": "continuous", "flash_fwd": "train"}
     kernels = []
     for name, r in rows.items():

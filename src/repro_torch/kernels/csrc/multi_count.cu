@@ -1,86 +1,123 @@
 // K2: multi-threshold count over the vocab.
 //
 // Replaces the Pallas kernel multi_count (src/repro/kernels/multi_count.py:69,
-// body _kernel :34):  counts[b, m] = #{v < V : x[b, v] > taus[b, m]}.
+// body _kernel :34):  counts[b, m] = #{v < V : x[b, v] > taus[b, m]}, and,
+// with `below`, #{v < V : x[b, v] < taus[b, m]} (the engine's count_below,
+// which the reference counts as #{-x > -tau}: negation is exact, NaN
+// compares false both ways and -0 equals +0, so the counts are the same).
 //
-// Bound on the H100: bytes.  Every x element is read once (B*V*4 bytes),
-// against B*V*M compare-adds; at the solver's M = 31 that is under one
-// operation per byte, far below the card's balance point.  Design:
-//   * grid (ceil(V / chunk), B): each block sweeps one chunk of one row,
-//     so B = 4 rows still spread over the SMs (the TPU grid ran rows and
-//     tiles in order on one core);
-//   * the block's candidate row lives in shared memory, padded to a
-//     multiple of 32 with +inf (a count of 0); each thread holds a tile
-//     of 32 candidates and 32 int counters in registers;
-//   * the ragged tail is masked by the loop bound, not padded;
-//   * counters reduce per warp by shuffles and per block in shared memory,
-//     then one integer atomicAdd per candidate into an int32 (B, M) output
-//     that the wrapper zeroes and casts to f32.  Integer atomics are
-//     order-free, so the counts are exact and equal the Pallas kernel's
-//     f32 sums (exact below 2^24).
-#include "common.cuh"
+// Bound on the H100: bytes (B*V*4 read once: 0.73 us at (4, 151936, 31))
+// and the issue of the pairs (18.8 M at that shape).  A pair is two
+// instructions: `set.gt.f32.f32` (FSET.BF: 1.0f where x > tau) on the ALU
+// pipe and an FADD into the thread's f32 running count on the FMA pipe,
+// 1.13 us of issue on 128 lanes an SM at 1.98 GHz, and as long for the
+// ALU's 64 compares a clock an SM.  (A -1 mask from `set.s32` with one
+// IADD3 for two pairs compiles to FSETP + SEL + IADD3, 2.5 a pair, all on
+// the ALU; an add predicated on the compare ran slower: PERF.md.)
+// A thread's counts are converted to int32 once (row_reduce.cuh to_acc),
+// reduced as integers, exact in any order, and converted to f32 once, in
+// the finish.  Grid, balance and the single-launch finish are
+// row_reduce.cuh's (one wave of the card, float4 loads, a ticket instead
+// of a second launch).  The first version was three launches a call: the
+// wrapper's zero fill, the kernel's integer atomics, and a cast to f32.
+// The compare stays per pair, so any taus are taken, sorted or not.
+//
+// The result equals the plain version's .sum().float() at any V (one
+// rounding of an exact integer), and the Pallas kernel's f32 tile sums
+// wherever V < 2^24.
+#include "row_reduce.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 32;   // candidates held in registers at once
+// x > t (x < t with kBelow) as 1.0f or 0.0f (FSET.BF); 0 when either is
+// NaN.  Added to an f32 running count (FADD): a compare on the ALU pipe
+// and an add on the FMA pipe a pair.
+template <bool kBelow>
+__device__ __forceinline__ float hit(float x, float t) {
+  float h;
+  if (kBelow)
+    asm("set.lt.f32.f32 %0, %1, %2;" : "=f"(h) : "f"(x), "f"(t));
+  else
+    asm("set.gt.f32.f32 %0, %1, %2;" : "=f"(h) : "f"(x), "f"(t));
+  return h;
+}
 
-__global__ void __launch_bounds__(kThreads)
+template <bool kBelow>
+__device__ __forceinline__ void count(float& acc, float x, float t) {
+  acc = __fadd_rn(acc, hit<kBelow>(x, t));
+}
+
+// A thread's counts are f32, exact integers: a lane sees at most
+// V / (256 nb) + 5 elements of a row, under 2^21 for any (B, V) that fits
+// the card's 80 GB (row_reduce.py::blocks_per_row gives a row
+// nb >= max(1, 132 // B) blocks), so below to_acc's 2^23; they are
+// reduced as int32.
+template <bool kBelow>
+struct CountOp {
+  using Acc = int;
+  static constexpr int kAcc = 1;
+  // a candidate past M in the last tile: no hit (its sum is dropped)
+  static __device__ __forceinline__ float pad() {
+    return kBelow ? -__int_as_float(0x7f800000) : __int_as_float(0x7f800000);
+  }
+
+  static __device__ __forceinline__ float prepare(float tau) { return tau; }
+
+  static __device__ __forceinline__ void add4(
+      float4 q, const float (&t)[row_reduce::kTile],
+      float (&acc)[1][row_reduce::kTile], int) {
+#pragma unroll
+    for (int j = 0; j < row_reduce::kTile; ++j) {
+      count<kBelow>(acc[0][j], q.x, t[j]);
+      count<kBelow>(acc[0][j], q.y, t[j]);
+      count<kBelow>(acc[0][j], q.z, t[j]);
+      count<kBelow>(acc[0][j], q.w, t[j]);
+    }
+  }
+
+  static __device__ __forceinline__ void add1(
+      float x, const float (&t)[row_reduce::kTile],
+      float (&acc)[1][row_reduce::kTile], int) {
+#pragma unroll
+    for (int j = 0; j < row_reduce::kTile; ++j)
+      count<kBelow>(acc[0][j], x, t[j]);
+  }
+
+  static __device__ __forceinline__ float finish(int, int sum, float) {
+    return __int2float_rn(sum);
+  }
+};
+
+template <bool kBelow>
+__global__ void __launch_bounds__(row_reduce::kThreads, 1)
 multi_count_kernel(const float* __restrict__ x, long long ld_x,
                    const float* __restrict__ taus, long long ld_t,
-                   int* __restrict__ out, int V, int M, int m_pad, int chunk) {
-  extern __shared__ float s_tau[];                  // m_pad candidates
-  __shared__ int s_warp[kThreads / 32][kTile];
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int m = threadIdx.x; m < m_pad; m += kThreads)
-    s_tau[m] = m < M ? taus[b * ld_t + m] : __int_as_float(0x7f800000);
-  __syncthreads();
-
-  const float* row = x + b * ld_x;
-  const int v0 = blockIdx.x * chunk;
-  const int v1 = min(v0 + chunk, V);
-  for (int m0 = 0; m0 < m_pad; m0 += kTile) {
-    float t[kTile];
-    int cnt[kTile];
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      t[j] = s_tau[m0 + j];
-      cnt[j] = 0;
-    }
-    for (int v = v0 + threadIdx.x; v < v1; v += kThreads) {
-      const float xv = row[v];
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) cnt[j] += xv > t[j];
-    }
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const int s = warp_sum_i32(cnt[j]);
-      if (lane == 0) s_warp[warp][j] = s;
-    }
-    __syncthreads();
-    if (threadIdx.x < kTile && m0 + threadIdx.x < M) {
-      int total = 0;
-      for (int w = 0; w < kThreads / 32; ++w) total += s_warp[w][threadIdx.x];
-      if (total) atomicAdd(out + b * M + m0 + threadIdx.x, total);
-    }
-    __syncthreads();
-  }
+                   float* __restrict__ out, float* __restrict__ partial,
+                   unsigned* __restrict__ tickets, int V, int M, int nb) {
+  row_reduce::row_reduce<CountOp<kBelow>>(
+      x, ld_x, taus, ld_t, out, partial, tickets, V, M, nb);
 }
 
 }  // namespace
 
-// x: (B, V) f32 rows of stride ld_x; taus: (B, M) f32 rows of stride ld_t;
-// out: (B, M) int32, zeroed by the caller.
+// x: (B, V) f32 rows of stride ld_x; taus: (B, M) f32 rows of stride
+// ld_t; out: (B, M) f32; partial: (B, nb, M) int32 (in an f32 buffer) and
+// tickets: (B,) u32, all 0, the wrapper's cached scratch (unused, and may
+// be null, when nb = 1).  counts x > tau; the _below entry x < tau.
 extern "C" int multi_count_launch(const float* x, long long ld_x,
-                                  const float* taus, long long ld_t, int* out,
-                                  int B, int V, int M, int chunk,
-                                  void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((V + chunk - 1) / chunk, B);
-  const int m_pad = (M + kTile - 1) / kTile * kTile;
-  multi_count_kernel<<<grid, kThreads, m_pad * sizeof(float), s>>>(
-      x, ld_x, taus, ld_t, out, V, M, m_pad, chunk);
-  return static_cast<int>(cudaGetLastError());
+                                  const float* taus, long long ld_t,
+                                  float* out, float* partial,
+                                  unsigned* tickets, int B, int V, int M,
+                                  int nb, void* stream) {
+  return row_reduce::launch(multi_count_kernel<false>, x, ld_x, taus, ld_t,
+                            out, partial, tickets, B, V, M, nb, stream);
+}
+
+extern "C" int multi_count_below_launch(const float* x, long long ld_x,
+                                        const float* taus, long long ld_t,
+                                        float* out, float* partial,
+                                        unsigned* tickets, int B, int V,
+                                        int M, int nb, void* stream) {
+  return row_reduce::launch(multi_count_kernel<true>, x, ld_x, taus, ld_t,
+                            out, partial, tickets, B, V, M, nb, stream);
 }

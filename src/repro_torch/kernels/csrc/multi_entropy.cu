@@ -62,6 +62,7 @@ __device__ __forceinline__ float ex2_approx_ftz(float y) {
 }
 
 struct EntropyOp {
+  using Acc = float;
   static constexpr int kAcc = 2;            // s, then u = sum z e
   // a candidate past M in a live group of 8: e = 1, and its sums dropped
   static __device__ __forceinline__ float pad() { return 0.0f; }

@@ -25,6 +25,7 @@
 namespace {
 
 struct MassOp {
+  using Acc = float;
   static constexpr int kAcc = 1;
   // +inf: no p but +inf is >= it
   static __device__ __forceinline__ float pad() {

@@ -1,7 +1,9 @@
-// The single-launch, whole-card skeleton of K4 (multi_mass) and K5
-// (multi_entropy_moments): per row b of a (B, V) f32 operand and per
-// candidate m of a (B, M) f32 candidate row, one or two float sums over
-// the row's V elements, each term a function of (x[b, v], cand[b, m]).
+// The single-launch, whole-card skeleton of K2 (multi_count), K4
+// (multi_mass) and K5 (multi_entropy_moments): per row b of a (B, V) f32
+// operand and per candidate m of a (B, M) f32 candidate row, one or two
+// sums over the row's V elements, each term a function of (x[b, v],
+// cand[b, m]).  The sums are the Op's accumulator type: f32 for K4 and
+// K5, int32 for K2's counts.
 //
 // Grid and balance.  One wave of one block of 256 threads per SM: the
 // wrapper gives each row nb blocks (kernels/row_reduce.py::blocks_per_row:
@@ -23,7 +25,7 @@
 // one after another over the row again (from L2).
 //
 // Reduction, in a fixed order, so results are bit-identical run to run
-// (no float atomics):
+// (no float atomics; integer sums do not depend on the order at all):
 //   * a thread sums its elements in row order;
 //   * a warp's 32 sums of 32 candidates are reduced at once by a
 //     transposing butterfly (31 shuffles, not 32 x 5): lane j ends with the
@@ -37,9 +39,10 @@
 //     block's threads each a strided share of the blocks, then those
 //     shares in order), and writes the result.  Which block comes last
 //     does not change the order.  A thread-block cluster per row,
-//     reducing through distributed shared memory, would hold a row to at
-//     most 16 SMs: at B = 4 that is 64 of the 132, half the SFU rate K5
-//     is bound by, so the ticket it is.
+//     reducing through distributed shared memory, holds a row to at most
+//     16 SMs: at B = 4 that is 64 of the 132.  Built and timed for K2
+//     (PERF.md): its reduction after the units took 1.5 us against the
+//     ticket's 1.8, and its units 1.7 times as long, so the ticket it is.
 // One launch per call and no second pass.  The scratch and the tickets
 // are the wrapper's buffers, cached per device, so their addresses stay
 // fixed for CUDA-graph replay; every launch leaves the tickets at 0.
@@ -51,6 +54,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -87,34 +91,54 @@ constexpr int kAhead = 2;               // a warp's unit loads in flight
 constexpr int kLoads = 16;              // a thread's finish loads in flight
 constexpr unsigned kFull = 0xffffffffu;
 
+// a + b in an accumulator type: f32 rounded to nearest (never contracted
+// into an FMA), or int32
+__device__ __forceinline__ float acc_add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ int acc_add(int a, int b) { return a + b; }
+
+// A thread's f32 register count (an integer-valued f32 of at most 2^23)
+// as an int32, from the bits of r + 2^23, which is exact.
+template <class Acc>
+__device__ __forceinline__ Acc to_acc(float r);
+template <>
+__device__ __forceinline__ int to_acc<int>(float r) {
+  return __float_as_int(__fadd_rn(r, 8388608.0f)) - 0x4b000000;
+}
+
 // v[j] summed over the 32 lanes for every j at once: afterwards lane j
 // holds the warp's sum of v[j].  At each step (kHalf = 16, 8, ..., 1, a
 // template argument, so every index is a constant and v stays in
 // registers) a lane keeps the half of its sums that its lane bit kHalf
 // says and adds its partner's copy of that half: 31 shuffles in a fixed
 // order.
-template <int kHalf = kTile / 2>
-__device__ __forceinline__ float warp_transpose_sum(float (&v)[kTile],
-                                                    int lane) {
+template <int kHalf = kTile / 2, class T>
+__device__ __forceinline__ T warp_transpose_sum(T (&v)[kTile], int lane) {
   const bool upper = (lane & kHalf) != 0;
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
-    const float send = upper ? v[i] : v[i + kHalf];
-    const float keep = upper ? v[i + kHalf] : v[i];
-    v[i] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, kHalf));
+    const T send = upper ? v[i] : v[i + kHalf];
+    const T keep = upper ? v[i + kHalf] : v[i];
+    v[i] = acc_add(keep, __shfl_xor_sync(kFull, send, kHalf));
   }
   if constexpr (kHalf > 1) return warp_transpose_sum<kHalf / 2>(v, lane);
   return v[0];
 }
 
-// Op is a struct of static device functions:
-//   kAcc                 sums per candidate (1: mass; 2: s and u)
+// Op is a struct of static device functions and two members:
+//   Acc                  the type the sums are reduced in: float, or int
+//                        for counts (a thread's own sums are f32 in
+//                        registers either way; to_acc converts counts,
+//                        and f32 sums go on as they are, so K4's and K5's
+//                        code is what it was before Acc)
+//   kAcc                 sums per candidate (1: mass, count; 2: s and u)
 //   prepare(c)           a candidate's per-pair value, once per block
 //   pad()                the value of a candidate past M in the last tile
 //   add4(q, prm, acc, mc), add1(x, prm, acc, mc)
 //                        adds the terms of four (one) elements for the
 //                        mc <= 32 live candidates of the tile
-//   finish(k, sum, c)    the result of sum k for candidate value c
+//   finish(k, sum, c)    the f32 result of sum k for candidate value c
 template <class Op>
 __device__ __forceinline__ void row_reduce(const float* __restrict__ x,
                                            long long ld_x,
@@ -124,12 +148,13 @@ __device__ __forceinline__ void row_reduce(const float* __restrict__ x,
                                            float* __restrict__ partial,
                                            unsigned* __restrict__ tickets,
                                            int V, int M, int nb) {
+  using Acc = typename Op::Acc;
   constexpr int kAcc = Op::kAcc;
   __shared__ float s_cand[kTile];
   __shared__ float s_prm[kTile];
-  __shared__ float s_red[kWarps][kAcc][kTile];
+  __shared__ Acc s_red[kWarps][kAcc][kTile];
   __shared__ bool s_last;
-  __shared__ float s_fin[kThreads];
+  __shared__ Acc s_fin[kThreads];
   const int b = blockIdx.x / nb;
   const int c = blockIdx.x % nb;
   const int tid = threadIdx.x;
@@ -162,7 +187,8 @@ __device__ __forceinline__ void row_reduce(const float* __restrict__ x,
   float edge = 0.0f;
   if (edge_warp && lane < n_edge)
     edge = lane < head ? row[lane] : row[head + 4 * n4 + (lane - head)];
-  float* dst = partial + (static_cast<long long>(b) * nb + c) * kAcc * M;
+  Acc* dst = reinterpret_cast<Acc*>(partial) +
+             (static_cast<long long>(b) * nb + c) * kAcc * M;
   // unit u's float4 for this lane (zeros past the warp's units or the row)
   auto load = [&](long long u) {
     const long long i = u * 32 + lane;
@@ -207,8 +233,14 @@ __device__ __forceinline__ void row_reduce(const float* __restrict__ x,
 
 #pragma unroll
     for (int k = 0; k < kAcc; ++k) {
-      const float sum = warp_transpose_sum(acc[k], lane);
-      s_red[warp][k][lane] = sum;
+      if constexpr (std::is_same_v<Acc, float>) {
+        s_red[warp][k][lane] = warp_transpose_sum(acc[k], lane);
+      } else {
+        Acc a[kTile];
+#pragma unroll
+        for (int j = 0; j < kTile; ++j) a[j] = to_acc<Acc>(acc[k][j]);
+        s_red[warp][k][lane] = warp_transpose_sum(a, lane);
+      }
     }
     __syncthreads();
     if (m0 == 0) ROW_REDUCE_STAGE(2);
@@ -216,10 +248,10 @@ __device__ __forceinline__ void row_reduce(const float* __restrict__ x,
       const int k = tid / kTile;
       const int j = tid % kTile;
       if (j < mc) {
-        float total = 0.0f;
+        Acc total = Acc(0);
 #pragma unroll
         for (int w = 0; w < kWarps; ++w)
-          total = __fadd_rn(total, s_red[w][k][j]);
+          total = acc_add(total, s_red[w][k][j]);
         if (nb == 1)
           out[(static_cast<long long>(b) * kAcc + k) * M + m0 + j] =
               Op::finish(k, total, s_cand[j]);
@@ -253,7 +285,8 @@ __device__ __forceinline__ void row_reduce(const float* __restrict__ x,
   // comes last.
   const int cols = kAcc * M;
   const long long stride = cols;
-  const float* src = partial + static_cast<long long>(b) * nb * stride;
+  const Acc* src = reinterpret_cast<const Acc*>(partial) +
+                   static_cast<long long>(b) * nb * stride;
   const int w = min(cols, kThreads);
   const int groups = kThreads / w;
   const int g = tid / w;
@@ -262,26 +295,26 @@ __device__ __forceinline__ void row_reduce(const float* __restrict__ x,
     const int wc = min(w, cols - col0);
     const float c_own = tid < wc ? crow[(col0 + tid) % M] : 0.0f;
     if (g < groups && col < wc) {
-      const float* p = src + col0 + col;
-      float part = 0.0f;
+      const Acc* p = src + col0 + col;
+      Acc part = Acc(0);
       for (int blk0 = g; blk0 < nb; blk0 += groups * kLoads) {
-        float v[kLoads];
+        Acc v[kLoads];
 #pragma unroll
         for (int u = 0; u < kLoads; ++u) {
           const int blk = blk0 + u * groups;
-          v[u] = blk < nb ? __ldcg(p + blk * stride) : 0.0f;
+          v[u] = blk < nb ? __ldcg(p + blk * stride) : Acc(0);
         }
 #pragma unroll
         for (int u = 0; u < kLoads; ++u)
-          if (blk0 + u * groups < nb) part = __fadd_rn(part, v[u]);
+          if (blk0 + u * groups < nb) part = acc_add(part, v[u]);
       }
       s_fin[g * w + col] = part;
     }
     __syncthreads();
     if (tid < wc) {
-      float total = 0.0f;
+      Acc total = Acc(0);
       for (int q = 0; q < groups; ++q)
-        total = __fadd_rn(total, s_fin[q * w + tid]);
+        total = acc_add(total, s_fin[q * w + tid]);
       out[static_cast<long long>(b) * cols + col0 + tid] =
           Op::finish((col0 + tid) / M, total, c_own);
     }

@@ -66,7 +66,6 @@ def multi_entropy_moments_cuda(z: torch.Tensor, ts: torch.Tensor
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K5 on CUDA tensors: z (B, V) f32 with every element <= 0,
     ts (B, M) f32 positive -> (s, w), each (B, M) f32."""
-    lib, fn = _entry()
-    out = row_reduce.launch(lib, fn, "multi_entropy_moments", z, ts,
+    out = row_reduce.launch(_entry, "multi_entropy_moments", z, ts,
                             ("z", "ts"), 2)
     return out[:, 0], out[:, 1]

@@ -45,6 +45,5 @@ def _entry():
 def multi_mass_cuda(probs: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
     """Launch K4 on CUDA tensors: probs (B, V) f32, taus (B, M) f32 ->
     (B, M) f32."""
-    lib, fn = _entry()
-    return row_reduce.launch(lib, fn, "multi_mass", probs, taus,
+    return row_reduce.launch(_entry, "multi_mass", probs, taus,
                              ("probs", "taus"), 1)[:, 0]

@@ -47,11 +47,13 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
                      f"got {sorted(kinds)}")
 
 
-def multi_count(logits: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
-    """counts[b, m] = #{v : logits[b, v] > taus[b, m]} (f32)."""
+def multi_count(logits: torch.Tensor, taus: torch.Tensor,
+                below: bool = False) -> torch.Tensor:
+    """counts[b, m] = #{v : logits[b, v] > taus[b, m]} (f32); with
+    ``below``, #{v : logits[b, v] < taus[b, m]}."""
     if _on_cpu(logits, taus):
-        return _mc.multi_count_plain(logits, taus)
-    out = _mc.multi_count_cuda(logits, taus)
+        return _mc.multi_count_plain(logits, taus, below)
+    out = _mc.multi_count_cuda(logits, taus, below)
     LAUNCHES["multi_count"] += 1
     return out
 

@@ -1,13 +1,14 @@
-"""The single-launch, whole-card row reduction of K4 and K5.
+"""The single-launch, whole-card row reduction of K2, K4 and K5.
 
-``csrc/row_reduce.cuh`` is the kernel skeleton both share: per row of a
-(B, V) f32 operand and per candidate of a (B, M) row, one or two f32 sums
-over the row, in one launch of one wave of the card, with a fixed summing
-order (a ticket per row instead of a second launch).  This module holds
-what the wrappers of ``multi_mass.py`` and ``multi_entropy.py`` share: the
+``csrc/row_reduce.cuh`` is the kernel skeleton the three share: per row of
+a (B, V) f32 operand and per candidate of a (B, M) row, one or two sums
+over the row (f32 for K4 and K5, int32 counts for K2), in one launch of
+one wave of the card, with a fixed summing order (a ticket per row
+instead of a second launch).  This module holds what the wrappers of
+``multi_count.py``, ``multi_mass.py`` and ``multi_entropy.py`` share: the
 grid (``blocks_per_row``), the scratch and tickets (``scratch``), the
-launch (``launch``), and the block split the CPU emulations of the two
-kernels sum in (``block_indices``).
+launch (``launch``), and the block split the CPU emulations of K4 and K5
+sum in (``block_indices``).
 """
 from __future__ import annotations
 
@@ -86,11 +87,12 @@ def scratch(device: torch.device, n_partial: int, n_rows: int
     return held[-1]
 
 
-def launch(lib, fn, what: str, x: torch.Tensor, cand: torch.Tensor,
+def launch(entry, what: str, x: torch.Tensor, cand: torch.Tensor,
            names: tuple[str, str], k_acc: int) -> torch.Tensor:
-    """Check the operands, size the grid, and launch ``fn`` once on the
-    current stream; returns (B, k_acc, M) f32.  Raises on a launch error
-    (the tickets are untouched by a launch that never ran)."""
+    """Check the operands, size the grid, and launch the C entry of
+    ``entry()`` (its (library, function), built at first use) once on
+    the current stream; returns (B, k_acc, M) f32.  Raises on a launch
+    error (the tickets are untouched by a launch that never ran)."""
     build.check_rows(x, names[0])
     build.check_rows(cand, names[1])
     B, V = x.shape
@@ -98,6 +100,7 @@ def launch(lib, fn, what: str, x: torch.Tensor, cand: torch.Tensor,
     if cand.shape[0] != B or cand.device != x.device:
         raise ValueError(f"{names[1]} must be ({B}, M) on {x.device}, got "
                          f"{tuple(cand.shape)} on {cand.device}")
+    lib, fn = entry()
     nb = blocks_per_row(B, V, sm_count(x.device.index))
     with torch.cuda.device(x.device):
         partial = tickets = 0
@@ -117,7 +120,8 @@ STAGES = ("candidates ready", "units summed", "sums written",
 STAGE_DEFINES = ("ROW_REDUCE_STAGES",)
 STAGE_BLOCKS = 4096     # csrc/row_reduce.cuh kStageBlocks
 STAGE_BUILDS = tuple((name, STAGE_DEFINES)
-                     for name in ("multi_mass", "multi_entropy"))
+                     for name in ("multi_count", "multi_mass",
+                                  "multi_entropy"))
 
 
 def stage_times(name: str, x: torch.Tensor, cand: torch.Tensor,
@@ -134,12 +138,13 @@ def stage_times(name: str, x: torch.Tensor, cand: torch.Tensor,
     lib.row_reduce_stages.restype = ctypes.c_int
     n = len(STAGES) + 1
     host = (ctypes.c_ulonglong * (STAGE_BLOCKS * n))()
-    launch(lib, fn, name, x, cand, ("x", "cand"), k_acc)
+    entry = lambda: (lib, fn)
+    launch(entry, name, x, cand, ("x", "cand"), k_acc)
     per_call = []
     for _ in range(calls):
         torch.cuda.synchronize()
         build.check_launch(lib, lib.row_reduce_stages(None), "stage clock")
-        launch(lib, fn, name, x, cand, ("x", "cand"), k_acc)
+        launch(entry, name, x, cand, ("x", "cand"), k_acc)
         torch.cuda.synchronize()
         build.check_launch(lib, lib.row_reduce_stages(host), "stage clock")
         t = torch.tensor(list(host), dtype=torch.float64).reshape(-1, n)

@@ -13,8 +13,9 @@ oracle by construction, so the two backends cannot drift apart.
   mass_at_or_above        -> ops.multi_mass (K4; float sums: allclose)
   entropy_at_temperature  -> ops.multi_entropy_moments (K5; float sums:
                              allclose)
-  count_below             -> ops.multi_count on the NEGATED operand:
-                             #{x < c} == #{-x > -c} exactly
+  count_below             -> ops.multi_count(below=True) on the operand
+                             as it is (the reference counts #{-x > -c},
+                             the same counts: negation is exact)
 """
 from __future__ import annotations
 
@@ -90,11 +91,10 @@ def _entropy_hopper(operand: Tensor, *, target, **bracket) -> MonotoneProblem:
 def _count_below_hopper(operand: Tensor, *, q) -> MonotoneProblem:
     x = operand.float()
     n = x.shape[-1]
-    neg_x = -x
     q_col = _param_col(q, x.device)
 
     def multi_eval(cs: Tensor) -> Tensor:
-        return true_div(ops.multi_count(neg_x, -cs), n) - q_col
+        return true_div(ops.multi_count(x, cs, below=True), n) - q_col
 
     return dataclasses.replace(_from_torch("count_below", operand, q=q),
                                multi_eval=multi_eval)

@@ -2,10 +2,13 @@
 
 Marked ``cuda``: each test skips where torch sees no CUDA device.  On a
 GPU machine run ``python -m pytest -m cuda tests/test_torch_cuda.py``
-(this file imports no JAX).  K1, K2 and K3 must match exactly (K3's
-cluster kernel also against the CPU emulation of its scheme, K1's
-division step against the card's IEEE division; K3's NaN brackets with
-every NaN taken as one); K4 and K5 within rtol=1e-5, atol=1e-6 (f32 sums
+(this file imports no JAX).  K1, K2 and K3 must match exactly (K2
+counting above and below at its paths' shapes and on rows of NaN, +-inf
+and +-0, one launch a call, the same between eager calls and CUDA-graph
+replay with calls at B = 4, 64 and 1 in between; K3's cluster kernel
+also against the CPU emulation of its scheme, K1's division step against
+the card's IEEE division; K3's NaN brackets with every NaN taken as
+one); K4 and K5 within rtol=1e-5, atol=1e-6 (f32 sums
 in another order, K5's exponentials by ex2.approx) up to the served
 vocab, and bit for bit from one run to the next, between eager calls and
 CUDA-graph replay and across calls at two batch sizes, one kernel launch
@@ -59,14 +62,110 @@ def _inputs(gen, B, V, M):
     return x, t
 
 
-@pytest.mark.parametrize("B,V,M", SHAPES)
-def test_multi_count(gen, B, V, M):
-    x, t = _inputs(gen, B, V, M)
-    assert torch.equal(mc.multi_count_cuda(x, t), mc.multi_count_plain(x, t))
-    # strided candidate rows, as the engine passes grid[:, 1:-1]
-    grid = torch.randn((B, M + 2), generator=gen, device="cuda")
-    assert torch.equal(mc.multi_count_cuda(x, grid[:, 1:-1]),
-                       mc.multi_count_plain(x, grid[:, 1:-1]))
+# K2 at the shapes its paths give it: the sampler's (4, 151936) at M = 31
+# and the M = 1 probe, B = 64 with two candidate tiles, ragged V, the
+# quantile clip's single row (1, 300, 15), and the small shapes
+K2_SHAPES = [(4, 151936, 31), (4, 151936, 1), (3, 1000, 31), (3, 257, 31),
+             (64, 151936, 33), (1, 300, 15)] + SHAPES
+
+
+def _special_rows(gen, B, V):
+    """Random rows with +0 and -0 in every fifth lane, NaN lanes in the
+    first row, +inf and -inf lanes in the last."""
+    x = torch.randn((B, V), generator=gen, device="cuda") * 2.0
+    x[:, 1::5] = 0.0
+    x[:, 2::5] = -0.0
+    x[0, 3::7] = float("nan")
+    x[-1, 4::11] = float("inf")
+    x[-1, 6::13] = float("-inf")
+    return x
+
+
+def _k2_candidates(gen, x, M):
+    """Candidates as strided rows of a grid (the engine's grid[:, 1:-1]):
+    one equal to an element, then -0, +0, +inf, -inf and NaN where M has
+    room, the rest random."""
+    B = x.shape[0]
+    grid = torch.randn((B, M + 2), generator=gen, device="cuda") * 2.0
+    grid[:, 1] = x[:, 7 % x.shape[1]]
+    for i, v in enumerate((-0.0, 0.0, float("inf"), float("-inf"),
+                           float("nan"))):
+        if i + 2 <= M:
+            grid[:, i + 2] = v
+    return grid[:, 1:-1]
+
+
+@pytest.mark.parametrize("below", [False, True])
+@pytest.mark.parametrize("B,V,M", K2_SHAPES)
+def test_multi_count(gen, B, V, M, below):
+    """K2 bit for bit against its plain version and run to run, counting
+    above and below, on random rows and on rows of NaN, +-inf and +-0."""
+    plain = lambda x, t: mc.multi_count_plain(x, t, below)
+    for x in (torch.randn((B, V), generator=gen, device="cuda") * 2.0,
+              _special_rows(gen, B, V)):
+        taus = _k2_candidates(gen, x, M)
+        got = mc.multi_count_cuda(x, taus, below)
+        assert torch.equal(got, mc.multi_count_cuda(x, taus, below))
+        assert torch.equal(got, _by_tiles(plain, x, taus))
+
+
+def test_multi_count_graph_replay_and_batches_back_to_back(gen):
+    """K2 bit for bit between eager calls and CUDA-graph replay, while
+    calls at B = 4, 64 and 1 run between the replays (a ticket left
+    non-zero, or one call's sums read by another, would show)."""
+    def call_at(B, V, M):
+        x = _special_rows(gen, B, V)
+        taus = _k2_candidates(gen, x, M)
+        return lambda: (mc.multi_count_cuda(x, taus),
+                        mc.multi_count_cuda(x, taus, below=True))
+
+    calls = {4: call_at(4, 151936, 31), 64: call_at(64, 151936, 33),
+             1: call_at(1, 300, 15)}
+    eager = {B: call() for B, call in calls.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls[4]()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls[4]()
+    for _ in range(3):
+        graph.replay()
+        calls[64]()
+        calls[1]()
+    torch.cuda.synchronize()
+    for got, want in zip(outs, eager[4]):
+        assert torch.equal(got, want)
+    for B in (64, 1):
+        for got, want in zip(calls[B](), eager[B]):
+            assert torch.equal(got, want)
+
+
+def test_multi_count_one_launch_per_call(gen):
+    """One device kernel per K2 call in either direction, at the sampler's
+    shape and the quantile clip's, and the wrapper counts it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for B, V, M in ((4, 151936, 31), (1, 300, 15)):
+        x = torch.randn((B, V), generator=gen, device="cuda")
+        taus = _k2_candidates(gen, x, M)
+        for below in (False, True):
+            mc.multi_count_cuda(x, taus, below)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                mc.multi_count_cuda(x, taus, below)
+                torch.cuda.synchronize()
+            kernels = {e.key: e.count for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA}
+            assert len(kernels) == 1, kernels
+            assert all("multi_count_kernel" in k and n == 1
+                       for k, n in kernels.items()), kernels
+    ops.reset_launches()
+    ops.multi_count(x, taus)
+    ops.multi_count(x, taus, below=True)
+    assert ops.LAUNCHES["multi_count"] == 2
 
 
 @pytest.mark.parametrize("B,V,M", SHAPES)

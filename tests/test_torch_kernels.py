@@ -44,14 +44,50 @@ def _between(x, M, seed=1):
     return t
 
 
-@pytest.mark.parametrize("V,M", SHAPES)
-def test_multi_count_matches_pallas_exactly(V, M):
+def _special(x, taus):
+    """Rows with +0 and -0 in every fifth lane, NaN lanes in row 0, +inf
+    and -inf lanes in row 2; candidates -0, +0, +inf, -inf and NaN where
+    M has room (after the one equal to an element)."""
+    x, taus = x.copy(), taus.copy()
+    x[:, 1::5] = 0.0
+    x[:, 2::5] = -0.0
+    x[0, 3::7] = np.nan
+    x[2, 4::11] = np.inf
+    x[2, 6::13] = -np.inf
+    room = max(0, taus.shape[1] - 1)
+    for i, v in enumerate((-0.0, 0.0, np.inf, -np.inf, np.nan)[:room]):
+        taus[:, i + 1] = v
+    return x, taus
+
+
+# K2 counting above (the Pallas kernel) and below (JAX's count_below runs
+# the Pallas kernel on the negated operand and candidates), on random rows
+# and on rows of NaN, +-inf and +-0 with such candidates
+K2_CASES = [pytest.param(V, M, False, False, id=f"{V}-{M}")
+            for V, M in SHAPES] + [
+    pytest.param(V, M, special, below, id=f"{V}-{M}-"
+                 f"{'special' if special else 'randn'}-"
+                 f"{'below' if below else 'above'}")
+    for V, M in SHAPES for special, below in
+    ((True, False), (False, True), (True, True))]
+
+
+@pytest.mark.parametrize("V,M,special,below", K2_CASES)
+def test_multi_count_matches_pallas_exactly(V, M, special, below):
     x = _logits(V)
     taus = _between(x, M)
-    want = np.asarray(jmc.multi_count(jnp.asarray(x), jnp.asarray(taus),
+    if special:
+        x, taus = _special(x, taus)
+    sign = -1.0 if below else 1.0
+    want = np.asarray(jmc.multi_count(jnp.asarray(sign * x),
+                                      jnp.asarray(sign * taus),
                                       interpret=True))
-    got = ops.multi_count(torch.from_numpy(x), torch.from_numpy(taus))
+    got = ops.multi_count(torch.from_numpy(x), torch.from_numpy(taus),
+                          below=below)
     np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        mc.multi_count_plain(torch.from_numpy(x), torch.from_numpy(taus),
+                             below).numpy(), want)
 
 
 @pytest.mark.parametrize("V,M", SHAPES)

@@ -67,41 +67,56 @@ def _kind_cases():
     probs = np.exp(x - x.max(-1, keepdims=True))
     probs = (probs / probs.sum(-1, keepdims=True)).astype(np.float32)
     k_rows = np.array([1, 40, 300], np.int32)
+    # quantile rows of ties (halves) and +0 / -0, one with +inf lanes, one
+    # with -inf lanes and a NaN (its bracket is NaN): no subnormal
+    ties = np.round(x * 2.0) / 2.0
+    ties[:, ::9] = 0.0
+    ties[:, 4::9] = -0.0
+    ties[1, 5::50] = np.inf
+    ties[2, 6::50] = -np.inf
+    ties[2, 7] = np.nan
     return [
         ("count_above", x, dict(k=40), True),
         ("count_above", x, dict(k=k_rows), True),
         ("count_below", x, dict(q=0.3141), True),
         ("mass_at_or_above", probs, dict(p=0.9), False),
         ("entropy_at_temperature", x, dict(target=3.0), False),
+        ("count_below", ties.astype(np.float32), dict(q=0.3141), True),
+        ("count_below", ties.astype(np.float32), dict(q=0.9137), True),
     ]
 
 
 @functools.cache
-def _jnp_solve(case):
-    """The JAX bracket of a case, computed once for both port backends."""
+def _jax_solve(case, backend="jnp"):
+    """The JAX bracket of a case on a JAX backend, computed once for both
+    port backends."""
     kind, operand, params, _ = _kind_cases()[case]
     jparams = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
                for k, v in params.items()}
     with tuning.disabled():
-        out = jsolver.solve_kind(kind, jnp.asarray(operand), backend="jnp",
+        out = jsolver.solve_kind(kind, jnp.asarray(operand), backend=backend,
                                  rounds=8, spec_k=5, **jparams)
     return tuple(np.asarray(o) for o in out)
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(len(_kind_cases())))
 def test_solve_kind_matches_jnp(backend, case):
+    """Each kind against JAX's "jnp" backend; count_below also against its
+    "pallas" backend (K2 on the negated operand), bit for bit, at a q
+    whose q * N is not an integer (QUANTILE_Q below)."""
     kind, operand, params, exact = _kind_cases()[case]
     tparams = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
                for k, v in params.items()}
-    want = _jnp_solve(case)
     got = solver.solve_kind(kind, torch.from_numpy(operand), backend=backend,
                             rounds=8, spec_k=5, **tparams)
-    for g, w in zip(got, want):
-        if exact:
-            np.testing.assert_array_equal(_np(g), _np(w))
-        else:
-            np.testing.assert_allclose(_np(g), _np(w), **FLOAT_TOL)
+    jax_backends = ("jnp", "pallas") if kind == "count_below" else ("jnp",)
+    for jax_backend in jax_backends:
+        for g, w in zip(got, _jax_solve(case, jax_backend)):
+            if exact:
+                np.testing.assert_array_equal(_np(g), _np(w))
+            else:
+                np.testing.assert_allclose(_np(g), _np(w), **FLOAT_TOL)
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
