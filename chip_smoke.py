@@ -49,26 +49,39 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      as its main does) for qwen3-4b at full width (36 layers, d_model
      2560, vocab 151936; random bf16 weights from a seed), 4 x 16 tokens
      sampled with top-k 40, top-p 0.9 and target entropy 3.0 on the
-     "hopper" backend; the launch counters must show K3 once per token and
-     K4, K5 nine times per token.
+     "hopper" backend, each decode step one CUDA-graph replay
+     (core/graphs.py; the first step eager, then captured); the launch
+     counters must show K3 once per token and K4, K5 nine times per
+     token (a replay counts the launches its capture recorded); launches
+     per token.
   6. a reference check: the sampler's masked logits on both backends, and
      greedy generate on reduced qwen3-4b, "hopper" against "torch".
-  7. phase 5's serve.run on its session again, warm, timed, and once more
-     under torch.profiler (device busy time, idle share, top kernels, and
-     the sampler kernels K3-K5 each).
+  7. phase 5's serve.run on its session again, warm (every decode step a
+     replay), timed; its tokens against the eager loop's (a host-integer
+     position, no graph) on the same prompts and generator state, bit for
+     bit; once more under torch.profiler (device busy time, idle share,
+     launches per token, top kernels, and the sampler kernels K3-K5
+     each).
   8. the paper path: repro_torch.launch.paper (its main, in-process): the
      Fig. 4 sweep (terms 10**4, n=24, k=1..5) and the Fig. 7 sweep (n=6,
-     k=3, terms 10..5000) through K1, every runahead root equal to the
-     serial root bit for bit; then one serial and one runahead solve per
-     k under set_sync_debug_mode("error"), with K1 launched n + 1 and
-     ceil(n/k) + 1 times.
+     k=3, terms 10..5000) through K1, both solvers graphed, every
+     runahead root equal to the serial root bit for bit; per row host ms,
+     device ms (CUDA events), the speed-up on each and both ideals
+     (round count n/ceil(n/k), evaluation count (n+1)/(ceil(n/k)+1));
+     then each solve's eager body per k under set_sync_debug_mode("error")
+     with K1 launched n + 1 and ceil(n/k) + 1 times, and its graph
+     replay's root equal to the body's, bit for bit.
   9. the continuous path: repro_torch.launch.serve --continuous for
      qwen3-4b at full width, 8 requests (prompt 512, up to 32 new tokens)
      over 4 slots on a paged cache (page 16) through K6 and the sampler
-     kernels: every request served, K6 launched 36 times per decode step,
-     K3 once and K4, K5 nine times per sample; tok/s, latency, host syncs
-     per step; a second run under torch.profiler (K6 and K3-K5 each);
-     three decode steps of a fresh server under
+     kernels, each decode step one replay of the step graph of its
+     statics: every request served, K6 launched 36 times per decode step,
+     K3 once and K4, K5 nine times per sample; tok/s first (graphs
+     captured: keys and capture time) and warm (the same server again,
+     replays only), latency, dispatches and host syncs per step, peak
+     memory; the streams equal the eager step body's (the same requests
+     and seeds, no graph) bit for bit; a warm run under torch.profiler
+     (K6 and K3-K5 each); three eager step bodies and three replays under
      set_sync_debug_mode("error") with the once-per-step token read
      outside that window.
  10. a reference check of the continuous path on reduced qwen3-4b (f32,
@@ -93,11 +106,21 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      40, 50, 100 in turn, so a decode step whose live slots' k differ
      solves top-k per row on the engine through K2: every request served,
      K2 launched rounds + 1 times per such step (the probe at lo0: a
-     per-row k leaves its sign unknown), K3 once per other sample; tok/s
-     first and warm, a profiled run of the first 4 requests (K2's time in
-     situ; device busy time, idle share), three mixed-k decode steps under
-     set_sync_debug_mode("error"), and the masked logits of a mixed-k
-     batch at V=151936 on both backends (top-k alone bit for bit).
+     per-row k leaves its sign unknown), K3 once per other sample; the
+     step graphs captured (keys, capture time) and the streams equal the
+     eager step body's bit for bit; tok/s first and warm, a profiled warm
+     run of the first 4 requests (K2's time in situ; device busy time,
+     idle share), three mixed-k replays under set_sync_debug_mode("error"),
+     and the masked logits of a mixed-k batch at V=151936 on both
+     backends (top-k alone bit for bit).
+ 14. fused decode horizons: phase 9's serve again at step_horizon 4 (one
+     replay runs 4 decode steps; EOS and budgets detected on the card):
+     the streams equal phase 9's per-step streams bit for bit; the
+     counters (dispatches, horizons, all-idle iterations, host syncs per
+     decode step), tok/s first and warm, a profiled warm run (idle
+     share), peak memory; and the card's dispatch overhead, a graphed
+     per-step step's host and sync time beyond its device time over that
+     device time (core/tuning.py's DISPATCH_OVERHEAD).
 
 Phase 3 also holds K7 (flash_fwd) at the training shape (B=2, S=4096,
 16 q heads, 8 kv heads, head_dim 128) against its plain version in f32
@@ -116,7 +139,8 @@ The line before the last is a JSON object listing the kernels, each with
 the path its launch count was read on ("serve": phase 5; "paper": phase
 8; "continuous": phase 9; "train": phase 11, for K7;
 "continuous-mixed-k": phase 13, for K2, which the static-k serves do not
-launch).  Each entry's
+launch).  A launch count is the wrappers' count of eager launches plus,
+for every graph replay, the launches its capture recorded.  Each entry's
 bound_ms is the larger of its bytes and operations bounds; K1's chain of
 dependent steps is bounded by latency instead, which its entry carries
 as latency_bound_ms beside the operations bound.  The last line is
@@ -160,6 +184,8 @@ K2_FIRST_MS = (0.0106, 0.0738)
 K2_CLIP = (1, 300, 15)
 # phase 13: the per-request top_k of the continuous serve, in turn
 MIXED_TOP_K = (20, 40, 50, 100)
+# phase 14: the decode steps a fused horizon runs
+HORIZON = 4
 # K1's latency bound: a bit-exact step is 4 dependent operations (the
 # numerator's multiply, q0, rho, q: csrc/taylor_eval.cu) of 4 cycles each
 # (an f32 FMA's dependent-issue latency)
@@ -951,7 +977,8 @@ def phase_solves(gen):
 def phase_serve():
     """serve.main's two steps, kept apart so that phase 7 can run the same
     session again: setup (flags, weights on the card), then run (prompts
-    and generate, timed)."""
+    and generate, timed: its first decode step runs eagerly and captures
+    the step graph, the rest replay it)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -965,14 +992,19 @@ def phase_serve():
     toks = served.tokens
     check(tuple(toks.shape) == (4, NEW_TOKENS), f"tokens {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < 151936)).all()), "token out of range")
-    check(launches["runahead_topk_threshold"] >= NEW_TOKENS
-          and launches["multi_mass"] >= 9 * NEW_TOKENS
-          and launches["multi_entropy_moments"] >= 9 * NEW_TOKENS,
+    check(launches["runahead_topk_threshold"] == NEW_TOKENS
+          and launches["multi_mass"] == 9 * NEW_TOKENS
+          and launches["multi_entropy_moments"] == 9 * NEW_TOKENS,
           f"main path did not go through K3-K5: {launches}")
+    graphs = session.decode.graphs
+    check(len(graphs.keys) == 1, f"decode graphs {graphs.keys}")
     n_tok = toks.numel()
     say(f"phase 5 serve: qwen3-4b full width, {n_tok} tokens in "
         f"{served.seconds:.3f}s = {n_tok / served.seconds:.1f} tok/s on "
-        f"{torch.cuda.get_device_name(0)} (first call incl.) | launches "
+        f"{torch.cuda.get_device_name(0)} (first call: one eager decode "
+        f"step and the step graph's capture, {graphs.capture_s:.3f}s"
+        f"; then {NEW_TOKENS - 2} replays) | hand-written kernel launches "
+        f"per token {sum(launches.values()) / n_tok:.2f} | launches "
         f"{launches} | row 0: {toks[0].tolist()}")
     return launches, session
 
@@ -1012,9 +1044,21 @@ def phase_reference(gen):
         f"streams equal")
 
 
+def launch_calls(events) -> dict:
+    """The host's kernel and graph launch calls among a profile's key
+    averages, by API."""
+    import torch
+
+    return {e.key: e.count for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.key.startswith(("cudaLaunch", "cuLaunch",
+                                  "cudaGraphLaunch"))}
+
+
 def profiled(run):
     """run() under torch.profiler: (its result, device busy ms, wall ms
-    traced, the device kernels' key averages)."""
+    traced, the device kernels' key averages, the host's launch calls by
+    API: kernel launches and graph launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1024,21 +1068,31 @@ def profiled(run):
         out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = launch_calls(events)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    return out, busy_ms, wall_ms, kernels
+    return out, busy_ms, wall_ms, kernels, calls
 
 
 def say_profile(phase: str, busy_ms: float, wall_ms: float, kernels,
-                per: str = "") -> None:
+                calls: dict, n: int, unit: str, note: str = "") -> None:
+    """The profile's device busy time and idle share, the kernels the card
+    ran and the host's launch calls, each per ``unit`` (``n`` of them),
+    and the kernels that took the most device time."""
     if not kernels:
         say(f"{phase} profile: the profiler recorded no device time "
             "(not measured)")
         return
+    ran = sum(e.count for e in kernels)
+    host = sum(calls.values())
+    graphs = calls.get("cudaGraphLaunch", 0)
     say(f"{phase} profile: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms "
-        f"traced wall (idle share {1 - busy_ms / wall_ms:.3f}); "
-        f"{sum(e.count for e in kernels)} kernel launches{per}")
+        f"traced wall (idle share {1 - busy_ms / wall_ms:.3f}); {ran} "
+        f"kernels ran on the card ({ran / n:.1f} per {unit}); the host made "
+        f"{host} launch calls ({host / n:.1f} per {unit}), {graphs} of them "
+        f"graph launches{note}")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                     reverse=True)[:8]:
         say(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
@@ -1062,32 +1116,62 @@ def say_kernel_times(phase: str, kernels, busy_ms: float,
             f"({n} calls)")
 
 
+def eager_generate(cfg, params, prompt, n_new, gen, sc):
+    """The one-shot decode as an eager loop with a host-integer position
+    (no graph): the reference the step graph's replays are held to."""
+    import torch
+
+    from repro_torch.models.decode import decode_step, prefill
+    from repro_torch.serving.sampler import sample
+
+    S = prompt.shape[1]
+    logits, cache = prefill(cfg, params, prompt, S + n_new)
+    toks = [sample(logits, gen, sc)]
+    for pos in range(S, S + n_new - 1):
+        logits, cache = decode_step(cfg, params, toks[-1], pos, cache)
+        toks.append(sample(logits, gen, sc))
+    return torch.stack(toks, dim=1)
+
+
 def phase_warm(session):
-    """The one-shot serve.run on phase 5's session again, warm (nothing
-    built or loaded for the first time), then once more under
-    torch.profiler: device busy time and idle share, and the kernels that
-    take the most device time."""
+    """The one-shot serve.run on phase 5's session again, warm (every
+    decode step a replay), then against the eager loop on the same
+    prompts and generator state, then under torch.profiler: device busy
+    time and idle share, launches per token, and the kernels that take
+    the most device time."""
     import torch
 
     from repro_torch.launch import serve
 
+    cfg, params, args, sc, gen, dev, _ = session
     warm_s = serve.run(session).seconds
-    _, busy_ms, wall_ms, kernels = profiled(lambda: serve.run(session))
-    n_tok = session.args.batch * session.args.new_tokens
+    state = gen.get_state()
+    served = serve.run(session)
+    gen.set_state(state)
+    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           generator=gen, device=dev)
+    want = eager_generate(cfg, params, prompt, args.new_tokens, gen, sc)
+    check(torch.equal(served.tokens, want),
+          "the graphed one-shot tokens differ from the eager loop's")
+    _, busy_ms, wall_ms, kernels, calls = profiled(
+        lambda: serve.run(session))
+    n_tok = args.batch * args.new_tokens
     say(f"phase 7 warm serve: {n_tok} tokens in {warm_s:.3f}s = "
-        f"{n_tok / warm_s:.1f} tok/s on {torch.cuda.get_device_name(0)}")
-    say_profile("phase 7", busy_ms, wall_ms, kernels)
+        f"{n_tok / warm_s:.1f} tok/s on {torch.cuda.get_device_name(0)}; "
+        f"tokens == the eager loop's (host-integer position, no graph) "
+        f"bit for bit")
+    say_profile("phase 7", busy_ms, wall_ms, kernels, calls, n_tok, "token")
     if kernels:
         say_kernel_times("phase 7", kernels, busy_ms)
 
 
 def phase_paper():
-    """launch.paper's main on the card, then one serial and one runahead
-    solve per k with host syncs forbidden, counting K1's launches."""
+    """launch.paper's main on the card (both solvers graphed), then each
+    solve's eager body with host syncs forbidden, counting K1's launches,
+    against its graph replay."""
     import torch
 
-    from repro_torch.core.bisect import find_root_serial
-    from repro_torch.core.runahead import find_root_runahead
+    from repro_torch.core import bisect, runahead
     from repro_torch.kernels import ops
     from repro_torch.launch import paper
 
@@ -1099,117 +1183,197 @@ def phase_paper():
           == launches["taylor_sincos_eval"],
           f"the paper path did not run through K1 alone: {launches}")
     for fig in ("fig4", "fig7"):
-        say(f"phase 8 paper {fig}: terms, n, k, threads, rounds, serial ms, "
-            f"runahead ms, speed-up (round-count ideal)")
+        say(f"phase 8 paper {fig} (graphed solves): terms, n, k, threads, "
+            f"rounds, serial ms host / device, runahead ms host / device, "
+            f"speed-up host / device (ideals: round count, evaluation "
+            f"count)")
         for r in rows:
             if r.fig == fig:
                 say(f"  {r.terms:6d} {r.n:3d} {r.k:2d} {2 ** r.k - 1:3d} "
-                    f"{r.rounds:3d} {r.serial_ms:9.3f} {r.runahead_ms:9.3f} "
-                    f"{r.speedup:6.2f}x ({r.n / r.rounds:.2f}x)")
+                    f"{r.rounds:3d} {r.serial_ms:9.4f} {r.serial_dev_ms:9.4f}"
+                    f" {r.runahead_ms:9.4f} {r.runahead_dev_ms:9.4f} "
+                    f"{r.speedup:6.2f}x {r.dev_speedup:6.2f}x "
+                    f"({r.round_ideal:.2f}x, {r.eval_ideal:.2f}x)")
     f = paper.evaluator(K1_TERMS)
     a, b = paper.interval("cuda")
     n = paper.FIG4_N
     counts = []
     for k in (None,) + paper.FIG4_KS:
+        if k is None:
+            def body():
+                return bisect._serial(f, a, b, iterations=n, mode="signbit")
+
+            def solve():
+                return bisect.find_root_serial(f, a, b, n, "signbit")
+        else:
+            def body():
+                return runahead._runahead(f, None, a, b, iterations=n,
+                                          spec_k=k, select="walk")
+
+            def solve():
+                return runahead.find_root_runahead(f, a, b, n, k)
+        want = n + 1 if k is None else -(-n // k) + 1
+        got = []
         torch.cuda.synchronize()
-        ops.reset_launches()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            root = (find_root_serial(f, a, b, n, "signbit") if k is None
-                    else find_root_runahead(f, a, b, n, k))
+            for run in (body, solve):       # eager, then the replay
+                ops.reset_launches()
+                got.append(run())
+                check(ops.LAUNCHES["taylor_sincos_eval"] == want,
+                      f"K1 launched {ops.LAUNCHES['taylor_sincos_eval']} "
+                      f"times in a solve at k={k}, expected {want}")
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        got = ops.LAUNCHES["taylor_sincos_eval"]
-        want = n + 1 if k is None else -(-n // k) + 1
-        check(got == want, f"K1 launched {got} times in a solve at k={k}, "
-                           f"expected {want}")
-        check(root.item() == rows[0].root, f"root differs at k={k}")
-        counts.append(got)
+        check(torch.equal(got[0], got[1]),
+              f"k={k}: the graph replay's root differs from the eager body's")
+        check(got[1].item() == rows[0].root, f"root differs at k={k}")
+        counts.append(want)
     say(f"phase 8 paper: runahead == serial bit for bit at every (terms, k); "
-        f"no host sync in the solves; K1 launches per solve, serial then "
-        f"k=1..5: {counts} | launches {launches}")
+        f"each graph replay's root == its eager body's; no host sync in the "
+        f"bodies or the replays; K1 launches per solve, serial then k=1..5: "
+        f"{counts} | {len(bisect.GRAPHS.keys)} solve graphs, captured in "
+        f"{bisect.GRAPHS.capture_s:.3f}s | launches {launches}")
     return launches
+
+
+class EagerGraphs:
+    """A stand-in for core/graphs.py's Graphs that runs every body
+    eagerly: the reference a path's graph replays are held against."""
+    keys: list = []
+    capture_s = 0.0
+
+    def run(self, key, body, *args, device=None):
+        return body(*args)
+
+
+def streams(served) -> dict:
+    return {c.rid: c.tokens for c in served.completions}
+
+
+def say_graphs(phase: str, sched) -> None:
+    keys = ", ".join(str(k) for k in sched.graphs.keys)
+    say(f"{phase} graphs: {len(sched.graphs.keys)} captured in "
+        f"{sched.graphs.capture_s:.3f}s (eager first step and capture "
+        f"each): {keys}")
+
+
+def sync_free_steps(phase: str, server, requests, extra=None) -> str:
+    """Admit ``requests``, run one step outside the window (its key's
+    graph captured if it was not), then three replays and three eager step
+    bodies under set_sync_debug_mode("error"), the token reads outside."""
+    import torch
+
+    for r in requests:
+        server.submit(r)
+    server._admit_pending()
+    sched = server.scheduler
+    sched.step()
+    graphs = sched.graphs
+    for runner in (graphs, EagerGraphs()):
+        sched.graphs = runner
+        for _ in range(3):
+            sched._ensure_step_args()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                nxt = sched.step_device()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if extra is not None:
+                extra(sched)
+            sched.commit(nxt)
+    sched.graphs = graphs
+    return (f"{phase}: 3 step replays and 3 eager step bodies ran under "
+            f"set_sync_debug_mode('error'); one token read per step")
 
 
 def phase_continuous():
     """launch.serve --continuous at full width on a paged cache through
-    K6: counts, timings, a profiled second run, and sync-free steps."""
+    K6, each decode step a replay of its step graph: counts, timings
+    (first run with the captures, then warm on the same server), the
+    streams against the eager step body's, a profiled warm run,
+    sync-free steps and replays, peak memory."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     session = serve.setup(CONT_ARGV)
+    server = serve.server_for(session)
     torch.cuda.synchronize()
     ops.reset_launches()
-    served = serve.run_continuous(session)
+    served = serve.run_continuous(session, server)
     launches = dict(ops.LAUNCHES)
-    s = served.scheduler
+    s, c = served.scheduler, served.counts
     n_layers = session.cfg.n_layers
-    n_samples = s.n_decode_steps + s.n_admissions
+    n_steps = c["decode_steps"]
+    n_samples = n_steps + c["admissions"]
     check(len(served.completions) == 8, "not every request was served")
-    check(launches["paged_attend"] == n_layers * s.n_decode_steps,
+    check(launches["paged_attend"] == n_layers * n_steps,
           f"K6 launched {launches['paged_attend']} times for "
-          f"{s.n_decode_steps} decode steps of {n_layers} layers")
+          f"{n_steps} decode steps of {n_layers} layers")
     check(launches["runahead_topk_threshold"] == n_samples
           and launches["multi_mass"] == 9 * n_samples
           and launches["multi_entropy_moments"] == 9 * n_samples,
           f"the samples did not go through K3-K5 as expected "
           f"({n_samples} samples): {launches}")
-    n_tok = sum(len(c.tokens) for c in served.completions)
-    lat = sorted(c.latency_s for c in served.completions)
+    check(c["dispatches"] == n_steps + 2 * c["admissions"]
+          and c["host_syncs"] == n_steps + c["admissions"],
+          f"dispatch counters {c}")
+    n_tok = sum(len(x.tokens) for x in served.completions)
+    lat = sorted(x.latency_s for x in served.completions)
     say(f"phase 9 continuous: qwen3-4b full width, 8 requests / {n_tok} "
         f"tokens in {served.seconds:.3f}s = {n_tok / served.seconds:.1f} "
-        f"tok/s on {torch.cuda.get_device_name(0)} (first run) | "
-        f"{s.n_decode_steps} decode steps, {s.n_admissions} admissions, "
-        f"{s.n_host_syncs} host syncs ({s.n_host_syncs / s.n_decode_steps:.2f}"
-        f" per step) | latency p50 {lat[len(lat) // 2] * 1e3:.0f} ms, max "
-        f"{lat[-1] * 1e3:.0f} ms | peak {s.peak_pages} pages | launches "
-        f"{launches}")
+        f"tok/s on {torch.cuda.get_device_name(0)} (first run, captures "
+        f"included) | {n_steps} decode steps, {c['admissions']} admissions, "
+        f"{c['dispatches']} dispatches and {c['host_syncs']} host syncs "
+        f"({c['dispatches'] / n_steps:.2f} and "
+        f"{c['host_syncs'] / n_steps:.2f} per step) | latency p50 "
+        f"{lat[len(lat) // 2] * 1e3:.0f} ms, max {lat[-1] * 1e3:.0f} ms | "
+        f"peak {s.peak_pages} pages | launches {launches}")
+    say_graphs("phase 9", s)
 
-    warm = serve.run_continuous(session)
-    n_tok = sum(len(c.tokens) for c in warm.completions)
-    lat = sorted(c.latency_s for c in warm.completions)
+    warm = serve.run_continuous(session, server)
+    check(streams(warm) == streams(served), "warm streams differ")
+    n_tok = sum(len(x.tokens) for x in warm.completions)
+    lat = sorted(x.latency_s for x in warm.completions)
     p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))]
-    say(f"phase 9 continuous warm: {n_tok} tokens in {warm.seconds:.3f}s = "
-        f"{n_tok / warm.seconds:.1f} tok/s, {warm.scheduler.n_decode_steps} "
-        f"steps ({warm.seconds / warm.scheduler.n_decode_steps * 1e3:.1f} ms "
-        f"per step incl. admissions), latency p50 "
-        f"{lat[len(lat) // 2] * 1e3:.0f} ms p99 {p99 * 1e3:.0f} ms")
-    traced, busy_ms, wall_ms, kernels = profiled(
-        lambda: serve.run_continuous(session))
-    say_profile("phase 9", busy_ms, wall_ms, kernels,
-                f"; {traced.scheduler.n_decode_steps} decode steps")
+    steps = warm.counts["decode_steps"]
+    say(f"phase 9 continuous warm (the same server: replays only): {n_tok} "
+        f"tokens in {warm.seconds:.3f}s = {n_tok / warm.seconds:.1f} tok/s, "
+        f"{steps} steps ({warm.seconds / steps * 1e3:.1f} ms per step incl. "
+        f"admissions), latency p50 {lat[len(lat) // 2] * 1e3:.0f} ms p99 "
+        f"{p99 * 1e3:.0f} ms")
+    eager_server = serve.server_for(session)
+    eager_server.scheduler.graphs = EagerGraphs()
+    eager = serve.run_continuous(session, eager_server)
+    check(streams(eager) == streams(served),
+          "the graphed streams differ from the eager step body's")
+    say(f"phase 9 continuous: streams == the eager step body's bit for bit "
+        f"(eager {sum(len(x.tokens) for x in eager.completions)} tokens in "
+        f"{eager.seconds:.3f}s)")
+    traced, busy_ms, wall_ms, kernels, calls = profiled(
+        lambda: serve.run_continuous(session, server))
+    n_k6 = n_layers * traced.counts["decode_steps"]
+    say_profile("phase 9", busy_ms, wall_ms, kernels, calls,
+                traced.counts["decode_steps"], "decode step", "; warm")
     k6 = [e for e in kernels if "paged_" in e.key]
     if kernels:
         k6_ms = sum(e.self_device_time_total for e in k6) / 1e3
-        n_k6 = n_layers * traced.scheduler.n_decode_steps
         say(f"phase 9 profile: K6 (split and combine kernels) {k6_ms:.1f} ms "
             f"of {busy_ms:.1f} ms device busy ({k6_ms / busy_ms:.3f}), "
             f"{k6_ms / max(1, n_k6):.4f} ms per call ({n_k6} calls)")
         say_kernel_times("phase 9", kernels, busy_ms)
-
-    # the device part of a step never syncs; the token read stays outside
-    server = serve.server_for(session)
-    for r in serve.continuous_requests(session.cfg, session.args,
-                                       session.sampler)[:4]:
-        server.submit(r)
-    server._admit_pending()
-    sched = server.scheduler
-    for _ in range(3):
-        sched._ensure_step_args()
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            nxt = sched.step_device()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        sched.commit(nxt)
-    say(f"phase 9 continuous: 3 paged decode steps (K6, sample_slots) ran "
-        f"under set_sync_debug_mode('error'); one token read per step "
-        f"(phase 9 took {time.perf_counter() - t0:.1f}s)")
-    return launches
+    note = sync_free_steps(
+        "phase 9 continuous", serve.server_for(session),
+        serve.continuous_requests(session.cfg, session.args,
+                                  session.sampler)[:4])
+    say(f"{note} | peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB (phase 9 took {time.perf_counter() - t0:.1f}s)")
+    return launches, streams(served)
 
 
 def _screened_prompts(cfg, params, n: int, S: int, n_new: int, gen):
@@ -1348,12 +1512,13 @@ def phase_train():
         f"{n_tok / ms * 1e3:.0f} tok/s | peak memory {peak_gb:.2f} GB | "
         f"K7 {2 * n_layers} and K2 {per_step[0]['multi_count']} launches per "
         f"step | launches {launches}")
-    p = prof["p"]
-    kernels = [e for e in p.key_averages()
+    events = prof["p"].key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = launch_calls(events)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    say_profile("phase 11", busy_ms, prof["wall_ms"], kernels,
-                f"; one step (step {TRAIN_PROFILED_STEP})")
+    say_profile("phase 11", busy_ms, prof["wall_ms"], kernels, calls, 1,
+                "step", f"; one step (step {TRAIN_PROFILED_STEP})")
     k7_ms = sum(e.self_device_time_total for e in kernels
                 if "flash_fwd_" in e.key) / 1e3
     if kernels:
@@ -1498,14 +1663,14 @@ def phase_mixed_k(gen):
                            k=torch.ones(1, dtype=torch.long)).sign_lo is None
     per_solve = sc.rounds + int(probe)
 
-    def serve_mixed(n_requests=None):
-        server = serve.server_for(session)
+    def serve_mixed(server, n_requests=None):
         sched = server.scheduler
+        before = (sched.n_decode_steps, sched.n_admissions)
         mixed = []
         inner = sched.step_device
 
         def step_device():            # is this step's top-k per row?
-            _, _, enable, k_static, _ = sched._step_args
+            enable, k_static, _ = sched._statics
             mixed.append(enable[1] and k_static is None)
             return inner()
 
@@ -1514,12 +1679,16 @@ def phase_mixed_k(gen):
         t0 = time.perf_counter()
         done = server.run(mixed_k_requests(session)[:n_requests])
         torch.cuda.synchronize()
-        return done, time.perf_counter() - t0, sched, sum(mixed)
+        del sched.step_device
+        return (done, time.perf_counter() - t0,
+                sched.n_decode_steps - before[0],
+                sched.n_admissions - before[1], sum(mixed))
 
+    server = serve.server_for(session)
     ops.reset_launches()
-    done, secs, sched, n_mixed = serve_mixed()
+    done, secs, n_steps, n_adm, n_mixed = serve_mixed(server)
     launches = dict(ops.LAUNCHES)
-    n_samples = sched.n_decode_steps + sched.n_admissions
+    n_samples = n_steps + n_adm
     n_tok = sum(len(c.tokens) for c in done)
     check(len(done) == 8, f"served {len(done)} of 8 requests")
     check(n_mixed > 0, "no decode step had mixed top_k")
@@ -1533,49 +1702,49 @@ def phase_mixed_k(gen):
     say(f"phase 13 mixed top-k: qwen3-4b full width, 8 requests with top_k "
         f"{MIXED_TOP_K} in turn / {n_tok} tokens in {secs:.3f}s = "
         f"{n_tok / secs:.1f} tok/s on {torch.cuda.get_device_name(0)} "
-        f"(first run) | {sched.n_decode_steps} decode steps "
-        f"({n_mixed} with mixed top_k), {sched.n_admissions} admissions | "
+        f"(first run, captures included) | {n_steps} decode steps "
+        f"({n_mixed} with mixed top_k), {n_adm} admissions | "
         f"K2 {per_solve} launches per mixed-k sample ({sc.rounds} rounds + "
         f"{int(probe)} probe at lo0), {launches['multi_count']} in all | "
         f"launches {launches}")
+    say_graphs("phase 13", server.scheduler)
+    first = {c.rid: c.tokens for c in done}
+    eager_server = serve.server_for(session)
+    eager_server.scheduler.graphs = EagerGraphs()
+    eager = {c.rid: c.tokens for c in serve_mixed(eager_server)[0]}
+    check(eager == first,
+          "the graphed mixed-k streams differ from the eager step body's")
 
-    done, secs, sched, n_mixed = serve_mixed()
+    done, secs, n_steps, _, n_mixed = serve_mixed(server)
     n_tok = sum(len(c.tokens) for c in done)
-    say(f"phase 13 mixed top-k warm: {n_tok} tokens in {secs:.3f}s = "
-        f"{n_tok / secs:.1f} tok/s, {sched.n_decode_steps} steps "
-        f"({secs / sched.n_decode_steps * 1e3:.1f} ms per step incl. "
-        f"admissions)")
-    # the profiled run serves the first 4 requests only: the profiler's
-    # processing of phase 9's whole run takes most of that phase's time
-    (done, secs, sched, n_mixed), busy_ms, wall_ms, kernels = profiled(
-        lambda: serve_mixed(4))
-    say_profile("phase 13", busy_ms, wall_ms, kernels,
-                f"; the first {len(done)} requests, {sched.n_decode_steps} "
-                f"decode steps, {n_mixed} mixed-k")
+    check({c.rid: c.tokens for c in done} == first, "warm streams differ")
+    say(f"phase 13 mixed top-k warm (the same server: replays only): "
+        f"{n_tok} tokens in {secs:.3f}s = {n_tok / secs:.1f} tok/s, "
+        f"{n_steps} steps ({secs / n_steps * 1e3:.1f} ms per step incl. "
+        f"admissions); streams == the eager step body's bit for bit")
+    # the profiled run serves the first 4 requests only, on a server that
+    # served them once (its graphs captured outside the profiler)
+    small = serve.server_for(session)
+    serve_mixed(small, 4)
+    (done, secs, n_steps, _, n_mixed), busy_ms, wall_ms, kernels, calls = (
+        profiled(lambda: serve_mixed(small, 4)))
+    say_profile("phase 13", busy_ms, wall_ms, kernels, calls, n_steps,
+                "decode step", f"; the first {len(done)} requests, "
+                f"{n_mixed} mixed-k steps, warm")
     if kernels:
         say_kernel_times("phase 13", kernels, busy_ms,
                          (("K2", "multi_count_kernel"),) + SAMPLER_KERNELS)
 
-    # the device part of a mixed-k step never syncs
-    server = serve.server_for(session)
-    for r in mixed_k_requests(session)[:4]:
-        server.submit(r)
-    server._admit_pending()
-    sched = server.scheduler
-    for _ in range(3):
-        sched._ensure_step_args()
-        check(sched._step_args[3] is None, "the four slots share a top_k")
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            nxt = sched.step_device()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        check(ops.LAUNCHES["multi_count"] == per_solve,
-              f"a mixed-k step launched K2 {ops.LAUNCHES['multi_count']} "
-              f"times, not {per_solve}")
-        sched.commit(nxt)
+    # the device part of a mixed-k step never syncs, replayed or eager
+    def k2_per_step(sched):
+        check(sched._statics[1] is None, "the four slots share a top_k")
+
+    ops.reset_launches()
+    note = sync_free_steps("phase 13 mixed top-k", serve.server_for(session),
+                           mixed_k_requests(session)[:4], k2_per_step)
+    check(ops.LAUNCHES["multi_count"] == 7 * per_solve,
+          f"7 mixed-k steps launched K2 {ops.LAUNCHES['multi_count']} "
+          f"times, not {7 * per_solve}")
 
     # masked logits of one mixed-k batch, "hopper" against "torch": the
     # top-k masks bit for bit; with top-p and the entropy temperature (K4,
@@ -1598,13 +1767,101 @@ def phase_mixed_k(gen):
         check(torch.allclose(zh, zt, rtol=1e-4, atol=1e-5),
               "mixed-k masked logits differ")
         diffs.append((zh - zt).abs().max().item())
-    say(f"phase 13 mixed top-k: 3 decode steps with top_k {MIXED_TOP_K} ran "
-        f"under set_sync_debug_mode('error'), K2 {per_solve} times each; "
+    say(f"{note}; K2 {per_solve} times a step; "
         f"masked logits ({len(MIXED_TOP_K)}, {PATH_V}) hopper == torch: "
         f"top-k alone bit for bit, with top-p and entropy masks equal (max "
         f"|diff| {diffs[1]:.3g}) (phase 13 took "
         f"{time.perf_counter() - t0:.1f}s)")
     return launches
+
+
+def phase_horizon(per_step_streams: dict):
+    """Phase 9's serve at step_horizon 4: streams against phase 9's
+    per-step streams, the counters, tok/s first and warm, a profiled warm
+    run, peak memory; then the card's dispatch overhead, measured on a
+    per-step server of the same session."""
+    import argparse
+
+    import torch
+
+    from repro_torch.core import tuning
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    session = serve.setup(CONT_ARGV + ["--step-horizon", str(HORIZON)])
+    server = serve.server_for(session)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    first = serve.run_continuous(session, server)
+    launches = dict(ops.LAUNCHES)
+    s, c = first.scheduler, first.counts
+    n_steps = c["decode_steps"]
+    check(s.step_horizon == HORIZON, f"step_horizon {s.step_horizon}")
+    check(streams(first) == per_step_streams,
+          "the fused streams differ from phase 9's per-step streams")
+    check(c["decode_steps"] == HORIZON * c["horizons"]
+          and c["dispatches"] == c["horizons"] + 2 * c["admissions"]
+          and c["host_syncs"] == c["horizons"] + c["admissions"],
+          f"horizon counters {c}")
+    check(launches["paged_attend"] == session.cfg.n_layers * n_steps,
+          f"K6 launched {launches['paged_attend']} times for {n_steps} "
+          f"fused iterations")
+    n_tok = sum(len(x.tokens) for x in first.completions)
+    say(f"phase 14 horizons: step_horizon {HORIZON}, qwen3-4b full width, "
+        f"8 requests / {n_tok} tokens in {first.seconds:.3f}s = "
+        f"{n_tok / first.seconds:.1f} tok/s on "
+        f"{torch.cuda.get_device_name(0)} (first run, captures included); "
+        f"streams == phase 9's per-step streams bit for bit | "
+        f"{c['horizons']} horizons, {n_steps} decode iterations "
+        f"({c['wasted_steps']} all-idle), {c['admissions']} admissions, "
+        f"{c['dispatches']} dispatches, {c['host_syncs']} host syncs "
+        f"({c['host_syncs'] / n_steps:.3f} per decode iteration) | "
+        f"launches {launches}")
+    say_graphs("phase 14", s)
+    warm = serve.run_continuous(session, server)
+    check(streams(warm) == per_step_streams, "warm fused streams differ")
+    say(f"phase 14 horizons warm (the same server: replays only): "
+        f"{n_tok / warm.seconds:.1f} tok/s ({warm.seconds:.3f}s, "
+        f"{warm.seconds / c['horizons'] * 1e3:.1f} ms per horizon incl. "
+        f"admissions)")
+    traced, busy_ms, wall_ms, kernels, calls = profiled(
+        lambda: serve.run_continuous(session, server))
+    say_profile("phase 14", busy_ms, wall_ms, kernels, calls,
+                traced.counts["decode_steps"], "decode iteration",
+                f"; {traced.counts['horizons']} horizons, warm")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    per_step = session._replace(args=argparse.Namespace(
+        **dict(vars(session.args), step_horizon="1")))
+    server = serve.server_for(per_step)
+    for r in serve.continuous_requests(session.cfg, session.args,
+                                       session.sampler)[:4]:
+        server.submit(r)
+    server._admit_pending()
+    sched = server.scheduler
+    sched.step()                         # its key's graph captured
+    host, dev = [], []
+    for _ in range(8):
+        sched._ensure_step_args()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        a.record()
+        nxt = sched.step_device()
+        b.record()
+        sched.commit(nxt)
+        host.append((time.perf_counter() - t1) * 1e3)
+        dev.append(a.elapsed_time(b))
+    check(sched.n_active == 4, "a slot finished inside the measurement")
+    h, d = statistics.median(host), statistics.median(dev)
+    say(f"phase 14 dispatch overhead: {(h - d) / d:.4f} (a graphed per-step "
+        f"decode step of 4 live slots: host {h:.3f} ms, device {d:.3f} ms, "
+        f"median of 8) against core/tuning.py DISPATCH_OVERHEAD "
+        f"{tuning.DISPATCH_OVERHEAD} | peak memory {peak:.2f} GB (phase 14 "
+        f"took {time.perf_counter() - t0:.1f}s)")
 
 
 def main() -> int:
@@ -1629,12 +1886,13 @@ def main() -> int:
     phase_warm(session)
     del session
     launches_by_path = {"solves": solve_launches, "serve": serve_launches,
-                        "paper": phase_paper(),
-                        "continuous": phase_continuous()}
+                        "paper": phase_paper()}
+    launches_by_path["continuous"], per_step_streams = phase_continuous()
     phase_continuous_reference(gen)
     launches_by_path["train"] = phase_train()
     phase_fault()
     launches_by_path["continuous-mixed-k"] = phase_mixed_k(gen)
+    phase_horizon(per_step_streams)
 
     # the path whose run each kernel's launch count is read on: K2 runs
     # where the served requests' top_k differ (phase 13)
@@ -1649,6 +1907,8 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=r["source"],
             replaces=r["replaces"], path=path, launches=launches,
+            launches_counted="eager launches and, per graph replay, the "
+                             "launches its capture recorded",
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"]))

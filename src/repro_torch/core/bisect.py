@@ -18,21 +18,28 @@ Two sign conventions, as in the paper:
 ``repro_torch.core.runahead`` is trajectory-equivalent to
 ``mode="signbit"``, bit for bit.
 
-The loop is a Python loop over device tensors: no value is read back to
-the host, so a solve on the card runs without a host sync.  ``f`` takes a
-tensor of any shape and is applied elementwise, so the batched view is the
-same loop over a ``(B,)`` batch axis.
+The loop (``_serial``) is a Python loop over device tensors: no value is
+read back to the host.  On the card a solve is one CUDA-graph replay of
+that loop, one graph per (f, iterations, mode, shape, dtype, device), as
+the JAX package jits it with those static (``core/graphs.py``); pass the
+same ``f`` object to reuse a graph.  ``f`` takes a tensor of any shape
+and is applied elementwise, so the batched view is the same loop over a
+``(B,)`` batch axis.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable
 
 import torch
 
+from repro_torch.core.graphs import Graphs
 from repro_torch.core.solver import _sign_bit
 
 Tensor = torch.Tensor
+
+GRAPHS = Graphs()           # the solves' graphs (jit's cache in JAX)
 
 
 def _endpoints(a, b) -> tuple[Tensor, Tensor]:
@@ -41,17 +48,9 @@ def _endpoints(a, b) -> tuple[Tensor, Tensor]:
     return a, b
 
 
-def find_root_serial(
-    f: Callable[[Tensor], Tensor],
-    a,
-    b,
-    iterations: int,
-    mode: str = "product",
-) -> Tensor:
-    """Algorithm 1 of the paper.  Returns the last midpoint examined."""
-    if mode not in ("product", "signbit"):
-        raise ValueError(f"unknown mode {mode!r}")
-    a, b = _endpoints(a, b)
+def _serial(f: Callable[[Tensor], Tensor], a: Tensor, b: Tensor, *,
+            iterations: int, mode: str) -> Tensor:
+    """The body of a serial solve: Algorithm 1's loop."""
     fa = f(a)
     root = (a + b) / 2
     for _ in range(iterations):
@@ -66,6 +65,23 @@ def find_root_serial(
                     torch.where(go_left, root, b),
                     torch.where(go_left, fa, froot))
     return root
+
+
+def find_root_serial(
+    f: Callable[[Tensor], Tensor],
+    a,
+    b,
+    iterations: int,
+    mode: str = "product",
+) -> Tensor:
+    """Algorithm 1 of the paper.  Returns the last midpoint examined."""
+    if mode not in ("product", "signbit"):
+        raise ValueError(f"unknown mode {mode!r}")
+    a, b = _endpoints(a, b)
+    key = ("serial", f, iterations, mode, a.shape, b.shape, a.dtype,
+           a.device)
+    return GRAPHS.run(key, functools.partial(
+        _serial, f, iterations=iterations, mode=mode), a, b)
 
 
 def find_root_serial_batched(

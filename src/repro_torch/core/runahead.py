@@ -22,15 +22,21 @@ Two selection rules:
     flip.  The same as "walk" whenever the sign vector is monotone (one
     bracketed root), which the paper assumes.
 
-The round loop is a Python loop over device tensors and never reads a
-value back to the host.
+The round loop (``_runahead_rows``) is a Python loop over device tensors
+and never reads a value back to the host.  On the card a solve is one
+CUDA-graph replay of it, one graph per (f or multi_eval, iterations,
+spec_k, select, shape, dtype, device), in the serial solves' graph cache
+(``core/bisect.py``), so a speed-up against serial compares like with
+like.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.core.bisect import GRAPHS
 from repro_torch.core.solver import (
     _midpoint_tree,
     _select_walk,
@@ -122,9 +128,20 @@ def find_root_runahead(
     Returns the last midpoint examined, the contract of Algorithm 1.
     """
     _check_select(select)
-    evaluate = multi_eval if multi_eval is not None else f
     a = torch.as_tensor(a)
     b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+    key = ("runahead", f, multi_eval, iterations, spec_k, select, a.shape,
+           b.shape, a.dtype, a.device)
+    return GRAPHS.run(key, functools.partial(
+        _runahead, f, multi_eval, iterations=iterations, spec_k=spec_k,
+        select=select), a, b)
+
+
+def _runahead(f, multi_eval, a: Tensor, b: Tensor, *, iterations: int,
+              spec_k: int, select: str) -> Tensor:
+    """The body of a scalar runahead solve: the sign at a, then the
+    rounds on a batch of one."""
+    evaluate = multi_eval if multi_eval is not None else f
     sign_lo = _sign_bit(f(a) if multi_eval is None else evaluate(a[None])[0])
     state = RunaheadState(a[None], b[None], sign_lo[None], ((a + b) / 2)[None])
     final = _runahead_rows(lambda g: evaluate(g[0])[None], state, iterations,
@@ -175,6 +192,16 @@ def find_root_runahead_batched(
     if a.ndim != 1 or b.shape != a.shape:
         raise ValueError(f"a and b must be (B,) of one shape, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
+    key = ("runahead_batched", f, iterations, spec_k, select, a.shape,
+           a.dtype, a.device)
+    return GRAPHS.run(key, functools.partial(
+        _runahead_batched, f, iterations=iterations, spec_k=spec_k,
+        select=select), a, b)
+
+
+def _runahead_batched(f, a: Tensor, b: Tensor, *, iterations: int,
+                      spec_k: int, select: str) -> Tensor:
+    """The body of a batched runahead solve."""
     state = RunaheadState(a, b, _sign_bit(f(a)), (a + b) / 2)
     return _runahead_rows(f, state, iterations, spec_k, select).last_mid
 

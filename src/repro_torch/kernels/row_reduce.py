@@ -82,6 +82,13 @@ def scratch(device: torch.device, n_partial: int, n_rows: int
             return partial, tickets
         n_partial = max(n_partial, partial.numel())
         n_rows = max(n_rows, tickets.numel())
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        # allocated now, the buffers would live in the graph's private
+        # pool while this cache kept their addresses
+        raise RuntimeError(
+            "row_reduce scratch would be allocated inside a CUDA-graph "
+            "capture: call the kernel eagerly at this shape first (the "
+            "warm-up of core/graphs.py does)")
     held.append((torch.empty(n_partial, dtype=torch.float32, device=device),
                  torch.zeros(n_rows, dtype=torch.int32, device=device)))
     return held[-1]

@@ -20,12 +20,17 @@ gathered chain) or ``hopper`` (the hand-written kernel K6):
       --page-impl hopper --top-k 40 --top-p 0.9 --target-entropy 3.0 \
       --backend hopper
 
+``--step-horizon K`` fuses K decode steps into one replay and one host
+sync (``auto``: ``core/tuning.py::decide_step_horizon`` for the
+workload's mean budget).  On the card every decode step or horizon is
+one CUDA-graph replay, captured at its first step.
+
 Runs on the card unless ``--device cpu`` is given.  On the card the
 sampler backend and the page impl default to ``hopper`` (the kernels); on
 the CPU to ``torch`` and ``gather`` (where ``hopper`` would run the
 kernels' plain versions).
-Weights are random, drawn from ``--seed``.  Meshes, speculative decoding,
-fused horizons and autotuning are not ported yet.
+Weights are random, drawn from ``--seed``.  Meshes, speculative decoding
+and autotuning are not ported yet.
 """
 from __future__ import annotations
 
@@ -38,11 +43,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.core.tuning import decide_step_horizon
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.testing import reduced_config
 from repro_torch.models.transformer import Params, init_params
-from repro_torch.serving.engine import generate
+from repro_torch.serving.engine import DecodeGraphs, generate
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
 from repro_torch.serving.server import Completion, Request, RunaheadServer
@@ -59,16 +65,28 @@ class ServedContinuous(NamedTuple):
     completions: list[Completion]   # one per request, in completion order
     seconds: float                  # wall time of the serve, device included
     scheduler: ContinuousScheduler  # its counters and page allocator
+    counts: dict[str, int]          # this serve's share of its counters
+
+
+COUNTERS = ("decode_steps", "dispatches", "host_syncs", "admissions",
+            "horizons", "wasted_steps")
+
+
+def counters(s: ContinuousScheduler) -> dict[str, int]:
+    """A scheduler's counters (``n_<name>``), by name."""
+    return {name: getattr(s, f"n_{name}") for name in COUNTERS}
 
 
 class Session(NamedTuple):
-    """What serving holds between runs: the model and its sampler."""
+    """What serving holds between runs: the model, its sampler, and the
+    one-shot decode step's graphs."""
     cfg: ModelConfig
     params: Params
     args: argparse.Namespace
     sampler: SamplerConfig
     gen: torch.Generator
     device: torch.device
+    decode: DecodeGraphs
 
 
 def resolve_device(name: str) -> torch.device:
@@ -87,12 +105,13 @@ def sync(device: torch.device) -> None:
 def run(session: Session) -> Served:
     """One batch of prompts from the session's generator, generated through
     the sampler; ``seconds`` times ``generate`` alone."""
-    cfg, params, args, sc, gen, device = session
+    cfg, params, args, sc, gen, device, decode = session
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=device)
     sync(device)
     t0 = time.perf_counter()
-    toks = generate(cfg, params, prompt, args.new_tokens, gen, sampler=sc)
+    toks = generate(cfg, params, prompt, args.new_tokens, gen, sampler=sc,
+                    graphs=decode)
     sync(device)
     dt = time.perf_counter() - t0
     n_tok = args.batch * args.new_tokens
@@ -124,38 +143,62 @@ def continuous_requests(cfg: ModelConfig, args, sc: SamplerConfig
     ]
 
 
+def resolve_step_horizon(args) -> int:
+    """``--step-horizon N`` pins K; ``auto`` asks ``decide_step_horizon``
+    with the workload's mean budget (n_new is uniform in [new/2, new])."""
+    if args.step_horizon != "auto":
+        return int(args.step_horizon)
+    return decide_step_horizon(
+        mean_remaining=max(1.0, 0.75 * args.new_tokens))
+
+
 def server_for(session: Session) -> RunaheadServer:
     """A fresh server (empty slots and cache) over the session's model."""
-    cfg, params, args, sc, _, _ = session
+    cfg, params, args, sc = session[:4]
     return RunaheadServer(
         cfg, params, n_slots=args.slots,
         context=args.prompt_len + args.new_tokens, spec_k=sc.spec_k,
         rounds=sc.rounds, backend=sc.backend, page_size=args.page_size,
-        cache_pages=args.cache_pages, page_impl=args.page_impl)
+        cache_pages=args.cache_pages, page_impl=args.page_impl,
+        step_horizon=resolve_step_horizon(args))
 
 
-def run_continuous(session: Session) -> ServedContinuous:
-    """Serve the driver's workload through a fresh server; ``seconds``
-    times the serve alone, with a device sync at both ends."""
-    cfg, _, args, sc, _, device = session
-    server = server_for(session)
+def run_continuous(session: Session,
+                   server: RunaheadServer | None = None) -> ServedContinuous:
+    """Serve the launcher's workload through ``server`` (a fresh one when
+    None; a server served before replays the graphs it captured then);
+    ``seconds`` times the serve alone, with a device sync at both ends."""
+    cfg, _, args, sc, _, device, _ = session
+    server = server or server_for(session)
     s = server.scheduler
+    before = counters(s)
+    capture_s = s.graphs.capture_s
     if args.page_size:
         log.info("paged KV cache on: page_size=%d, pool of %d pages (%s "
                  "impl)", args.page_size, s.alloc.n_pages, args.page_impl)
+    if s.step_horizon > 1:
+        log.info("fused decode horizons on: step_horizon=%d (one replay "
+                 "and one host sync per %d decode iterations)",
+                 s.step_horizon, s.step_horizon)
     requests = continuous_requests(cfg, args, sc)
     sync(device)
     t0 = time.perf_counter()
     done = server.run(requests)
     sync(device)
     dt = time.perf_counter() - t0
+    counts = {k: v - before[k] for k, v in counters(s).items()}
     n_tok = sum(len(c.tokens) for c in done)
     lat = np.sort(np.asarray([c.latency_s for c in done]))
     log.info("served %d requests / %d tokens in %.3fs over %d decode steps "
              "(%.1f tok/s; %d slots)", len(done), n_tok, dt,
-             s.n_decode_steps, n_tok / dt, args.slots)
-    log.info("host syncs: %d for %d decode steps and %d admissions",
-             s.n_host_syncs, s.n_decode_steps, s.n_admissions)
+             counts["decode_steps"], n_tok / dt, args.slots)
+    log.info("dispatch accounting: %d dispatches, %d host syncs for %d "
+             "decode iterations and %d admissions (%d horizons, %d "
+             "all-idle iterations); %d graphs, %.3fs of this serve spent "
+             "capturing", counts["dispatches"], counts["host_syncs"],
+             counts["decode_steps"], counts["admissions"],
+             counts["horizons"], counts["wasted_steps"],
+             len(s.graphs.keys), s.graphs.capture_s - capture_s)
     log.info("latency p50=%.0fms p99=%.0fms max=%.0fms; max queue wait %d "
              "steps", 1e3 * float(np.quantile(lat, 0.5)),
              1e3 * float(np.quantile(lat, 0.99)), 1e3 * float(lat[-1]),
@@ -172,7 +215,7 @@ def run_continuous(session: Session) -> ServedContinuous:
         raise RuntimeError(f"served {len(done)} of {args.requests} requests")
     if not all(0 <= t < cfg.vocab for c in done for t in c.tokens):
         raise RuntimeError("generated token ids out of range")
-    return ServedContinuous(done, dt, s)
+    return ServedContinuous(done, dt, s, counts)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -213,6 +256,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "exact vs dense) or the hand-written kernel K6 "
                          "(default: hopper with --device cuda, gather with "
                          "--device cpu)")
+    ap.add_argument("--step-horizon", default="1",
+                    help="[continuous] decode steps fused per replay and "
+                         "host sync: a count >= 1, or auto")
     args = ap.parse_args(argv)
     # on the card the kernels carry the path; the CPU keeps the plain ones
     on_card = args.device == "cuda"
@@ -222,6 +268,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         args.page_impl = "hopper" if on_card else "gather"
     if not args.continuous and (args.page_size or args.cache_pages):
         ap.error("--page-size and --cache-pages need --continuous")
+    if args.step_horizon != "auto" and not (
+            args.step_horizon.isdigit() and int(args.step_horizon) >= 1):
+        ap.error(f"--step-horizon must be a count >= 1 or auto, got "
+                 f"{args.step_horizon!r}")
     return args
 
 
@@ -241,7 +291,7 @@ def setup(argv=None) -> Session:
         top_p=args.top_p,
         backend=args.backend,
     )
-    return Session(cfg, params, args, sc, gen, device)
+    return Session(cfg, params, args, sc, gen, device, DecodeGraphs())
 
 
 def main(argv=None) -> Served | ServedContinuous:

@@ -78,6 +78,16 @@ def masked_logits(logits: torch.Tensor, sc: SamplerConfig = SamplerConfig()
 def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:
     """Standard Gumbel noise -log(-log(u)) on ``generator.device``."""
     u = torch.rand(shape, generator=generator, device=generator.device)
+    return gumbel_from_uniform(u)
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """-log(-log(u)), u clamped to the least normal float32.  A CUDA graph
+    cannot draw from a generator that changes between replays, so the
+    graphed decode paths draw ``u`` before each replay (``torch.rand``
+    into a static buffer, the same draw ``gumbel_noise`` makes) and
+    transform it inside the graph, elementwise, on a tensor of the same
+    shape: the same noise, bit for bit."""
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 
@@ -228,3 +238,22 @@ def sample_slots(
             else z.new_zeros((1, V)) for gen in generators])
     drawn = torch.argmax(z + noise, dim=-1)
     return torch.where(slots.greedy, g, drawn)
+
+
+def draw_slot_uniforms(out: torch.Tensor,
+                       generators: Sequence[torch.Generator | None]) -> None:
+    """Row b of ``out`` (B, V) gets ``generators[b]``'s (1, V) uniform
+    draw, the one ``sample_slots`` makes for that slot; rows whose
+    generator is None are left as they are."""
+    for b, gen in enumerate(generators):
+        if gen is not None:
+            torch.rand((1, out.shape[-1]), generator=gen, out=out[b:b + 1])
+
+
+def slot_noise(u: torch.Tensor) -> torch.Tensor:
+    """The (B, V) Gumbel noise of ``draw_slot_uniforms``'s rows, row by
+    row as ``sample_slots`` transforms each slot's (1, V) draw.  Rows left
+    undrawn give finite noise that nothing reads: they are idle slots,
+    whose tokens are dead, or greedy ones, which take the argmax."""
+    return torch.cat([gumbel_from_uniform(u[b:b + 1])
+                      for b in range(u.shape[0])])

@@ -1,5 +1,5 @@
-"""Fixed-slot continuous-batching scheduler, per-step path (port of
-``repro.serving.scheduler``).
+"""Fixed-slot continuous-batching scheduler, per-step path and fused
+decode horizons (port of ``repro.serving.scheduler``).
 
 The scheduler keeps a fixed pool of ``n_slots`` decode lanes and admits /
 evicts requests per decode step instead of waiting for a whole batch to
@@ -16,25 +16,46 @@ slot-major and fixed-shape:
   * one ``torch.Generator`` per request, seeded with its seed, so a
     request draws the same noise as a B=1 one-shot ``generate``;
   * per-slot sampler knobs (``SlotSamplers``) riding the solver engine's
-    batch axis.
+    batch axis, and the active mask.
 
-One step is one batched decode over every slot plus one ``sample_slots``;
-inactive slots ride along masked out (their token and position frozen;
-their dense cache rows restored, their paged writes sent to the null
-page).  The device part of a step (``step_device``) reads nothing back;
-the host reads the step's tokens once (``commit``), the one host sync of
-a step, and books, truncates and evicts there.
+Every device tensor here keeps its storage for the scheduler's life and
+is written in place, because the decode runs as CUDA graphs that hold it
+by address (``core/graphs.py``).  One step (``_step_body``, JAX's
+``_step_body`` / ``_step_body_paged``) is one batched decode over every
+slot plus one ``sample_slots``; inactive slots ride along masked out
+(their token and position frozen; their dense cache rows restored, their
+paged writes sent to the null page).
 
-Not ported: speculative decoding (``draft_len > 1``), fused horizons
-(``step_horizon > 1``), the mesh and the tuner.  Asking for one raises.
+``step_horizon == 1``: ``step_device`` is one replay of a graph of one
+step, keyed by the statics JAX's step jits on (the enabled solves, the
+static top_k, greedy-only, paged or dense); ``commit`` reads the step's
+tokens back, the one host sync of a step, and books, truncates and
+evicts.  ``step_horizon == K > 1`` (DESIGN.md §14): one replay runs K
+iterations of the same step body, with EOS and budget detected on the
+card (``_horizon_done``) so a slot that finishes at iteration j < K is
+frozen for the rest; the host replays the (K, B) emissions once per
+horizon.  Admission and eviction run between replays only.
+
+The noise: a graph cannot draw from generators that change at every
+admission, so before each replay the host draws each live sampled slot's
+(1, V) uniforms from its generator into a static buffer, the draws eager
+serving makes (one per slot per step, in slot order), and the graph
+turns them into Gumbel noise, so the streams are eager serving's bit for
+bit.
+
+Not ported: speculative decoding (``draft_len > 1``), the mesh and the
+tuner.  Asking for one raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 
+from repro_torch.core.graphs import Graphs
+from repro_torch.core.tuning import decide_step_horizon
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode import (
     cache_lanes,
@@ -43,17 +64,25 @@ from repro_torch.models.decode import (
     freeze_cache_lanes,
     init_cache,
     init_paged_pool,
+    mask_table_rows,
     paged_prefill,
     paged_supported,
     prefill_into_slot,
 )
+from repro_torch.models.transformer import unembed_table
 from repro_torch.serving.paged import (
     PageAllocator,
     pages_for,
     plan_chain,
     prefix_key,
 )
-from repro_torch.serving.sampler import SamplerConfig, SlotSamplers, sample_slots
+from repro_torch.serving.sampler import (
+    SamplerConfig,
+    SlotSamplers,
+    draw_slot_uniforms,
+    sample_slots,
+    slot_noise,
+)
 
 
 @dataclasses.dataclass
@@ -99,16 +128,33 @@ def _static_top_k(configs: list[SamplerConfig]) -> int | None:
     return None
 
 
-def _unported(mesh, draft_len: int, step_horizon: int) -> None:
+def _unported(mesh, draft_len: int) -> None:
     if mesh is not None:
         raise NotImplementedError("mesh-native serving is not ported yet")
     if draft_len != 1:
         raise NotImplementedError(
             f"speculative decoding (draft_len={draft_len}) is not ported yet")
-    if step_horizon != 1:
-        raise NotImplementedError(
-            f"fused decode horizons (step_horizon={step_horizon}) are not "
-            "ported yet")
+
+
+def _horizon_done(active, remaining, eos, out, n_acc):
+    """In-horizon EOS/budget detection: the device dual of the host's
+    truncation rules in ``ContinuousScheduler._finish_run``.
+
+    A live slot emitted ``1 + n_acc`` tokens this iteration.  It is done
+    when that meets its remaining budget, or when an EOS lands anywhere in
+    the budget-truncated run: the order the host applies (budget first,
+    then EOS within the surviving prefix), so device freeze and host
+    eviction agree on the iteration a slot stops.  ``eos`` is -1 for
+    slots without a stop token (never a token id).
+
+    Returns (done (B,) bool, emitted (B,) int).
+    """
+    emitted = torch.where(active, 1 + n_acc, 0)
+    lim = torch.minimum(emitted, remaining)
+    cols = torch.arange(out.shape[1], device=out.device)[None, :]
+    hit_eos = ((out == eos[:, None]) & (cols < lim[:, None])).any(dim=1)
+    done = active & ((emitted >= remaining) | hit_eos)
+    return done, emitted
 
 
 class ContinuousScheduler:
@@ -117,6 +163,9 @@ class ContinuousScheduler:
     Callers drive it with ``admit`` / ``step`` / ``pop_finished``.
     ``device`` defaults to the device of the model's weights;
     ``compute_dtype`` is the forward's, ``cache_dtype`` the KV cache's.
+    ``step_horizon`` K fuses K decode steps into one replay.  The graphs
+    are this instance's (they hold its state by address); a key's first
+    step runs eagerly and captures it.
     """
 
     def __init__(
@@ -138,7 +187,11 @@ class ContinuousScheduler:
         draft_len: int = 1,
         step_horizon: int = 1,
     ):
-        _unported(mesh, draft_len, step_horizon)
+        _unported(mesh, draft_len)
+        if step_horizon < 1:
+            raise ValueError(
+                f"step_horizon must be >= 1, got {step_horizon}")
+        self.step_horizon = step_horizon
         self.cfg = cfg
         self.params = params
         self.n_slots = n_slots
@@ -178,14 +231,31 @@ class ContinuousScheduler:
                 raise ValueError("cache_pages requires page_size")
             self.cache = init_cache(cfg, n_slots, context, cache_dtype,
                                     device=dev)
-        self.token = torch.zeros((n_slots,), dtype=torch.int64, device=dev)
-        self.pos = torch.zeros((n_slots,), dtype=torch.int64, device=dev)
+            self.table = None
+
+        def zeros(dtype, *shape):
+            return torch.zeros(shape or (n_slots,), dtype=dtype, device=dev)
+
+        self.token = zeros(torch.int64)
+        self.pos = zeros(torch.int64)
+        self.active = zeros(torch.bool)
+        idle = SamplerConfig(spec_k=spec_k, rounds=rounds, backend=backend)
+        self.knobs = SlotSamplers.stack([idle] * n_slots, dev)
+        self.remaining = zeros(torch.int64)      # budgets, horizon entry
+        self.eos = zeros(torch.int64)            # stop tokens, -1 = none
+        # each iteration's (B, V) uniforms, drawn before a replay
+        self.uniforms = zeros(torch.float32, step_horizon, n_slots,
+                              unembed_table(cfg, params).shape[-1])
+        self.graphs = Graphs()
         self.slots: list[_SlotInfo | None] = [None] * n_slots
         self._finished: list[FinishedRequest] = []
-        self._step_args = None     # (slots, active, enable, k, greedy)
+        self._statics = None       # (enable, top_k_static, greedy_only)
         self.n_decode_steps = 0          # batched decode iterations
+        self.n_dispatches = 0            # graph replays and eager calls
         self.n_host_syncs = 0            # device->host reads
         self.n_admissions = 0            # requests prefilled into a slot
+        self.n_horizons = 0              # fused horizons (K > 1 only)
+        self.n_wasted_steps = 0          # all-idle horizon iterations
 
     # -- occupancy ----------------------------------------------------------
 
@@ -271,8 +341,8 @@ class ContinuousScheduler:
         or the page pool cannot hold it yet.
 
         Replays the one-shot engine's opening moves for this request at
-        B=1: prefill, then the first token from the prefill logits with
-        the request's own config and generator.
+        B=1, eagerly: prefill, then the first token from the prefill
+        logits with the request's own config and generator.
         """
         ptoks = [int(t) for t in prompt]
         self.validate_request(n_new, sampler, prompt_len=len(ptoks))
@@ -300,6 +370,7 @@ class ContinuousScheduler:
             enable=_enable_bits([sampler]),
             top_k_static=_static_top_k([sampler]),
             greedy_only=sampler.greedy)[0])
+        self.n_dispatches += 2           # prefill + first-token sample
         self.n_host_syncs += 1           # int(first)
         self.n_admissions += 1
 
@@ -312,7 +383,7 @@ class ContinuousScheduler:
                 self.alloc.release(chain)
         else:
             self.slots[i] = info
-            self._step_args = None       # occupancy changed
+            self._statics = None         # occupancy changed
             if self.paged:
                 self._chains[i] = chain
                 row = torch.zeros((self.max_chain,), dtype=torch.int32)
@@ -322,55 +393,129 @@ class ContinuousScheduler:
 
     # -- the decode step ----------------------------------------------------
 
-    def _ensure_step_args(self):
-        """(Re)build the occupancy-derived step arguments; cached until
-        admission or eviction changes which slots are live.  Builds the
-        slot tensors on the device (host-to-device copies), so it runs
-        before a step's sync-free part."""
-        if self._step_args is None:
+    def _ensure_step_args(self) -> tuple:
+        """The step's statics (enable, top_k_static, greedy_only), and its
+        slot inputs written into the static buffers the graphs read (the
+        knobs and the active mask: host-to-device copies).  Redone only
+        after admission or eviction changed which slots are live, so it
+        runs before a step's sync-free part."""
+        if self._statics is None:
             live = [s.sampler for s in self.slots if s is not None]
             idle = SamplerConfig(spec_k=self.spec_k, rounds=self.rounds,
                                  backend=self.backend)
-            self._step_args = (
-                SlotSamplers.stack([s.sampler if s is not None else idle
-                                    for s in self.slots], self.device),
-                torch.tensor([s is not None for s in self.slots],
-                             device=self.device),
-                _enable_bits(live),
-                _static_top_k(live),
-                all(c.greedy for c in live),
-            )
-        return self._step_args
+            host = SlotSamplers.stack([s.sampler if s is not None else idle
+                                       for s in self.slots], "cpu")
+            for dst, src in zip(self.knobs, host):
+                dst.copy_(src)
+            self.active.copy_(torch.tensor([s is not None
+                                             for s in self.slots]))
+            self._statics = (_enable_bits(live), _static_top_k(live),
+                             all(c.greedy for c in live))
+        return self._statics
 
-    def step_device(self) -> torch.Tensor:
-        """The device part of one decode step over every slot: the forward,
-        the per-slot sample, the frozen inactive lanes.  Reads nothing
-        back to the host.  Returns the (B,) sampled tokens (inactive rows
-        are dead); ``commit`` books them."""
-        slots_arr, active, enable, top_k_static, greedy_only = (
-            self._step_args)
+    def _draw_noise(self, iterations: int) -> None:
+        """Each live sampled slot's (1, V) uniforms for ``iterations``
+        steps from its generator, into the static buffer the graph reads:
+        the draws eager serving makes, in its order (a slot that finishes
+        inside a horizon draws past its end; its generator goes with it).
+        Greedy-only steps draw nothing."""
+        if self._statics[2]:
+            return
+        gens = [None if s is None or s.sampler.greedy else s.generator
+                for s in self.slots]
+        for j in range(iterations):
+            draw_slot_uniforms(self.uniforms[j], gens)
+
+    def _step_body(self, statics: tuple, active: torch.Tensor,
+                   table: torch.Tensor | None, uniforms: torch.Tensor
+                   ) -> torch.Tensor:
+        """One decode step over every slot (JAX's ``_step_body`` /
+        ``_step_body_paged`` at draft_len 1): the forward at each slot's
+        position, the per-slot sample, inactive lanes frozen; token, pos
+        and the cache written in place.  Returns the (B,) sampled tokens
+        (inactive rows are dead)."""
+        enable, top_k_static, greedy_only = statics
         if self.paged:
-            logits, self.pool = decode_step_paged(
+            logits, _ = decode_step_paged(
                 self.cfg, self.params, self.token, self.pos, self.pool,
-                self.table, context=self.context,
+                table, context=self.context,
                 compute_dtype=self.compute_dtype, impl=self.page_impl)
         else:
             stash = cache_lanes(self.cache, self.pos)
-            logits, self.cache = decode_step(
+            logits, _ = decode_step(
                 self.cfg, self.params, self.token, self.pos, self.cache,
                 compute_dtype=self.compute_dtype)
             # inactive lanes keep their pre-step cache state
             freeze_cache_lanes(self.cache, stash, self.pos, active)
-        gens = [None if s is None or s.sampler.greedy else s.generator
-                for s in self.slots]
-        nxt = sample_slots(logits, gens, slots_arr, spec_k=self.spec_k,
-                           rounds=self.rounds, backend=self.backend,
-                           enable=enable, top_k_static=top_k_static,
-                           greedy_only=greedy_only)
-        self.token = torch.where(active, nxt, self.token)
-        self.pos = torch.where(active, self.pos + 1, self.pos)
-        self.n_decode_steps += 1
+        nxt = sample_slots(
+            logits, [None] * self.n_slots, self.knobs, spec_k=self.spec_k,
+            rounds=self.rounds, backend=self.backend, enable=enable,
+            top_k_static=top_k_static, greedy_only=greedy_only,
+            noise=None if greedy_only else slot_noise(uniforms))
+        self.token.copy_(torch.where(active, nxt, self.token))
+        self.pos.copy_(torch.where(active, self.pos + 1, self.pos))
         return nxt
+
+    def _horizon(self, statics: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+        """The fused horizon's body (JAX's ``_scheduler_horizon[_paged]``):
+        K iterations of the step body, a slot done at iteration j frozen
+        for the rest (on the paged cache its table row is pointed at the
+        null page every iteration, so its dead writes land there).
+        Returns the (K, B, 1) emissions and the (K, B) entry masks."""
+        active, remaining = self.active, self.remaining
+        n_acc = torch.zeros_like(remaining)
+        outs, acts = [], []
+        for j in range(self.step_horizon):
+            table = (mask_table_rows(self.table, active) if self.paged
+                     else None)
+            out = self._step_body(statics, active, table,
+                                  self.uniforms[j])[:, None]
+            done, emitted = _horizon_done(active, remaining, self.eos, out,
+                                          n_acc)
+            outs.append(out)
+            acts.append(active)
+            active = active & ~done
+            remaining = remaining - emitted
+        return torch.stack(outs), torch.stack(acts)
+
+    def step_device(self) -> torch.Tensor:
+        """The device part of one decode step over every slot: one replay
+        of the step graph of the current statics (a key's first step runs
+        eagerly and captures it).  Reads nothing back to the host.
+        Returns the (B,) sampled tokens (inactive rows are dead);
+        ``commit`` books them."""
+        statics = self._statics
+        self._draw_noise(1)
+        nxt = self.graphs.run(
+            ("step", self.paged) + statics,
+            functools.partial(self._step_body, statics, self.active,
+                              self.table, self.uniforms[0]),
+            device=self.device)
+        self.n_decode_steps += 1
+        self.n_dispatches += 1
+        return nxt
+
+    def _finish_run(self, info: _SlotInfo, run: list[int]):
+        """Budget-then-EOS truncation of one slot's emitted run, the host
+        contract ``_horizon_done`` mirrors on the card.  Returns
+        (surviving run, done)."""
+        done = False
+        if len(run) >= info.remaining:       # budget truncation
+            run = run[: info.remaining]
+            done = True
+        if info.eos_id is not None and info.eos_id in run:
+            run = run[: run.index(info.eos_id) + 1]   # EOS truncation
+            done = True
+        return run, done
+
+    def _commit_run(self, i: int, info: _SlotInfo, run: list[int],
+                    done: bool, emitted: dict[Any, list[int]]) -> None:
+        """Book one slot's surviving run; evict on done."""
+        info.tokens.extend(run)
+        info.remaining -= len(run)
+        emitted.setdefault(info.rid, []).extend(run)
+        if done:
+            self._evict(i, info)
 
     def commit(self, nxt: torch.Tensor) -> dict[Any, list[int]]:
         """Read a step's tokens back (the step's one host sync), truncate
@@ -380,23 +525,15 @@ class ContinuousScheduler:
         self.n_host_syncs += 1
         emitted: dict[Any, list[int]] = {}
         for i, info in enumerate(self.slots):
-            if info is None:
-                continue
-            run = [out_host[i]]
-            done = len(run) >= info.remaining
-            if info.eos_id is not None and info.eos_id in run:
-                done = True
-            info.tokens.extend(run)
-            info.remaining -= len(run)
-            emitted[info.rid] = run
-            if done:
-                self._evict(i, info)
+            if info is not None:
+                run, done = self._finish_run(info, [out_host[i]])
+                self._commit_run(i, info, run, done, emitted)
         return emitted
 
     def _evict(self, i: int, info: _SlotInfo) -> None:
         self._finished.append(FinishedRequest(info.rid, info.tokens))
         self.slots[i] = None
-        self._step_args = None
+        self._statics = None
         if self.paged:
             # decref the chain (shared prefix pages stay live for their
             # other holders) and point the slot's table row at the null
@@ -407,8 +544,70 @@ class ContinuousScheduler:
             self.table[i] = 0
 
     def step(self) -> dict[Any, list[int]]:
-        """One decode step over every active slot: {rid: tokens emitted}."""
+        """Advance serving by one host-visible boundary: {rid: tokens
+        emitted}.
+
+        ``step_horizon == 1``: one decode step over every active slot, one
+        replay and one host sync.  ``step_horizon == K > 1``: one fused
+        horizon of K decode iterations, still one replay and one sync,
+        its K iterations replayed into host state here.  Admission and
+        eviction (and so the server's loop) run between calls only.
+        """
         if self.n_active == 0:
             return {}
         self._ensure_step_args()
-        return self.commit(self.step_device())
+        if self.step_horizon == 1:
+            return self.commit(self.step_device())
+        return self._step_fused()
+
+    def _step_fused(self) -> dict[Any, list[int]]:
+        """One fused horizon, then one host replay of its (K, B)
+        emissions in iteration order, each live row through the per-step
+        truncation and eviction.  The card's entry mask of every
+        iteration must agree with the host's slot table: a divergence
+        would mean the on-card done logic and the host contract drifted
+        apart, so it raises instead of mis-attributing tokens."""
+        statics = self._statics
+        K = self.step_horizon
+        self.remaining.copy_(torch.tensor(
+            [s.remaining if s is not None else 0 for s in self.slots]))
+        self.eos.copy_(torch.tensor(
+            [-1 if s is None or s.eos_id is None else s.eos_id
+             for s in self.slots]))
+        self._draw_noise(K)
+        outs, acts = self.graphs.run(
+            ("horizon", K, self.paged) + statics,
+            functools.partial(self._horizon, statics), device=self.device)
+        self.n_decode_steps += K
+        self.n_dispatches += 1           # the whole horizon is one replay
+        self.n_horizons += 1
+        outs_host, acts_host = torch.stack(
+            [outs[:, :, 0], acts.long()]).tolist()
+        self.n_host_syncs += 1           # ... and one boundary read
+        self.n_wasted_steps += sum(not any(row) for row in acts_host)
+
+        emitted: dict[Any, list[int]] = {}
+        for j in range(K):
+            for i, info in enumerate(self.slots):
+                if bool(acts_host[j][i]) != (info is not None):
+                    raise RuntimeError(
+                        "fused horizon freeze mask diverged from the host "
+                        f"slot table at iteration {j}, slot {i}: on-card "
+                        "done detection and host truncation disagree")
+                if info is not None:
+                    run, done = self._finish_run(info, [outs_host[j][i]])
+                    self._commit_run(i, info, run, done, emitted)
+        return emitted
+
+    def suggested_step_horizon(self, *, max_horizon: int = 32) -> int:
+        """K the cost model (``core/tuning.py::decide_step_horizon``)
+        would pick for the live workload: the mean remaining budget over
+        occupied slots, one token a decode step.  The horizon stays fixed
+        per scheduler instance (its graphs are captured at it), so callers
+        read this between serves."""
+        live = [s.remaining for s in self.slots if s is not None]
+        if not live:
+            return self.step_horizon
+        return decide_step_horizon(
+            mean_remaining=max(1.0, sum(live) / len(live)),
+            max_horizon=max_horizon)

@@ -5,8 +5,9 @@ of ``repro.serving.server``).
 runs: submit ``Request``s at any time, call ``step()`` per decode tick,
 collect ``Completion``s as each request finishes; no request waits for
 another request's tail tokens.  The loop is synchronous and
-single-threaded: one ``step()`` is one batched decode, and admission
-happens between steps.
+single-threaded: one ``step()`` is one batched decode (with
+``step_horizon`` K > 1, one fused horizon of K), and admission happens
+between steps.
 """
 from __future__ import annotations
 
@@ -66,7 +67,7 @@ class RunaheadServer:
     """Continuous-batching serving engine over the runahead sampler.
 
     Keyword arguments go to ``ContinuousScheduler`` (slots, context,
-    solver statics, dtypes, paging).
+    solver statics, dtypes, paging, ``step_horizon``).
     """
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,
@@ -91,7 +92,8 @@ class RunaheadServer:
         self._meta[req.rid] = (self._step_idx, -1, time.time())
 
     def step(self) -> list[Completion]:
-        """Admit what fits, run one decode step, return new completions."""
+        """Admit what fits, run one decode step (or one fused horizon of
+        ``step_horizon`` steps), return new completions."""
         self._admit_pending()
         self.scheduler.step()
         self._step_idx += 1
@@ -107,17 +109,20 @@ class RunaheadServer:
         return done
 
     def run(self, requests: Sequence[Request]) -> list[Completion]:
-        """Serve a scripted workload with staggered ``arrival`` steps."""
+        """Serve a scripted workload with staggered ``arrival`` steps,
+        counted from the step this call starts at (a server that served
+        before serves the same workload the same way)."""
         todo = sorted(requests, key=lambda r: r.arrival)
+        base = self._step_idx
         done: list[Completion] = []
         i = 0
         while i < len(todo) or self._pending or self.scheduler.n_active:
-            while i < len(todo) and todo[i].arrival <= self._step_idx:
+            while i < len(todo) and base + todo[i].arrival <= self._step_idx:
                 self.submit(todo[i])
                 i += 1
             if not (self._pending or self.scheduler.n_active):
                 # idle gap before the next arrival: jump to it
-                self._step_idx = todo[i].arrival
+                self._step_idx = base + todo[i].arrival
                 continue
             done.extend(self.step())
         done.extend(self._drain_finished())

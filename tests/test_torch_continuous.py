@@ -700,9 +700,13 @@ def test_rejections(model):
                            sampler=SamplerConfig(backend="hopper")))
     srv.submit(Request("z", [1, 2], 2))        # the failed submits left no trace
     assert [c.rid for c in srv.drain()] == ["z"]
-    for kw in (dict(draft_len=2), dict(step_horizon=4), dict(mesh=object())):
+    for kw in (dict(draft_len=2), dict(draft_len=2, step_horizon=4),
+               dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="not ported"):
             ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT, **kw)
+    with pytest.raises(ValueError, match="step_horizon"):
+        ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
+                            step_horizon=0)
     with pytest.raises(ValueError, match="dense"):
         ContinuousScheduler(testing.reduced_config("hymba-1.5b"), params,
                             n_slots=2, context=CONTEXT, page_size=4)

@@ -28,7 +28,13 @@ and that check fails kernels built with faults planted in rows past
 between grouped GQA and K/V repeated to every head (the same values
 summed in the same order); its gradients against the chunked
 flash_attend's on the card within 1e-4 (the same backward, another
-forward summation).
+forward summation).  The paths' CUDA graphs (``core/graphs.py``) bit for
+bit against their eager bodies: serial and runahead solves through K1,
+the one-shot decode steps against an eager loop with a host-integer
+position, continuous per-step serving (dense and paged through K6)
+across admissions, and fused horizons of 4 steps against per-step
+serving; and the warm-up that keeps K2/K4/K5's cached scratch out of a
+capture.
 """
 import pytest
 import torch
@@ -710,3 +716,189 @@ def test_flash_fwd_wrapper_counts_launches_differentiates_and_refuses(gen):
         ff.flash_fwd_cuda(q.cpu(), k, v, n_rep=2)
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         ops.flash_fwd(q, k.cpu(), v, n_rep=2)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the paths (core/graphs.py): each replay equals its eager
+# body bit for bit
+# ---------------------------------------------------------------------------
+
+class _Eager:
+    """A graph cache that runs every body eagerly: the reference."""
+    keys: list = []
+    capture_s = 0.0
+
+    def run(self, key, body, *args, device=None):
+        return body(*args)
+
+
+def test_graphed_solves_equal_their_eager_bodies(gen):
+    """A serial and a runahead solve through K1: the replay (the second
+    call at a key) equals the eager body, runahead equals serial, and a
+    replay counts the K1 launches its capture recorded."""
+    from repro_torch.core import bisect, runahead
+    from repro_torch.launch import paper
+
+    f = paper.evaluator(37)
+    a, b = paper.interval("cuda")
+    n = 24
+    want = bisect._serial(f, a, b, iterations=n, mode="signbit")
+    for k in (None, 1, 3, 5):
+        def solve():
+            if k is None:
+                return bisect.find_root_serial(f, a, b, n, "signbit")
+            return runahead.find_root_runahead(f, a, b, n, k)
+        first = solve()                        # eager, then the capture
+        ops.reset_launches()
+        got = solve()                          # the replay
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["taylor_sincos_eval"] == (
+            n + 1 if k is None else -(-n // k) + 1)
+        assert torch.equal(first, want) and torch.equal(got, want)
+    assert len([key for key in bisect.GRAPHS.keys if key[1] is f]) == 4
+
+
+def _tiny_model(gen, dtype=torch.float32):
+    from repro_torch.models.testing import reduced_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = reduced_config("qwen3-4b")
+    return cfg, init_params(cfg, gen, dtype)
+
+
+def test_graphed_oneshot_steps_equal_the_eager_loop(gen):
+    """``generate``'s decode steps (graph replays, a device position)
+    against the eager loop with a host-integer position, sampled through
+    K3-K5, bit for bit; a second call replays every step."""
+    from repro_torch.models.decode import decode_step, prefill
+    from repro_torch.serving import engine
+    from repro_torch.serving.sampler import SamplerConfig, sample
+
+    cfg, params = _tiny_model(gen)
+    prompt = torch.randint(0, cfg.vocab, (3, 8), generator=gen,
+                           device="cuda")
+    sc = SamplerConfig(top_k=20, top_p=0.9, target_entropy=2.0,
+                       backend="hopper")
+    g = torch.Generator(device="cuda")
+    logits, cache = prefill(cfg, params, prompt, 14)
+    toks = [sample(logits, g.manual_seed(5), sc)]
+    for pos in range(8, 13):
+        logits, cache = decode_step(cfg, params, toks[-1], pos, cache)
+        toks.append(sample(logits, g, sc))
+    want = torch.stack(toks, dim=1)
+    graphs = engine.DecodeGraphs()
+    for _ in range(2):
+        ops.reset_launches()
+        got = engine.generate(cfg, params, prompt, 6, g.manual_seed(5),
+                              sampler=sc, graphs=graphs)
+        assert torch.equal(got, want)
+        assert ops.LAUNCHES["runahead_topk_threshold"] == 6
+        assert ops.LAUNCHES["multi_mass"] == ops.LAUNCHES[
+            "multi_entropy_moments"] == 9 * 6
+        assert len(graphs.graphs.keys) == 1
+
+
+def _stream_requests():
+    from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.serving.server import Request
+
+    sc = lambda **kw: SamplerConfig(backend="hopper", **kw)
+    return [
+        Request("a", [1, 2, 3, 4], 5, seed=11, sampler=sc(top_k=12)),
+        Request("b", [9, 8, 7, 6, 5], 3, seed=22, sampler=sc(top_p=0.9)),
+        Request("c", [4, 4, 4], 2, seed=33,
+                sampler=sc(target_entropy=2.0), arrival=1),
+        Request("d", [10, 20, 30, 40], 6, seed=44,
+                sampler=sc(temperature=0.7, top_k=30), arrival=2),
+        Request("e", [2, 4, 6, 8], 7, seed=55, sampler=sc(greedy=True),
+                arrival=3),
+    ]
+
+
+def _streams(cfg, params, eager=False, **kw):
+    from repro_torch.serving.server import RunaheadServer
+
+    srv = RunaheadServer(cfg, params, n_slots=2, context=24,
+                         backend="hopper", **kw)
+    if eager:
+        srv.scheduler.graphs = _Eager()
+    return ({c.rid: c.tokens for c in srv.run(_stream_requests())},
+            srv.scheduler)
+
+
+@pytest.mark.parametrize("page_size", [None, 4])
+def test_graphed_scheduler_steps_equal_the_eager_body(gen, page_size):
+    """Per-step continuous serving through its step graphs (several keys;
+    admissions rewrite the knobs and the active mask between replays)
+    against the same steps run eagerly, bit for bit; and a K = 4 horizon
+    graph against the eager per-step steps."""
+    cfg, params = _tiny_model(gen)
+    kw = dict(page_size=page_size,
+              page_impl="hopper" if page_size else "gather")
+    want, _ = _streams(cfg, params, eager=True, **kw)
+    ops.reset_launches()
+    got, sched = _streams(cfg, params, **kw)
+    assert got == want
+    assert len(sched.graphs.keys) >= 2
+    if page_size:
+        assert ops.LAUNCHES["paged_attend"] == (cfg.n_layers
+                                                * sched.n_decode_steps)
+    fused, sched = _streams(cfg, params, step_horizon=4, **kw)
+    assert fused == want
+    assert sched.n_horizons >= 1
+    assert all(key[0] == "horizon" for key in sched.graphs.keys)
+
+
+def test_graph_warm_up_keeps_row_reduce_scratch(gen):
+    """K2, K4 and K5 in a graph at a candidate count that outgrows the
+    cached scratch: the warm-up grows it, the capture does not; the graph
+    is dropped and another captured, and its replays equal the eager
+    calls, also after a larger call grows the scratch again.  Growing the
+    scratch inside a capture raises."""
+    from repro_torch.core.graphs import Graphs
+    from repro_torch.kernels import row_reduce
+
+    B, V = 4, 151936
+    held = row_reduce._SCRATCH.setdefault(0, [])
+    nb = row_reduce.blocks_per_row(B, V, row_reduce.sm_count(0))
+
+    def calls():
+        # K2 alone (one accumulator) must outgrow the largest scratch yet
+        M = (held[-1][0].numel() if held else 0) // (B * nb) + 2
+        x = torch.randn((B, V), generator=gen, device="cuda") * 2.0
+        t = torch.randn((B, M), generator=gen, device="cuda")
+        p = torch.softmax(x, dim=-1)
+        taus = p.gather(1, torch.randint(0, V, (B, M), generator=gen,
+                                         device="cuda"))
+        ts = torch.exp(torch.empty((B, M), device="cuda").uniform_(
+            -3.0, 3.0, generator=gen))
+        z = x - x.amax(dim=-1, keepdim=True)
+        return lambda x, t: (ops.multi_count(x, t), ops.multi_mass(p, taus),
+                             *ops.multi_entropy_moments(z, ts)), (x, t)
+
+    body, args = calls()
+    n_held = len(held)
+    first = Graphs()
+    first.run("rr", body, *args)               # eager warm-up, capture
+    n_warm = len(held)
+    assert n_warm > n_held                     # the warm-up grew it
+    want = body(*args)
+    for w, g in zip(want, first.run("rr", body, *args)):
+        assert torch.equal(w, g)
+    first.clear()
+    again = Graphs()
+    again.run("rr", body, *args)
+    assert len(held) == n_warm                 # no capture allocated
+    for _ in range(2):
+        for w, g in zip(want, again.run("rr", body, *args)):
+            assert torch.equal(w, g)
+    big, big_args = calls()
+    big(*big_args)                             # grows the scratch
+    assert len(held) > n_warm
+    for w, g in zip(want, again.run("rr", body, *args)):
+        assert torch.equal(w, g)
+    grow, grow_args = calls()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="scratch"):
+        with torch.cuda.graph(graph):
+            grow(*grow_args)
