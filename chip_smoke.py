@@ -121,6 +121,26 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      share), peak memory; and the card's dispatch overhead, a graphed
      per-step step's host and sync time beyond its device time over that
      device time (core/tuning.py's DISPATCH_OVERHEAD).
+ 15. speculative serving at draft_len 4 on phase 9's layout (qwen3-4b
+     full width, 4 slots, page 16, K6, the "hopper" backend): one
+     decode_verify_paged over 4 rows on a live pool against 4 serial
+     decode_step_paged steps on a copy (bf16: each row within 0.05 of its
+     row's largest |logit|, argmax equal where the serial top-2 gap is
+     clear of that, since a B*L-row forward may take other cuBLAS kernels
+     than a B-row one; the all-rejected rollback restores every page but
+     the null page bit for bit); an oracle drafter (acceptance >= 0.9)
+     and a never-right one (acceptance 0) in f32 on prompts screened for
+     greedy ties, the unembedding sharpened toward a fixed successor,
+     their streams equal the per-step streams; the n-gram drafter on
+     repetitive prompts with phase 9's sampler and greedy requests
+     (acceptance, tokens per verify step, tok/s first and warm, a
+     profiled warm run, dispatches and host syncs per verify step, host
+     drafting ms, K6 = 36 x verify steps, K3/K4/K5 1/9/9 per step with a
+     sampled slot, peak memory); verify-step graph replays against their
+     eager bodies, paged and dense; step_horizon 4 with repeat-last
+     drafts against per-step serving with the same drafter; and the
+     device ms of one graphed verify step at L = 1, 2, 4, 8 beside
+     core/tuning.py::decide_draft_len's price of overhead + L steps.
 
 Phase 3 also holds K7 (flash_fwd) at the training shape (B=2, S=4096,
 16 q heads, 8 kv heads, head_dim 128) against its plain version in f32
@@ -186,6 +206,14 @@ K2_CLIP = (1, 300, 15)
 MIXED_TOP_K = (20, 40, 50, 100)
 # phase 14: the decode steps a fused horizon runs
 HORIZON = 4
+# phase 15: the draft length of the speculative serve, the draft lengths
+# whose graphed verify step is timed, the bf16 tolerance of a verify row
+# against its serial step (of the row's largest |logit|), and the period
+# of the repetitive prompts the n-gram drafter reads
+DRAFT_LEN = 4
+VERIFY_LENS = (1, 2, 4, 8)
+VERIFY_REL_TOL = 0.05
+REPEAT_PERIOD = 8
 # K1's latency bound: a bit-exact step is 4 dependent operations (the
 # numerator's multiply, q0, rho, q: csrc/taylor_eval.cu) of 4 cycles each
 # (an f32 FMA's dependent-issue latency)
@@ -1376,15 +1404,17 @@ def phase_continuous():
     return launches, streams(served)
 
 
-def _screened_prompts(cfg, params, n: int, S: int, n_new: int, gen):
-    """n prompts of S tokens whose greedy one-shot streams keep a top-1 /
-    top-2 logit gap above 1e-2 at every step (f32: far above the 1e-5 by
-    which the paged paths may differ)."""
+def _screened_prompts(cfg, params, n: int, S: int, n_new: int, gen,
+                      candidates: int = 4):
+    """n prompts of S tokens (from ``candidates`` * n random ones) whose
+    greedy one-shot streams keep a top-1 / top-2 logit gap above 1e-2 at
+    every step (f32: far above the 1e-5 by which the paged paths may
+    differ)."""
     import torch
 
     from repro_torch.models.decode import decode_step, prefill
 
-    cand = torch.randint(0, cfg.vocab, (4 * n, S), generator=gen,
+    cand = torch.randint(0, cfg.vocab, (candidates * n, S), generator=gen,
                          device="cuda")
     logits, cache = prefill(cfg, params, cand, S + n_new,
                             compute_dtype=torch.float32)
@@ -1864,6 +1894,419 @@ def phase_horizon(per_step_streams: dict):
         f"took {time.perf_counter() - t0:.1f}s)")
 
 
+class Oracle:
+    """A draft source that proposes the recorded continuation of the
+    request whose prompt opens the history, every token shifted by
+    ``shift`` (0: always right; 1: never right)."""
+
+    device_capable = False
+
+    def __init__(self, book: dict, prompt_len: int, vocab: int,
+                 shift: int = 0):
+        self.book, self.S, self.V, self.shift = book, prompt_len, vocab, shift
+
+    def __call__(self, history, n: int) -> list[int]:
+        stream = self.book[tuple(history[:self.S])]
+        done = len(history) - self.S
+        out = stream[done:done + n]
+        out = out + [out[-1] if out else history[-1]] * (n - len(out))
+        return [(t + self.shift) % self.V for t in out]
+
+
+def timed_run(server, requests, on_step=None):
+    """server.run(requests) between device syncs: (streams, seconds, the
+    scheduler's counters this run moved)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    sched = server.scheduler
+    before = serve.counters(sched)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = server.run(requests)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    moved = {k: v - before[k] for k, v in serve.counters(sched).items()}
+    return {c.rid: c.tokens for c in done}, secs, moved
+
+
+def _spec_verify_grid(session) -> None:
+    """One decode_verify_paged over L = DRAFT_LEN on a live pool (phase 9's
+    first 4 requests admitted and one step served) against L serial
+    decode_step_paged steps on a copy of it; then the all-rejected
+    rollback."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import decode
+
+    cfg, params = session.cfg, session.params
+    server = serve.server_for(session)
+    for r in serve.continuous_requests(cfg, session.args,
+                                       session.sampler)[:4]:
+        server.submit(r)
+    server.step()
+    sched = server.scheduler
+    check(sched.n_active == 4, "a slot finished in the first step")
+    B, L, C = 4, DRAFT_LEN, sched.context
+    g = torch.Generator(device="cuda").manual_seed(15)
+    feed = torch.cat([sched.token[:, None], torch.randint(
+        0, cfg.vocab, (B, L - 1), generator=g, device="cuda")], dim=1)
+    pos, table = sched.pos.clone(), sched.table
+    before = [(e["kv"].k.clone(), e["kv"].v.clone()) for e in sched.pool]
+    copy = [{"kv": decode.KVCache(k=k.clone(), v=v.clone())}
+            for k, v in before]
+    grid, _, stash = decode.decode_verify_paged(
+        cfg, params, feed, pos, sched.pool, table, context=C, impl="hopper")
+    serial = torch.stack([decode.decode_step_paged(
+        cfg, params, feed[:, l], pos + l, copy, table, context=C,
+        impl="hopper")[0] for l in range(L)], dim=1)
+    scale = serial.abs().amax(dim=-1)
+    rel = (grid - serial).abs().amax(dim=-1) / scale          # (B, L)
+    top2 = serial.topk(2, dim=-1).values
+    clear = top2[..., 0] - top2[..., 1] > 2 * VERIFY_REL_TOL * scale
+    same = grid.argmax(dim=-1) == serial.argmax(dim=-1)
+    check(bool((rel <= VERIFY_REL_TOL).all()),
+          f"verify rows differ from serial steps by {rel.tolist()} of the "
+          f"row's largest |logit| (tolerance {VERIFY_REL_TOL})")
+    check(bool(same[clear].all()), "a verify row's argmax differs from the "
+          "serial step's where the serial top-2 gap is clear")
+    decode.rollback_paged_runs(sched.pool, stash, table, pos,
+                               torch.zeros_like(pos), context=C)
+    for e, (k, v) in zip(sched.pool, before):
+        check(torch.equal(e["kv"].k[:, 1:], k[:, 1:])
+              and torch.equal(e["kv"].v[:, 1:], v[:, 1:]),
+              "the all-rejected rollback did not restore the pool")
+    say(f"phase 15 verify grid: qwen3-4b bf16, 4 live slots, one "
+        f"decode_verify_paged over L={L} (K6) against {L} serial "
+        f"decode_step_paged steps: max |dlogit| per row / the row's largest "
+        f"|logit| = {[[round(x, 5) for x in row] for row in rel.tolist()]} "
+        f"(tolerance {VERIFY_REL_TOL}: a B*L-row forward may take other "
+        f"cuBLAS kernels than a B-row one); argmax equal on "
+        f"{int(clear.sum())} of {B * L} rows whose serial top-2 gap exceeds "
+        f"{2 * VERIFY_REL_TOL} of the row's largest |logit| "
+        f"({int(same.sum())} of {B * L} equal in all); the all-rejected "
+        f"rollback (n_keep 0) restores every page but the null page bit for "
+        f"bit")
+
+
+def _spec_forced_arms(session) -> None:
+    """Both acceptance arms forced, in f32 on prompts screened for greedy
+    ties, the unembedding sharpened toward a fixed successor token (phase
+    10's move, at full width): an oracle drafter of the recorded per-step
+    greedy streams and a drafter that is never right."""
+    import torch
+
+    from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.serving.server import Request, RunaheadServer
+
+    cfg, params = session.cfg, session.params
+    g = torch.Generator(device="cuda").manual_seed(16)
+    perm = torch.randperm(cfg.vocab_padded, generator=g, device="cuda")
+    sharp = dict(params, unembed=params["unembed"]
+                 + 2.0 * params["embed"][perm].T)
+    S, L = session.args.prompt_len, DRAFT_LEN
+    n_new = [16, 20, 24, 18]
+    prompts = _screened_prompts(cfg, sharp, len(n_new), S,
+                                max(n_new) + L - 1, g, candidates=12)
+    f32 = torch.float32
+    sc = SamplerConfig(greedy=True, backend="hopper")
+
+    def serve_greedy(budgets, **kw):
+        srv = RunaheadServer(
+            cfg, sharp, n_slots=4, context=S + max(n_new) + 2 * L,
+            backend="hopper", page_size=16, page_impl="hopper",
+            cache_dtype=f32, compute_dtype=f32, **kw)
+        got, secs, c = timed_run(srv, [
+            Request(i, p, b, seed=i, sampler=sc)
+            for i, (p, b) in enumerate(zip(prompts, budgets))])
+        return got, srv.scheduler, c
+
+    # the per-step streams, recorded L - 1 tokens past each budget
+    longer, _, _ = serve_greedy([b + L - 1 for b in n_new])
+    want = {i: longer[i][:b] for i, b in enumerate(n_new)}
+    ref, _, c_ref = serve_greedy(n_new)
+    check(ref == want, "per-step greedy streams depend on their budgets")
+    book = {tuple(p): longer[i] for i, p in enumerate(prompts)}
+    notes = []
+    for name, shift in (("oracle", 0), ("wrong", 1)):
+        got, sched, c = serve_greedy(n_new, draft_len=L,
+                                     drafter=Oracle(book, S, cfg.vocab,
+                                                    shift))
+        check(got == want, f"the {name} drafter's streams differ from the "
+                           "per-step streams")
+        rate = sched.acceptance_rate
+        check(rate >= 0.9 if shift == 0 else sched.n_accepted == 0,
+              f"the {name} drafter's acceptance {rate}")
+        notes.append(f"{name}: acceptance {rate:.3f} ({c['accepted']} of "
+                     f"{c['drafted']} drafts), {c['decode_steps']} verify "
+                     f"steps")
+    say(f"phase 15 forced arms: qwen3-4b f32, 4 screened greedy requests "
+        f"(prompt {S}, n_new {n_new}), draft_len {L}: streams == the "
+        f"per-step streams ({c_ref['decode_steps']} steps) for both | "
+        + " | ".join(notes))
+
+
+def spec_requests(session, seed: int = 15):
+    """Phase 9's 8 requests (budgets, seeds, arrivals) on repetitive
+    prompts (a random REPEAT_PERIOD-token pattern each, repeated to the
+    prompt length); even requests take phase 9's sampler, odd ones are
+    greedy."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.launch import serve
+
+    cfg, args = session.cfg, session.args
+    rng = np.random.default_rng(seed)
+    reqs = serve.continuous_requests(cfg, args, session.sampler)
+    for i, r in enumerate(reqs):
+        pat = rng.integers(0, cfg.vocab, size=REPEAT_PERIOD).tolist()
+        r.prompt = (pat * (args.prompt_len // REPEAT_PERIOD + 1))[
+            :args.prompt_len]
+        if i % 2:
+            r.sampler = dataclasses.replace(r.sampler, greedy=True)
+    return reqs
+
+
+def _spec_ngram(session) -> dict:
+    """The n-gram drafter on spec_requests: acceptance, tokens per verify
+    step, tok/s first and warm, a profiled warm run, dispatches and host
+    syncs per verify step, host drafting time, launch checks, peak
+    memory.  Returns the first run's streams."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    n_layers = session.cfg.n_layers
+    server = serve.server_for(session)
+    sched = server.scheduler
+    check(type(sched.drafter).__name__ == "NGramDrafter",
+          f"drafter {sched.drafter}")
+    reqs = spec_requests(session)
+    n_sampled_adm = sum(not r.sampler.greedy for r in reqs)
+    sampled_steps = []
+    inner = sched.step_device
+
+    def step_device():                  # did this step run the solves?
+        sampled_steps.append(not sched._statics[2])
+        return inner()
+
+    sched.step_device = step_device
+    ops.reset_launches()
+    first, secs, c = timed_run(server, reqs)
+    launches = dict(ops.LAUNCHES)
+    del sched.step_device
+    n_steps, n_solve = c["decode_steps"], sum(sampled_steps)
+    check(len(first) == len(reqs) and all(
+        len(first[r.rid]) == r.n_new for r in reqs),
+          "not every request served in full")
+    check(launches["paged_attend"] == n_layers * n_steps,
+          f"K6 launched {launches['paged_attend']} times for {n_steps} "
+          f"verify steps of {n_layers} layers")
+    n_calls = n_solve + n_sampled_adm
+    check(launches["runahead_topk_threshold"] == n_calls
+          and launches["multi_mass"] == 9 * n_calls
+          and launches["multi_entropy_moments"] == 9 * n_calls,
+          f"the verify grids did not go through K3-K5 once per sampled step "
+          f"({n_solve} steps, {n_sampled_adm} admissions): {launches}")
+    check(c["dispatches"] == n_steps + 2 * c["admissions"]
+          and c["host_syncs"] == n_steps + c["admissions"],
+          f"dispatch counters {c}")
+    n_tok = sum(len(t) for t in first.values())
+    per_step = (n_tok - c["admissions"]) / n_steps
+    per_slot = 1 + c["accepted"] * (sched.draft_len - 1) / c["drafted"]
+    say(f"phase 15 n-gram: qwen3-4b bf16 full width, 8 requests on "
+        f"repetitive prompts (period {REPEAT_PERIOD}; 4 with phase 9's "
+        f"sampler, 4 greedy), NGramDrafter, draft_len {sched.draft_len}: "
+        f"acceptance {sched.acceptance_rate:.4f} ({c['accepted']} of "
+        f"{c['drafted']} drafts), {per_step:.3f} tokens per verify step "
+        f"over {n_steps} steps (4 slots; {per_slot:.3f} per live slot "
+        f"before budget cuts) | {n_tok} tokens in {secs:.3f}s = "
+        f"{n_tok / secs:.1f} tok/s (first run, captures included) | "
+        f"{c['dispatches'] / n_steps:.3f} dispatches and "
+        f"{c['host_syncs'] / n_steps:.3f} host syncs per verify step "
+        f"(admissions included) | K6 {launches['paged_attend']} = "
+        f"{n_layers} x {n_steps} steps; K3 {launches['runahead_topk_threshold']}"
+        f", K4 {launches['multi_mass']}, K5 "
+        f"{launches['multi_entropy_moments']} for {n_solve} steps with a "
+        f"sampled slot (1, 9, 9 per step, over the 4x{DRAFT_LEN} grid rows) "
+        f"and {n_sampled_adm} sampled admissions")
+    say_graphs("phase 15", sched)
+    draft_s = sched.draft_s
+    warm, secs, cw = timed_run(server, reqs)
+    check(warm == first, "warm speculative streams differ")
+    say(f"phase 15 n-gram warm (the same server: replays only): "
+        f"{n_tok / secs:.1f} tok/s ({secs:.3f}s, {cw['decode_steps']} verify "
+        f"steps, {secs / cw['decode_steps'] * 1e3:.2f} ms per step incl. "
+        f"admissions) | host drafting {(sched.draft_s - draft_s) * 1e3:.2f} "
+        f"ms in all, {(sched.draft_s - draft_s) / cw['decode_steps'] * 1e3:.3f}"
+        f" ms per step")
+    (_, secs_p, cp), busy_ms, wall_ms, kernels, calls = profiled(
+        lambda: timed_run(server, reqs))
+    say_profile("phase 15", busy_ms, wall_ms, kernels, calls,
+                cp["decode_steps"], "verify step", "; n-gram, warm")
+    if kernels:
+        k6 = [e for e in kernels if "paged_" in e.key]
+        k6_ms = sum(e.self_device_time_total for e in k6) / 1e3
+        n_k6 = n_layers * cp["decode_steps"]
+        say(f"phase 15 profile: K6 at L={DRAFT_LEN} (split and combine "
+            f"kernels) {k6_ms:.1f} ms of {busy_ms:.1f} ms device busy "
+            f"({k6_ms / busy_ms:.3f}), {k6_ms / n_k6:.4f} ms per call "
+            f"({n_k6} calls)")
+        say_kernel_times("phase 15", kernels, busy_ms)
+    say(f"phase 15 n-gram: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return first
+
+
+def _spec_graphs(session, graphed: dict) -> None:
+    """The verify steps' graph replays against their eager bodies: the
+    n-gram serve (paged, sampled and greedy slots) and its first 4
+    requests on the dense ring."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.server import RunaheadServer
+
+    reqs = spec_requests(session)
+    eager = serve.server_for(session)
+    eager.scheduler.graphs = EagerGraphs()
+    got, secs, _ = timed_run(eager, reqs)
+    check(got == graphed, "paged verify replays differ from the eager body")
+    sc, args = session.sampler, session.args
+    dense = {}
+    for name, runner in (("graphs", None), ("eager", EagerGraphs())):
+        srv = RunaheadServer(
+            session.cfg, session.params, n_slots=args.slots,
+            context=args.prompt_len + args.new_tokens + DRAFT_LEN - 1,
+            spec_k=sc.spec_k, rounds=sc.rounds, backend=sc.backend,
+            draft_len=DRAFT_LEN)
+        if runner is not None:
+            srv.scheduler.graphs = runner
+        dense[name], _, c = timed_run(srv, reqs[:4])
+    check(dense["graphs"] == dense["eager"],
+          "dense verify replays differ from the eager body")
+    say(f"phase 15 graphs: verify-step replays == eager bodies bit for bit, "
+        f"paged ({len(reqs)} requests, sampled and greedy; eager "
+        f"{secs:.3f}s) and dense (4 requests, {c['decode_steps']} steps)")
+
+
+def _spec_fused(session) -> None:
+    """step_horizon HORIZON with repeat-last drafts against per-step
+    serving with the same drafter, on phase 9's workload."""
+    import argparse
+
+    from repro_torch.launch import serve
+    from repro_torch.serving.draft import RepeatLastDrafter
+
+    reqs = serve.continuous_requests(session.cfg, session.args,
+                                     session.sampler)
+    per_step = serve.server_for(session)
+    per_step.scheduler.drafter = RepeatLastDrafter()
+    want, secs1, c1 = timed_run(per_step, reqs)
+    fused_session = session._replace(args=argparse.Namespace(
+        **dict(vars(session.args), step_horizon=str(HORIZON))))
+    fused = serve.server_for(fused_session)
+    s = fused.scheduler
+    check(s.step_horizon == HORIZON and isinstance(s.drafter,
+                                                   RepeatLastDrafter),
+          "the fused server does not draft on the card")
+    got, secs, c = timed_run(fused, reqs)
+    check(got == want, "fused speculative streams differ from per-step ones")
+    check(c["decode_steps"] == HORIZON * c["horizons"]
+          and c["dispatches"] == c["horizons"] + 2 * c["admissions"]
+          and c["host_syncs"] == c["horizons"] + c["admissions"]
+          and (c["drafted"], c["accepted"]) == (c1["drafted"],
+                                                c1["accepted"]),
+          f"fused counters {c} against per-step {c1}")
+    say(f"phase 15 fused: step_horizon {HORIZON}, draft_len {DRAFT_LEN}, "
+        f"RepeatLastDrafter on the card, phase 9's 8 requests: streams == "
+        f"per-step speculative streams with the same drafter bit for bit "
+        f"(the freeze mask agreed with the host slot table at every "
+        f"iteration) | {c['horizons']} horizons, {c['decode_steps']} "
+        f"iterations ({c['wasted_steps']} all-idle), acceptance "
+        f"{c['accepted']} of {c['drafted']} | per-step {secs1:.3f}s, fused "
+        f"{secs:.3f}s (first runs, captures included)")
+
+
+def _spec_verify_ms(session) -> None:
+    """Device ms of one graphed verify step (4 live sampled slots, phase
+    9's sampler) at each L of VERIFY_LENS: CUDA events around the step
+    graph's replay alone, median of 9 replays, against decide_draft_len's
+    price of (overhead + L) serial steps."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import tuning
+    from repro_torch.launch import serve
+    from repro_torch.serving.server import RunaheadServer
+
+    sc, args = session.sampler, session.args
+    n_new = 200
+    reqs = serve.continuous_requests(session.cfg, args, sc)[:4]
+    ms = {}
+    for L in VERIFY_LENS:
+        srv = RunaheadServer(
+            session.cfg, session.params, n_slots=4,
+            context=args.prompt_len + n_new + L, spec_k=sc.spec_k,
+            rounds=sc.rounds, backend=sc.backend, page_size=16,
+            page_impl="hopper", draft_len=L)
+        for r in reqs:
+            srv.submit(dataclasses.replace(r, n_new=n_new))
+        srv.step()                       # admissions; the graph captured
+        sched = srv.scheduler
+        times, out = [], {}
+
+        def replay():
+            out["packed"] = sched.replay_step(L)
+
+        for _ in range(9):
+            sched._ensure_step_args()
+            if L > 1:
+                sched._write_drafts(L)
+            sched._draw_noise(1, L)
+            torch.cuda.synchronize()
+            times.append(_event_ms(replay))
+            sched.commit(out["packed"])
+        check(sched.n_active == 4, "a slot finished inside the measurement")
+        ms[L] = statistics.median(times)
+        del srv, sched
+    one = ms[1]
+    rows = ", ".join(
+        f"L={L}: {ms[L]:.3f} ms ({ms[L] / one:.3f}x the L=1 step; the model "
+        f"prices {tuning.DISPATCH_OVERHEAD + L:.4f}x)" for L in VERIFY_LENS)
+    say(f"phase 15 verify-step device ms (one graph replay, 4 live slots, "
+        f"median of 9, CUDA events): {rows} | decide_draft_len at "
+        f"acceptance 0.6 with the card's overhead picks L = "
+        f"{tuning.decide_draft_len(acceptance=0.6)}")
+
+
+def phase_speculative() -> None:
+    """Speculative serving (draft_len DRAFT_LEN) at qwen3-4b's full width
+    on phase 9's layout: the verify grid against serial steps, both
+    acceptance arms forced, the n-gram drafter's readings, graph replays
+    against eager bodies, fused speculative horizons, and the graphed
+    verify step's device ms at each L of VERIFY_LENS."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    session = serve.setup(CONT_ARGV + ["--draft-len", str(DRAFT_LEN)])
+    _spec_verify_grid(session)
+    _spec_forced_arms(session)
+    graphed = _spec_ngram(session)
+    _spec_graphs(session, graphed)
+    _spec_fused(session)
+    _spec_verify_ms(session)
+    say(f"phase 15 took {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     import torch
 
@@ -1893,6 +2336,7 @@ def main() -> int:
     phase_fault()
     launches_by_path["continuous-mixed-k"] = phase_mixed_k(gen)
     phase_horizon(per_step_streams)
+    phase_speculative()
 
     # the path whose run each kernel's launch count is read on: K2 runs
     # where the served requests' top_k differ (phase 13)

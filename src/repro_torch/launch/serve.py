@@ -25,12 +25,23 @@ sync (``auto``: ``core/tuning.py::decide_step_horizon`` for the
 workload's mean budget).  On the card every decode step or horizon is
 one CUDA-graph replay, captured at its first step.
 
+``--draft-len L`` turns on speculative decoding: each decode step
+verifies L - 1 tokens an n-gram self-drafter proposed from the request's
+own history (``auto``: ``core/tuning.py::decide_draft_len`` at an
+acceptance prior of 0.6; ``--adaptive-draft`` re-decides L from the
+measured acceptance while serving).  With ``--step-horizon`` K > 1 the
+drafts are made on the card by repeating the current token:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-4b --reduced --continuous --draft-len 3 \
+      --adaptive-draft --page-size 4 --device cpu
+
 Runs on the card unless ``--device cpu`` is given.  On the card the
 sampler backend and the page impl default to ``hopper`` (the kernels); on
 the CPU to ``torch`` and ``gather`` (where ``hopper`` would run the
 kernels' plain versions).
-Weights are random, drawn from ``--seed``.  Meshes, speculative decoding
-and autotuning are not ported yet.
+Weights are random, drawn from ``--seed``.  Meshes and autotuning are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -43,11 +54,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
-from repro_torch.core.tuning import decide_step_horizon
+from repro_torch.core.tuning import decide_draft_len, decide_step_horizon
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.decode import verify_supported
 from repro_torch.models.testing import reduced_config
 from repro_torch.models.transformer import Params, init_params
+from repro_torch.serving.draft import RepeatLastDrafter
 from repro_torch.serving.engine import DecodeGraphs, generate
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
@@ -69,7 +82,8 @@ class ServedContinuous(NamedTuple):
 
 
 COUNTERS = ("decode_steps", "dispatches", "host_syncs", "admissions",
-            "horizons", "wasted_steps")
+            "horizons", "wasted_steps", "drafted", "accepted",
+            "draft_retunes")
 
 
 def counters(s: ContinuousScheduler) -> dict[str, int]:
@@ -143,24 +157,59 @@ def continuous_requests(cfg: ModelConfig, args, sc: SamplerConfig
     ]
 
 
-def resolve_step_horizon(args) -> int:
+ACCEPTANCE_PRIOR = 0.6     # --draft-len auto's assumed acceptance
+
+
+def resolve_draft_len(args, cfg: ModelConfig) -> int:
+    """``--draft-len N`` pins L; ``auto`` asks ``decide_draft_len`` at the
+    acceptance prior (the live counters refine it with
+    ``--adaptive-draft``)."""
+    if args.draft_len == "1":
+        return 1
+    if not verify_supported(cfg):
+        raise SystemExit(
+            "--draft-len needs an all-dense layer stack "
+            f"(arch {args.arch!r} has recurrent/MoE layers)")
+    if args.draft_len != "auto":
+        return int(args.draft_len)
+    return decide_draft_len(acceptance=ACCEPTANCE_PRIOR)
+
+
+def resolve_step_horizon(args, draft_len: int = 1) -> int:
     """``--step-horizon N`` pins K; ``auto`` asks ``decide_step_horizon``
-    with the workload's mean budget (n_new is uniform in [new/2, new])."""
+    with the workload's mean budget (n_new is uniform in [new/2, new]) in
+    decode steps, at ``1 + 0.6 (L - 1)`` tokens a step (the acceptance
+    prior of ``--draft-len auto``)."""
     if args.step_horizon != "auto":
         return int(args.step_horizon)
+    per_step = 1.0 + ACCEPTANCE_PRIOR * (draft_len - 1)
     return decide_step_horizon(
-        mean_remaining=max(1.0, 0.75 * args.new_tokens))
+        mean_remaining=max(1.0, 0.75 * args.new_tokens / per_step))
 
 
 def server_for(session: Session) -> RunaheadServer:
-    """A fresh server (empty slots and cache) over the session's model."""
+    """A fresh server (empty slots and cache) over the session's model.
+
+    A speculative serve's ring holds the deepest draft row too (context
+    ``prompt + new + max_draft_len - 1``): a verify that wrapped the ring
+    would overwrite rows its shallower queries still read.  A fused
+    speculative serve drafts on the card by repeating the current token:
+    host drafters cannot run inside a horizon's graph."""
     cfg, params, args, sc = session[:4]
+    draft_len = resolve_draft_len(args, cfg)
+    step_horizon = resolve_step_horizon(args, draft_len)
+    fused_spec = step_horizon > 1 and draft_len > 1
+    auto = args.adaptive_draft and draft_len > 1
+    max_draft_len = max(draft_len, 8) if auto else draft_len
     return RunaheadServer(
         cfg, params, n_slots=args.slots,
-        context=args.prompt_len + args.new_tokens, spec_k=sc.spec_k,
+        context=args.prompt_len + args.new_tokens + max_draft_len - 1,
+        spec_k=sc.spec_k,
         rounds=sc.rounds, backend=sc.backend, page_size=args.page_size,
         cache_pages=args.cache_pages, page_impl=args.page_impl,
-        step_horizon=resolve_step_horizon(args))
+        step_horizon=step_horizon, draft_len=draft_len,
+        drafter=RepeatLastDrafter() if fused_spec else None,
+        draft_len_auto=auto, max_draft_len=max_draft_len)
 
 
 def run_continuous(session: Session,
@@ -180,6 +229,11 @@ def run_continuous(session: Session,
         log.info("fused decode horizons on: step_horizon=%d (one replay "
                  "and one host sync per %d decode iterations)",
                  s.step_horizon, s.step_horizon)
+    if s.max_draft_len > 1:
+        log.info("speculative decoding on: draft_len=%d (%s)%s",
+                 s.draft_len, type(s.drafter).__name__,
+                 ", live-retuned from acceptance" if s.draft_len_auto
+                 else "")
     requests = continuous_requests(cfg, args, sc)
     sync(device)
     t0 = time.perf_counter()
@@ -199,6 +253,15 @@ def run_continuous(session: Session,
              counts["decode_steps"], counts["admissions"],
              counts["horizons"], counts["wasted_steps"],
              len(s.graphs.keys), s.graphs.capture_s - capture_s)
+    if s.max_draft_len > 1:
+        log.info("speculation: %d drafted, %d accepted (rate %.3f), %.2f "
+                 "tokens per decode step, %d draft_len retunes (now %d), "
+                 "%.1f ms drafting on the host", counts["drafted"],
+                 counts["accepted"],
+                 counts["accepted"] / max(1, counts["drafted"]),
+                 (n_tok - counts["admissions"])
+                 / max(1, counts["decode_steps"]),
+                 counts["draft_retunes"], s.draft_len, 1e3 * s.draft_s)
     log.info("latency p50=%.0fms p99=%.0fms max=%.0fms; max queue wait %d "
              "steps", 1e3 * float(np.quantile(lat, 0.5)),
              1e3 * float(np.quantile(lat, 0.99)), 1e3 * float(lat[-1]),
@@ -206,8 +269,7 @@ def run_continuous(session: Session,
     if args.page_size:
         log.info("paging: peak %d pages (%d rows vs %d dense), %d prefix "
                  "hits, %d prefill tokens skipped", s.peak_pages,
-                 s.peak_pages * args.page_size,
-                 args.slots * (args.prompt_len + args.new_tokens),
+                 s.peak_pages * args.page_size, args.slots * s.context,
                  s.n_prefix_hits, s.n_prefill_skipped)
     for c in sorted(done, key=lambda c: c.rid)[:4]:
         log.info("rid=%s first tokens: %s", c.rid, c.tokens[:8])
@@ -259,6 +321,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--step-horizon", default="1",
                     help="[continuous] decode steps fused per replay and "
                          "host sync: a count >= 1, or auto")
+    ap.add_argument("--draft-len", default="1",
+                    help="[continuous] tokens fed per verify step (1: no "
+                         "speculation), or auto for the speculation cost "
+                         "model")
+    ap.add_argument("--adaptive-draft", action="store_true",
+                    help="[continuous] re-decide draft_len from the live "
+                         "acceptance counters while serving")
     args = ap.parse_args(argv)
     # on the card the kernels carry the path; the CPU keeps the plain ones
     on_card = args.device == "cuda"
@@ -268,10 +337,12 @@ def parse_args(argv=None) -> argparse.Namespace:
         args.page_impl = "hopper" if on_card else "gather"
     if not args.continuous and (args.page_size or args.cache_pages):
         ap.error("--page-size and --cache-pages need --continuous")
-    if args.step_horizon != "auto" and not (
-            args.step_horizon.isdigit() and int(args.step_horizon) >= 1):
-        ap.error(f"--step-horizon must be a count >= 1 or auto, got "
-                 f"{args.step_horizon!r}")
+    for flag, value in (("--step-horizon", args.step_horizon),
+                        ("--draft-len", args.draft_len)):
+        if value != "auto" and not (value.isdigit() and int(value) >= 1):
+            ap.error(f"{flag} must be a count >= 1 or auto, got {value!r}")
+    if not args.continuous and args.draft_len != "1":
+        ap.error("--draft-len needs --continuous")
     return args
 
 

@@ -17,10 +17,13 @@ through ``kernels/ops.py::flash_fwd`` (the hand-written kernel K7 on the
 card, its plain version on the CPU), whose backward is the vjp of the
 chunked ``flash_attend`` below, as in the JAX package's ``custom_vjp``.
 
-Not ported yet: int8 KV, cross attention, the tensor-parallel head
-padding of ``attend``'s flash branch (it waits for the mesh), and the
-speculative verify path (``decode_attend_multi``, the paged stash for
-rollback).
+Speculative verify: ``decode_attend_multi`` (L queries per row over the
+dense ring) and ``paged_decode_attend_multi`` write all L K/V rows in
+place and return a stash of the rows they overwrote, which
+``models/decode.py``'s ``rollback_*`` put back for rejected drafts.
+
+Not ported yet: int8 KV, cross attention, and the tensor-parallel head
+padding of ``attend``'s flash branch (it waits for the mesh).
 """
 from __future__ import annotations
 
@@ -356,6 +359,53 @@ def _verify_sdpa(q, k, v, mask, n_rep: int):
     return out.reshape(B, L, nq, hd)
 
 
+def decode_attend_multi(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,          # (B, L, D) current token + drafted run
+    pos: torch.Tensor,        # (B,) absolute position of x[:, 0]
+    cache: KVCache,           # one layer's (B, C, n_kv, hd) ring view
+) -> tuple[torch.Tensor, KVCache, KVCache]:
+    """Verify-grid attention: L tokens per row in one step.
+
+    Writes all L K/V rows into the ring in place at slots (pos+l) % C, the
+    slots L serial steps would write, then attends each query l over the
+    same C-row buffer with the serial step's validity mask at depth
+    pos+l, so a ring slot written for a deeper draft position is masked
+    as serial decode masks the stale row it overwrote.
+
+    Returns (out (B, L, D'), cache, stash): ``stash`` holds the pre-write
+    (B, L, n_kv, hd) rows at the touched slots, which
+    ``models.decode.rollback_cache_runs`` puts back for rejected drafts.
+    """
+    if cache.k.dtype == torch.int8:
+        raise NotImplementedError("the port has no int8 K/V cache")
+    B, L, _ = x.shape
+    C = cache.capacity
+    if L > C:
+        raise ValueError(
+            f"draft run length {L} exceeds cache capacity {C}: ring slots "
+            "would collide")
+    q = _project_q(p, cfg, x)                                # (B,L,nq,hd)
+    k_new, v_new = _project_kv(p, cfg, x)                    # (B,L,nkv,hd)
+    pgrid = pos[:, None] + torch.arange(L, device=x.device)[None, :]
+    if not cfg.learned_pos:
+        q = apply_rope(q, pgrid, cfg.rope_theta)
+        k_new = apply_rope(k_new, pgrid, cfg.rope_theta)
+
+    slots_w = pgrid % C                                      # (B, L)
+    rows = torch.arange(B, device=x.device)[:, None]
+    stash = KVCache(k=cache.k[rows, slots_w], v=cache.v[rows, slots_w])
+    cache.k[rows, slots_w] = k_new.to(cache.k.dtype)
+    cache.v[rows, slots_w] = v_new.to(cache.v.dtype)
+
+    mask = _paged_slot_mask(pgrid, C)[:, None, None]         # (B,1,1,L,C)
+    out = _verify_sdpa(q, cache.k, cache.v, mask,
+                       cfg.n_heads // cfg.n_kv_heads)
+    out = out.reshape(B, L, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"].to(x.dtype), cache, stash
+
+
 # ---------------------------------------------------------------------------
 # paged decode path (page-table KV cache)
 # ---------------------------------------------------------------------------
@@ -398,22 +448,25 @@ def paged_decode_attend_multi(
     *,
     context: int,
     impl: str = "gather",
-) -> tuple[torch.Tensor, KVCache]:
+    stash: bool = True,
+) -> tuple[torch.Tensor, KVCache, KVCache | None]:
     """Attention of L tokens per slot over a page-table cache (L == 1 is
     the plain decode step).  K/V rows are written in place at (page =
-    table[b, slot // P], offset = slot % P) for ring slot (pos+l) % C;
-    then each query reduces over its slot's chain with the serial
-    validity mask at its depth.  Inactive slots point their table rows at
-    the null page, so their writes land there.
+    table[b, slot // P], offset = slot % P) for ring slot (pos+l) % C, so
+    a draft run crosses page boundaries as it crosses ring slots; then
+    each query reduces over its slot's chain with the serial validity
+    mask at its depth.  Inactive slots point their table rows at the null
+    page, so their writes land there.
 
     ``impl``: ``"gather"`` (the chain gathered back into ring order and
     the dense sdpa: bit-identical to the dense ring by construction) or
     ``"hopper"`` (the kernel K6, ``ops.paged_attend``: its plain version
     on the CPU; an online softmax, so equal within tolerance).
 
-    Returns (out (B, L, D'), pool).  The JAX function also returns a stash
-    of the overwritten rows for speculative rollback, which the port does
-    not have yet.
+    Returns (out (B, L, D'), pool, stash): ``stash`` holds the pre-write
+    (B, L, n_kv, hd) rows at the touched (page, offset) targets, which
+    ``models.decode.rollback_paged_runs`` puts back for rejected drafts;
+    None with ``stash=False`` (the serial step, which never rolls back).
     """
     B, L, _ = x.shape
     C = context
@@ -435,6 +488,8 @@ def paged_decode_attend_multi(
     rows = torch.arange(B, device=x.device)[:, None]
     pages_w = table[rows, slots_w // P].long()               # (B, L)
     offs_w = slots_w % P
+    kept = (KVCache(k=cache.k[pages_w, offs_w], v=cache.v[pages_w, offs_w])
+            if stash else None)
     cache.k[pages_w, offs_w] = k_new.to(cache.k.dtype)
     cache.v[pages_w, offs_w] = v_new.to(cache.v.dtype)
 
@@ -451,7 +506,7 @@ def paged_decode_attend_multi(
         else:
             out = _verify_sdpa(q, k, v, mask, n_rep)
     out = out.reshape(B, L, cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"].to(x.dtype), cache
+    return out @ p["wo"].to(x.dtype), cache, kept
 
 
 def attend_with_prefix(

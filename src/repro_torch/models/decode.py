@@ -10,10 +10,13 @@ Cache layout mirrors the layer plan: a list with one entry per run, each a
 JAX functions return new ones); the returned cache is the same object.
 That is why the dense continuous step freezes inactive lanes by restoring
 the rows it touched (``cache_lanes`` / ``freeze_cache_lanes``) instead of
-selecting a copied pre-step cache back in.
+selecting a copied pre-step cache back in, and why the speculative verify
+(``decode_verify`` / ``decode_verify_paged``: L rows per slot in one
+forward) returns a stash of the rows it overwrote, which
+``rollback_cache_runs`` / ``rollback_paged_runs`` put back for rejected
+drafts.
 
-Not ported yet: the speculative verify half (``decode_verify[_paged]``,
-``rollback_*``), int8 KV and the non-dense block kinds.
+Not ported yet: int8 KV and the non-dense block kinds.
 """
 from __future__ import annotations
 
@@ -142,6 +145,105 @@ def decode_step(
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = unembed(unembed_table(cfg, params), x[:, 0], cfg.vocab)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# speculative verify (draft-and-verify decode)
+# ---------------------------------------------------------------------------
+
+def verify_supported(cfg: ModelConfig) -> bool:
+    """Whether ``decode_verify`` can serve this arch: dense attention
+    stacks only (recurrent layers would need per-position state to roll
+    back, and MoE capacity cuts couple the grid's rows)."""
+    return all(kind == "dense" for kind, _ in layer_plan(cfg))
+
+
+def _verify_forward(cfg, params, tokens, state, attend, compute_dtype):
+    """The shared layer loop of the verify forwards: ``attend(p_attn, h,
+    kv_l)`` -> (out, stash of one layer).  Returns (logits (B, L, V) f32,
+    per-run stashes with the run's layer axis in front)."""
+    if not verify_supported(cfg):
+        raise ValueError(
+            "decode_verify supports dense layer stacks only (see "
+            "verify_supported)")
+    x = embed(params["embed"], tokens, compute_dtype)        # (B, L, D)
+    stashes = []
+    for run_params, entry, (_, count) in zip(params["runs"], state,
+                                             dense_plan(cfg)):
+        ks, vs = [], []
+        for p_l, kv_l in zip(layer_unbind(run_params, count),
+                             layer_unbind(entry["kv"], count)):
+            h = apply_norm(cfg.norm, p_l["ln1"], x, cfg.norm_eps)
+            a, st = attend(p_l["attn"], h, kv_l)
+            ks.append(st.k)
+            vs.append(st.v)
+            x = x + a
+            h = apply_norm(cfg.norm, p_l["ln2"], x, cfg.norm_eps)
+            x = x + apply_mlp(cfg.act, p_l["mlp"], h)
+        stashes.append({"kv": KVCache(k=torch.stack(ks),
+                                      v=torch.stack(vs))})
+    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(unembed_table(cfg, params), x, cfg.vocab)
+    return logits, stashes
+
+
+def decode_verify(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,              # (B, L) current token + drafted run
+    pos: torch.Tensor,                 # (B,) position of tokens[:, 0]
+    cache: Cache,
+    *,
+    compute_dtype=torch.bfloat16,
+) -> tuple[torch.Tensor, Cache, list]:
+    """Score a (B, L) token grid in one forward against the slotted cache.
+
+    Row b feeds [t_0, d_1, .., d_{L-1}] at positions pos_b .. pos_b+L-1;
+    ``logits[:, l]`` predicts the token at position pos+l+1 given that
+    prefix: L serial decode steps answered by one forward.  All L K/V
+    rows are written into the ring in place (the state L serial steps
+    would leave); ``stash`` holds the overwritten rows, (layers, B, L,
+    n_kv, hd) per run, for ``rollback_cache_runs``.  Returns (logits
+    (B, L, V) f32, cache, stash).
+    """
+    def attend(p_attn, h, kv_l):
+        a, _, st = attn_lib.decode_attend_multi(p_attn, cfg, h, pos, kv_l)
+        return a, st
+
+    logits, stash = _verify_forward(cfg, params, tokens, cache, attend,
+                                    compute_dtype)
+    return logits, cache, stash
+
+
+def _restore_rows(leaf, old, index, keep):
+    """leaf[:, *index] = where(keep, leaf[:, *index], old), in place;
+    ``index`` selects (B, L) rows, ``keep`` is (B, L) bool."""
+    cur = leaf[(slice(None),) + index]                       # (lyr,B,L,...)
+    sel = keep.reshape((1,) + keep.shape + (1,) * (cur.ndim - 3))
+    leaf[(slice(None),) + index] = torch.where(sel, cur, old)
+
+
+def _keep_mask(n_keep: torch.Tensor, L: int) -> torch.Tensor:
+    return (torch.arange(L, device=n_keep.device)[None, :]
+            < n_keep[:, None])                               # (B, L)
+
+
+def rollback_cache_runs(cache: Cache, stash: list, pos: torch.Tensor,
+                        n_keep: torch.Tensor) -> Cache:
+    """Put back the ring rows ``decode_verify`` wrote for rejected
+    positions, in place.  ``n_keep`` (B,) commits each row's leading
+    writes: 1 + accepted drafts for a live slot, 0 for an inactive one
+    (which leaves it bit-identical to its pre-step state)."""
+    for entry, st in zip(cache, stash):
+        kv, old = entry["kv"], st["kv"]
+        B, L = old.k.shape[1:3]
+        slots = (pos[:, None] + torch.arange(L, device=pos.device)[None, :]
+                 ) % kv.capacity                             # (B, L)
+        rows = torch.arange(B, device=pos.device)[:, None]
+        keep = _keep_mask(n_keep, L)
+        _restore_rows(kv.k, old.k, (rows, slots), keep)
+        _restore_rows(kv.v, old.v, (rows, slots), keep)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -354,12 +456,58 @@ def decode_step_paged(
         for p_l, kv_l in zip(layer_unbind(run_params, count),
                              layer_unbind(entry["kv"], count)):
             h = apply_norm(cfg.norm, p_l["ln1"], x, cfg.norm_eps)
-            a, _ = attn_lib.paged_decode_attend_multi(
+            a, _, _ = attn_lib.paged_decode_attend_multi(
                 p_l["attn"], cfg, h, pos, kv_l, table,
-                context=context, impl=impl)
+                context=context, impl=impl, stash=False)
             x = x + a
             h = apply_norm(cfg.norm, p_l["ln2"], x, cfg.norm_eps)
             x = x + apply_mlp(cfg.act, p_l["mlp"], h)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = unembed(unembed_table(cfg, params), x[:, 0], cfg.vocab)
     return logits, pool
+
+
+def decode_verify_paged(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,              # (B, L) current token + drafted run
+    pos: torch.Tensor,                 # (B,) position of tokens[:, 0]
+    pool: Cache,
+    table: torch.Tensor,               # (B, max_chain) int32 page ids
+    *,
+    context: int,
+    compute_dtype=torch.bfloat16,
+    impl: str = "gather",
+) -> tuple[torch.Tensor, Cache, list]:
+    """``decode_verify`` over the page-table cache: the L K/V rows go
+    through each slot's page chain in place (a draft run crossing a page
+    boundary lands in two pages).  Returns (logits (B, L, V) f32, pool,
+    stash); ``rollback_paged_runs`` puts back the rejected rows."""
+    def attend(p_attn, h, kv_l):
+        a, _, st = attn_lib.paged_decode_attend_multi(
+            p_attn, cfg, h, pos, kv_l, table, context=context, impl=impl)
+        return a, st
+
+    logits, stash = _verify_forward(cfg, params, tokens, pool, attend,
+                                    compute_dtype)
+    return logits, pool, stash
+
+
+def rollback_paged_runs(pool: Cache, stash: list, table: torch.Tensor,
+                        pos: torch.Tensor, n_keep: torch.Tensor, *,
+                        context: int) -> Cache:
+    """``rollback_cache_runs`` through the page table, in place: the rows
+    past each slot's ``n_keep`` go back to their stashed values at the
+    (page, offset) targets ``decode_verify_paged`` wrote."""
+    for entry, st in zip(pool, stash):
+        kv, old = entry["kv"], st["kv"]
+        B, L = old.k.shape[1:3]
+        P = kv.k.shape[2]
+        slots = (pos[:, None] + torch.arange(L, device=pos.device)[None, :]
+                 ) % context                                 # (B, L)
+        rows = torch.arange(B, device=pos.device)[:, None]
+        pages = table[rows, slots // P].long()
+        keep = _keep_mask(n_keep, L)
+        _restore_rows(kv.k, old.k, (pages, slots % P), keep)
+        _restore_rows(kv.v, old.v, (pages, slots % P), keep)
+    return pool

@@ -23,8 +23,17 @@ Per-slot sampling (continuous batching): each slot carries its own knobs
 its own generator.  Row b of ``sample_slots`` is the token a B=1
 ``sample`` with that slot's config and generator draws: the masked
 logits are the same bits, and the slot's generator gives the same
-(1, V) Gumbel draw.  ``verify_slots`` and ``SlotSamplers.tile`` wait for
-the speculative slice.
+(1, V) Gumbel draw.
+
+Speculative verify (``verify_slots``): the (B, L, V) grid goes through the
+same per-row pipeline as B·L rows (``SlotSamplers.tile``), so each
+solve runs once for every draft depth of every slot.  Greedy slots
+accept the leading run of ``draft == argmax``; sampled slots accept by
+rejection sampling on their own noise: per live sampled slot one (L-1)
+coin draw and one (1, L, V) uniform draw from its generator, in slot
+order (``draw_verify_uniforms``).  The JAX package draws threefry bits
+instead, so sampled speculative streams are the port's own: deterministic
+per seed and distributed as the target, not equal to JAX's.
 """
 from __future__ import annotations
 
@@ -155,6 +164,13 @@ class SlotSamplers(NamedTuple):
             greedy=col([c.greedy for c in configs], torch.bool),
         )
 
+    def tile(self, reps: int) -> "SlotSamplers":
+        """Repeat every knob ``reps`` times along the batch axis: row
+        b*reps+r carries slot b's knobs, the layout of a flattened
+        (B, reps, V) verify grid."""
+        return SlotSamplers(*(f.repeat_interleave(reps, dim=0)
+                              for f in self))
+
 
 def _masked_slot_logits(
     logits: torch.Tensor,              # (R, V) f32, R rows
@@ -257,3 +273,90 @@ def slot_noise(u: torch.Tensor) -> torch.Tensor:
     whose tokens are dead, or greedy ones, which take the argmax."""
     return torch.cat([gumbel_from_uniform(u[b:b + 1])
                       for b in range(u.shape[0])])
+
+
+def draw_verify_uniforms(coins: torch.Tensor, uniforms: torch.Tensor,
+                         generators: Sequence[torch.Generator | None]
+                         ) -> None:
+    """Row b of ``coins`` (B, L-1) and ``uniforms`` (B, L, V) gets
+    ``generators[b]``'s draws for one verify step, the coins first: the
+    draws ``verify_slots`` makes for that slot.  Rows whose generator is
+    None are left as they are."""
+    for b, gen in enumerate(generators):
+        if gen is None:
+            continue
+        if coins.shape[1]:
+            torch.rand(coins.shape[1:], generator=gen, out=coins[b])
+        torch.rand((1,) + uniforms.shape[1:], generator=gen,
+                   out=uniforms[b:b + 1])
+
+
+def verify_slots(
+    grid: torch.Tensor,                     # (B, L, V) f32 verify logits
+    draft: torch.Tensor,                    # (B, L-1) drafted tokens
+    generators: Sequence[torch.Generator | None],
+    slots: SlotSamplers,
+    *,
+    spec_k: int = 5,
+    rounds: int = 8,
+    backend: str = "torch",
+    enable: tuple[bool, bool, bool] = (True, True, True),
+    top_k_static: int | None = None,
+    greedy_only: bool = False,
+    coins: torch.Tensor | None = None,
+    uniforms: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Accept or reject a drafted run per slot: the paper's sign check at
+    the sequence level.
+
+    ``grid[:, l]`` scores the token at position pos+l+1 given the fed
+    prefix [t_0, d_1..d_l]; ``draft[:, l]`` is d_{l+1}.  The whole grid
+    goes through one ``_masked_slot_logits`` as B·L rows.  Per row:
+
+      * greedy slots accept d_{l+1} while it equals argmax(grid[:, l]):
+        the accepted prefix plus the first correction are the serial
+        greedy stream;
+      * sampled slots accept d with probability p(d) (the masked softmax;
+        a drafter is a point mass, so min(1, p/q) = p(d)), compared with
+        the slot's coin; on rejection the replacement is drawn from p
+        with d removed, and on full acceptance a bonus token from the
+        last row, each a Gumbel-max draw on the slot's (L, V) uniforms.
+
+    ``generators[b]`` is slot b's generator (None: greedy or idle), from
+    which ``draw_verify_uniforms`` draws when ``coins`` (B, L-1) and
+    ``uniforms`` (B, L, V) are not given; the scheduler's graphs read
+    buffers it filled before the replay.  ``greedy_only``: no draw and no
+    rejection arm.  Returns (out (B, L), n_acc (B,)): row b emits
+    ``out[b, :n_acc[b] + 1]``.
+    """
+    B, L, V = grid.shape
+    zm = _masked_slot_logits(
+        grid.reshape(B * L, V), slots.tile(L), spec_k=spec_k, rounds=rounds,
+        backend=backend, enable=enable,
+        top_k_static=top_k_static).reshape(B, L, V)
+    g = torch.argmax(zm, dim=-1)                             # (B, L)
+    match_g = draft == g[:, :L - 1]                          # (B, L-1)
+    if greedy_only:
+        return g, torch.cumprod(match_g.long(), dim=1).sum(dim=1)
+
+    if coins is None:
+        coins = grid.new_zeros((B, L - 1))
+        uniforms = grid.new_zeros((B, L, V))
+        draw_verify_uniforms(coins, uniforms, generators)
+    p = torch.softmax(zm, dim=-1)
+    q_d = p[:, :L - 1].gather(-1, draft[..., None].long())[..., 0]
+    match_s = coins < q_d
+    # residual: p with the draft removed (the Gumbel-max draw renormalises
+    # it); depth L-1 has no draft and draws from the full row
+    hit = (torch.arange(V, device=grid.device)[None, None, :]
+           == torch.nn.functional.pad(draft, (0, 1), value=-1)[..., None])
+    z_res = torch.where(hit, NEG_INF, zm)
+    s = torch.argmax(z_res + gumbel_from_uniform(uniforms), dim=-1)
+
+    greedy = slots.greedy[:, None]
+    match = torch.where(greedy, match_g, match_s)
+    n_acc = torch.cumprod(match.long(), dim=1).sum(dim=1)    # (B,)
+    cols = torch.arange(L, device=grid.device)[None, :]
+    draft_pad = torch.nn.functional.pad(draft, (0, 1))
+    out_s = torch.where(cols < n_acc[:, None], draft_pad, s)
+    return torch.where(greedy, g, out_s), n_acc

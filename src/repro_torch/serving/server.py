@@ -6,7 +6,8 @@ runs: submit ``Request``s at any time, call ``step()`` per decode tick,
 collect ``Completion``s as each request finishes; no request waits for
 another request's tail tokens.  The loop is synchronous and
 single-threaded: one ``step()`` is one batched decode (with
-``step_horizon`` K > 1, one fused horizon of K), and admission happens
+``step_horizon`` K > 1, one fused horizon of K; with ``draft_len`` L > 1
+each decode verifies L - 1 drafted tokens a slot), and admission happens
 between steps.
 """
 from __future__ import annotations
@@ -67,7 +68,8 @@ class RunaheadServer:
     """Continuous-batching serving engine over the runahead sampler.
 
     Keyword arguments go to ``ContinuousScheduler`` (slots, context,
-    solver statics, dtypes, paging, ``step_horizon``).
+    solver statics, dtypes, paging, ``step_horizon``, and speculation:
+    ``draft_len``, ``drafter``, ``draft_len_auto``, ``max_draft_len``).
     """
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,

@@ -33,8 +33,11 @@ bit against their eager bodies: serial and runahead solves through K1,
 the one-shot decode steps against an eager loop with a host-integer
 position, continuous per-step serving (dense and paged through K6)
 across admissions, and fused horizons of 4 steps against per-step
-serving; and the warm-up that keeps K2/K4/K5's cached scratch out of a
-capture.
+serving; speculative serving's verify steps (draft_len 3, dense and
+paged) against their eager bodies and a speculative horizon against
+per-step serving; K6 at L = 2, 4 and 8 verify queries and K3 at a verify
+grid's 16 rows of the served vocab; and the warm-up that keeps
+K2/K4/K5's cached scratch out of a capture.
 """
 import pytest
 import torch
@@ -399,6 +402,7 @@ CLUSTER_CASES = [
     (3, 1000, 4, 40, 8, 5, "nan"), (3, 1000, 4, 40, 8, 5, "all_nan"),
     (3, 700, 4, 40, 0, 5, "nan"), (4, 151936, None, 40, 8, 5, "nan"),
     (4, 151936, None, 40, 8, 5, "all_nan"),
+    (16, 151936, None, 40, 8, 5, "randn"),      # a verify grid: 4 slots x 4
 ]
 
 
@@ -579,6 +583,24 @@ def test_paged_attend_splits(gen, B, nkv, dtype):
     got = pa.paged_attend_cuda(*args, context=C)
     assert torch.equal(got, pa.paged_attend_cuda(*args, context=C))
     want = pa.paged_attend_plain(*args, context=C, n_split=n_split)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-6))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [2, 4, 8])
+def test_paged_attend_verify_rows(gen, L, dtype):
+    """K6 with L verify queries a slot at the served head shape (n_kv 8,
+    n_rep 4, head_dim 128, page 16, context 544), deepest rows at the
+    ring's end, against the plain version."""
+    P, C = 16, 544
+    args = _paged_inputs(gen, P, C, 8, 128, L, 32,
+                         [543 - L, 520, 300, 5], dtype)
+    assert pa.smem_bytes(L, 4, P, 128, args[0].element_size()) <= 227 * 1024
+    got = pa.paged_attend_cuda(*args, context=C)
+    assert torch.equal(got, pa.paged_attend_cuda(*args, context=C))
+    want = pa.paged_attend_plain(*args, context=C)
     tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
            else dict(rtol=2 ** -7, atol=1e-6))
     torch.testing.assert_close(got.float(), want.float(), **tol)
@@ -847,6 +869,32 @@ def test_graphed_scheduler_steps_equal_the_eager_body(gen, page_size):
     assert fused == want
     assert sched.n_horizons >= 1
     assert all(key[0] == "horizon" for key in sched.graphs.keys)
+
+
+@pytest.mark.parametrize("page_size", [None, 4])
+def test_graphed_verify_steps_equal_the_eager_body(gen, page_size):
+    """Speculative serving (draft_len 3, mixed greedy and sampled slots)
+    through its verify-step graphs against the same steps run eagerly,
+    bit for bit; a K = 4 speculative horizon with repeat-last drafts
+    against per-step serving with the same drafter."""
+    from repro_torch.serving.draft import RepeatLastDrafter
+
+    cfg, params = _tiny_model(gen)
+    kw = dict(page_size=page_size, draft_len=3,
+              page_impl="hopper" if page_size else "gather")
+    want, _ = _streams(cfg, params, eager=True, **kw)
+    ops.reset_launches()
+    got, sched = _streams(cfg, params, **kw)
+    assert got == want
+    assert all(key[2] == 3 for key in sched.graphs.keys)
+    if page_size:
+        assert ops.LAUNCHES["paged_attend"] == (cfg.n_layers
+                                                * sched.n_decode_steps)
+    kw["drafter"] = RepeatLastDrafter()
+    per_step, _ = _streams(cfg, params, **kw)
+    fused, sched = _streams(cfg, params, step_horizon=4, **kw)
+    assert fused == per_step
+    assert sched.n_horizons >= 1
 
 
 def test_graph_warm_up_keeps_row_reduce_scratch(gen):

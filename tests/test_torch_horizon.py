@@ -41,6 +41,7 @@ from repro_torch.core import tuning
 from repro_torch.launch import serve
 from repro_torch.models import testing
 from repro_torch.models.transformer import init_params
+from repro_torch.serving.draft import NGramDrafter
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
 from repro_torch.serving.server import Request, RunaheadServer
@@ -252,9 +253,12 @@ def test_validation(tiny):
     with pytest.raises(ValueError, match="step_horizon"):
         ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
                             step_horizon=0)
-    with pytest.raises(NotImplementedError, match="speculative"):
+    # a fused speculative horizon drafts on the card: a host drafter
+    # cannot run inside its graph (JAX's TestAdaptiveDraftLen check)
+    with pytest.raises(ValueError, match="device-capable"):
         ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
-                            draft_len=3, step_horizon=2)
+                            draft_len=3, step_horizon=2,
+                            drafter=NGramDrafter())
     for bad in ("0", "-2", "x"):
         with pytest.raises(SystemExit):
             serve.parse_args(["--continuous", "--step-horizon", bad,
