@@ -141,6 +141,32 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      drafts against per-step serving with the same drafter; and the
      device ms of one graphed verify step at L = 1, 2, 4, 8 beside
      core/tuning.py::decide_draft_len's price of overhead + L steps.
+ 16. the MoE family served: qwen2-moe-a2.7b at its published width and
+     depth (24 layers, d_model 2048, 16/16 heads with QKV bias, 60
+     experts padded to 64 of d_ff 1408, top-4, 4 shared units, vocab
+     151936; 30.3 GB of random bf16 weights from seed 0).  One-shot with
+     phase 5's traffic (K3 once and K4, K5 nine times a token; the
+     graphed tokens equal the eager loop's), continuous on the dense ring
+     with phase 9's requests and no pages (the streams equal the eager
+     step body's), each profiled warm (device busy, idle share); the
+     graphed decode step's device ms against its byte bound (every weight
+     but the embedding: all 64 padded experts are read each step); the
+     prefill of the one-shot prompts with capacity_mode "bisect", every
+     layer's keep mask (K3, one launch a layer) equal to the "torch"
+     backend's bit for bit, beside "fifo": the dropped fractions; K3 at
+     that capacity shape (64, 1024) against its plain version and
+     torch.topk; peak memory.
+ 17. the MoE family trained: launch.train for granite-moe-3b-a800m at
+     its published width (d_model 1536, 24/8 heads of 64, 40 experts
+     padded to 48 of d_ff 512, top-8, vocab 49155), capacity "bisect",
+     the quantile clip, AdamW, phase 11's batch 2 x 4096, 5 steps; the
+     depth cut only as far as a byte reckoning against 70 GB forces
+     (printed, beside the measured peak).  Every loss finite; per step K3
+     twice a layer (forward and remat recompute), K2 once a round of the
+     clip, K7 twice a layer; ms a step, tok/s, dropped fraction, the last
+     step profiled (K3, K2 and K7 in situ); K3 at the run's last
+     capacity cut (48, 65536) and K2 at the clip's (1, leaves) shape,
+     each against its plain version.
 
 Phase 3 also holds K7 (flash_fwd) at the training shape (B=2, S=4096,
 16 q heads, 8 kv heads, head_dim 128) against its plain version in f32
@@ -159,7 +185,10 @@ The line before the last is a JSON object listing the kernels, each with
 the path its launch count was read on ("serve": phase 5; "paper": phase
 8; "continuous": phase 9; "train": phase 11, for K7;
 "continuous-mixed-k": phase 13, for K2, which the static-k serves do not
-launch).  A launch count is the wrappers' count of eager launches plus,
+launch), and three more for the MoE paths, each measured at its path's
+shapes: K3 as the capacity cut of phase 16's bisect prefill
+("moe-prefill-bisect") and of phase 17's training ("moe-train"), and K2
+as phase 17's quantile clip ("moe-train").  A launch count is the wrappers' count of eager launches plus,
 for every graph replay, the launches its capture recorded.  Each entry's
 bound_ms is the larger of its bytes and operations bounds; K1's chain of
 dependent steps is bounded by latency instead, which its entry carries
@@ -236,6 +265,22 @@ TRAIN_ARGV = ["--arch", "internlm2-1.8b", "--steps", "6", "--batch", "2",
               "--seq", "4096", "--clip-mode", "quantile", "--log-every",
               "1", "--seed", "0"]
 TRAIN_PROFILED_STEP = 5         # step 0 warms up, steps 1-4 are timed
+# phase 16: qwen2-moe-a2.7b at full width and depth, phase 5's one-shot
+# traffic and phase 9's requests on the dense ring (no pages)
+MOE_SERVE_ARGV = ["--arch", "qwen2-moe-a2.7b", "--batch", "4",
+                  "--prompt-len", "64", "--new-tokens", "16"] + SAMPLER_ARGV
+MOE_CONT_ARGV = ["--arch", "qwen2-moe-a2.7b", "--continuous", "--requests",
+                 "8", "--slots", "4", "--arrival-burst", "2", "--prompt-len",
+                 "512", "--new-tokens", "32"] + SAMPLER_ARGV
+# phase 17: granite-moe-3b-a800m at full width, phase 11's batch x seq,
+# the bisect capacity cut; depth cut only as far as the byte reckoning
+# against this budget (of the card's 80 GB) forces
+MOE_TRAIN_STEPS = 5             # step 0 warms up, the last is profiled
+MOE_TRAIN_ARGV = ["--arch", "granite-moe-3b-a800m", "--steps",
+                  str(MOE_TRAIN_STEPS), "--batch", "2", "--seq", "4096",
+                  "--capacity-mode", "bisect", "--clip-mode", "quantile",
+                  "--log-every", "1", "--seed", "0"]
+MOE_TRAIN_BUDGET = 70e9
 FAULT_ARGV = ["--arch", "internlm2-1.8b", "--reduced", "--device", "cuda",
               "--steps", "10", "--batch", "4", "--seq", "64", "--clip-mode",
               "quantile", "--ckpt-every", "5", "--log-every", "1"]
@@ -2307,6 +2352,457 @@ def phase_speculative() -> None:
     say(f"phase 15 took {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phases 16 and 17: the MoE family
+# ---------------------------------------------------------------------------
+
+class MoERecorder:
+    """Wraps models/moe.py's ``moe_apply`` (each call's dropped fraction,
+    kept on the card) and ``_bisect_keep`` (the last call's (scores,
+    experts, e_pad, cap) in ``last``; with ``check_keep``, every "hopper"
+    keep mask (K3) against the "torch" backend's on the same scores, and
+    every call's operands)."""
+
+    def __init__(self, check_keep: bool = False):
+        self.check_keep = check_keep
+        self.dropped, self.equal, self.operands = [], [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._orig = apply, keep = moe.moe_apply, moe._bisect_keep
+
+        def recorded_apply(*a, **kw):
+            out, stats = apply(*a, **kw)
+            self.dropped.append(stats.dropped_frac.detach())
+            return out, stats
+
+        def checked_keep(scores, expert_id, e_pad, cap, backend="hopper"):
+            got = keep(scores, expert_id, e_pad, cap, backend)
+            self.last = (scores, expert_id, e_pad, cap)
+            if self.check_keep:
+                want = keep(scores, expert_id, e_pad, cap, "torch")
+                self.equal.append(bool((got == want).all()))
+                self.operands.append((scores, expert_id, e_pad, cap))
+            return got
+
+        moe.moe_apply, moe._bisect_keep = recorded_apply, checked_keep
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.moe_apply, moe._bisect_keep = self._orig
+
+    def dropped_frac(self) -> float:
+        import torch
+
+        return float(torch.stack(self.dropped).mean())
+
+
+def _capacity_row(operands, note: str) -> dict:
+    """K3 on the capacity cut's (e_pad, A) masked scores (k = cap, rounds 6,
+    spec_k 5): bit for bit against its plain version on every recorded
+    call's operand; timed (device, eager, plain, torch.topk) on the
+    first."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import runahead_threshold as rt
+
+    kw = dict(rounds=6, spec_k=5)
+    masks = []
+    for scores, expert, e_pad, cap in operands:
+        rows = torch.arange(e_pad, device=scores.device)[:, None]
+        masks.append((torch.where(rows == expert[None, :], scores[None, :],
+                                  -1.0), cap))
+    err = 0.0
+    for x, cap in masks:
+        got = rt.runahead_topk_threshold_cuda(x, k_target=cap, **kw)
+        want = rt.runahead_topk_threshold_plain(x, k_target=cap, **kw)
+        for g, w in zip(got, want):
+            check(torch.equal(g.view(torch.int32), w.view(torch.int32)),
+                  f"K3 differs from plain at the capacity shape "
+                  f"{tuple(x.shape)}, cap {cap}")
+            err = max(err, (g - w).abs().max().item())
+    x, cap = masks[0]
+    E, A = x.shape
+    clusters, size = rt.cluster_geometry(E, A)
+    n_cmp = 2 + 1 + kw["rounds"] * kw["spec_k"]
+    run = lambda: ops.runahead_topk_threshold(x, k_target=cap, **kw)
+    return dict(
+        source="src/repro_torch/kernels/csrc/runahead_threshold.cu",
+        replaces="src/repro/kernels/runahead_threshold.py:123",
+        max_abs_err=err, ms=device_ms(run), call_ms=call_ms(run),
+        plain_ms=device_ms(lambda: rt.runahead_topk_threshold_plain(
+            x, k_target=cap, **kw), calls=2),
+        bound=bound_ms(4 * (x.numel() + 2 * E), 2 * x.numel() * n_cmp),
+        library_ms=device_ms(lambda: torch.topk(x, cap, dim=-1)),
+        library="torch.topk",
+        note=f"({E}, {A}) masked scores, k = cap {cap}, {len(masks)} calls "
+             f"held bit for bit; {clusters} CTAs a row of {size} elements, "
+             f"{E * clusters} CTAs on the card's 132 SMs; {note}")
+
+
+def say_row(label: str, r: dict) -> None:
+    say(f"{label}: parity ok (max_abs_err {r['max_abs_err']:.3g}) | device "
+        f"{r['ms']:.4f} ms per call ({r['call_ms']:.4f} ms with the host's "
+        f"launch), plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
+        f"({r['bound'][1]})"
+        + (f", {r['library']} {r['library_ms']:.4f} ms"
+           if r["library_ms"] is not None else "") + f" | {r['note']}")
+
+
+def _decode_bytes(cfg, params, cache_rows: int) -> int:
+    """Bytes a batched decode step must read: every weight once (every
+    padded expert's too: the einsums run over all of them) except the
+    embedding table, whose B rows are gathered, and the KV cache rows."""
+    from repro_torch.tree import leaves
+
+    weights = sum(t.numel() * t.element_size() for t in leaves(params))
+    embed = params["embed"]
+    kv = (2 * cfg.n_layers * cache_rows * cfg.n_kv_heads * cfg.head_dim
+          * 2)
+    return weights - embed.numel() * embed.element_size() + kv
+
+
+def phase_moe_serve(gen):
+    """qwen2-moe-a2.7b at its published width and depth, random bf16
+    weights from seed 0: one-shot serving (phase 5's traffic) and
+    continuous serving on the dense ring (phase 9's requests, no pages),
+    each decode step a graph replay held against its eager body; the
+    bisect prefill's keep masks (K3) against the "torch" backend's, layer
+    by layer; dropped fractions, tok/s, device busy and idle share, the
+    graphed decode step's device ms against its byte bound, peak
+    memory.  Returns (serve launches, bisect-prefill launches, K3's
+    capacity row)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.decode import prefill
+    from repro_torch.serving.engine import DecodeGraphs
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    session = serve.setup(MOE_SERVE_ARGV)
+    cfg, params, args = session.cfg, session.params, session.args
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in leaves(params)) / 1e9
+    ops.reset_launches()
+    served = serve.run(session)
+    launches = dict(ops.LAUNCHES)
+    toks = served.tokens
+    check(tuple(toks.shape) == (4, NEW_TOKENS), f"tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "token out of range")
+    check(launches["runahead_topk_threshold"] == NEW_TOKENS
+          and launches["multi_mass"] == 9 * NEW_TOKENS
+          and launches["multi_entropy_moments"] == 9 * NEW_TOKENS,
+          f"the MoE serve did not sample through K3-K5: {launches}")
+    graphs = session.decode.graphs
+    check(len(graphs.keys) == 1, f"decode graphs {graphs.keys}")
+    warm_s = serve.run(session).seconds
+    state = session.gen.get_state()
+    again = serve.run(session)
+    session.gen.set_state(state)
+    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           generator=session.gen, device="cuda")
+    want = eager_generate(cfg, params, prompt, args.new_tokens, session.gen,
+                          session.sampler)
+    check(torch.equal(again.tokens, want),
+          "the graphed MoE tokens differ from the eager loop's")
+    n_tok = toks.numel()
+    say(f"phase 16 moe serve: qwen2-moe-a2.7b full width and depth (24 "
+        f"layers, d_model 2048, 16/16 heads, 64 padded experts of d_ff "
+        f"1408, top-4, 4 shared units, vocab 151936), {weights_gb:.1f} GB "
+        f"of bf16 weights drawn in {init_s:.1f}s | one-shot {n_tok} tokens: "
+        f"first {served.seconds:.3f}s (one eager step and the capture, "
+        f"{graphs.capture_s:.3f}s), warm {warm_s:.3f}s = "
+        f"{n_tok / warm_s:.1f} tok/s; tokens == the eager loop's bit for "
+        f"bit | launches {launches} | row 0: {toks[0].tolist()}")
+    _, busy_ms, wall_ms, kernels, calls = profiled(lambda: serve.run(session))
+    say_profile("phase 16 one-shot", busy_ms, wall_ms, kernels, calls, n_tok,
+                "token", "; warm")
+    key = graphs.keys[0]
+    step_ms = statistics.median(
+        _event_ms(lambda: graphs.run(key, None, device="cuda"))
+        for _ in range(9))
+    n_bytes = _decode_bytes(cfg, params, args.batch * (args.prompt_len
+                                                       + args.new_tokens))
+    step_bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"phase 16 graphed decode step (B=4, CUDA events around one "
+        f"replay, median of 9): {step_ms:.3f} ms against its byte bound "
+        f"{step_bound:.3f} ms ({n_bytes / 1e9:.2f} GB: every weight but the "
+        f"embedding, all 64 padded experts, and the KV cache; "
+        f"{step_bound / step_ms:.3f} of the bound)")
+
+    # continuous serving on the dense ring: phase 9's requests, no pages
+    cs = session._replace(args=serve.parse_args(MOE_CONT_ARGV),
+                          decode=DecodeGraphs())
+    server = serve.server_for(cs)
+    ops.reset_launches()
+    first = serve.run_continuous(cs, server)
+    cont = dict(ops.LAUNCHES)
+    c = first.counts
+    n_samples = c["decode_steps"] + c["admissions"]
+    check(len(first.completions) == 8, "not every MoE request was served")
+    check(cont["runahead_topk_threshold"] == n_samples
+          and cont["multi_mass"] == 9 * n_samples
+          and cont["multi_entropy_moments"] == 9 * n_samples,
+          f"the continuous MoE samples did not go through K3-K5 "
+          f"({n_samples} samples): {cont}")
+    warm = serve.run_continuous(cs, server)
+    check(streams(warm) == streams(first), "warm MoE streams differ")
+    eager_server = serve.server_for(cs)
+    eager_server.scheduler.graphs = EagerGraphs()
+    eager = serve.run_continuous(cs, eager_server)
+    check(streams(eager) == streams(first),
+          "the graphed MoE streams differ from the eager step body's")
+    n_tok = sum(len(x.tokens) for x in warm.completions)
+    lat = sorted(x.latency_s for x in warm.completions)
+    steps = warm.counts["decode_steps"]
+    say(f"phase 16 moe continuous (dense ring, 8 requests of 512 + up to 32 "
+        f"tokens over 4 slots): first {first.seconds:.3f}s, warm "
+        f"{warm.seconds:.3f}s = {n_tok / warm.seconds:.1f} tok/s, {steps} "
+        f"steps ({warm.seconds / steps * 1e3:.1f} ms a step incl. "
+        f"admissions), latency p50 {lat[len(lat) // 2] * 1e3:.0f} ms max "
+        f"{lat[-1] * 1e3:.0f} ms; streams == the eager step body's bit for "
+        f"bit | launches {cont}")
+    say_graphs("phase 16 moe continuous", server.scheduler)
+    traced, busy_ms, wall_ms, kernels, calls = profiled(
+        lambda: serve.run_continuous(cs, server))
+    say_profile("phase 16 continuous", busy_ms, wall_ms, kernels, calls,
+                traced.counts["decode_steps"], "decode step", "; warm")
+    del server, eager_server
+
+    # the paper's capacity cut: bisect prefill, K3 against the "torch" keep
+    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           generator=session.gen, device="cuda")
+    context = args.prompt_len + args.new_tokens
+    dropped = {}
+    for mode in ("fifo", "bisect"):
+        with MoERecorder(check_keep=mode == "bisect") as rec:
+            ops.reset_launches()
+            prefill(cfg, params, prompt, context, capacity_mode=mode)
+            torch.cuda.synchronize()
+            prefill_launches = dict(ops.LAUNCHES)
+        dropped[mode] = rec.dropped_frac()
+    check(len(rec.equal) == cfg.n_layers and all(rec.equal),
+          f"bisect keep masks (K3) differ from the torch backend's: "
+          f"{rec.equal}")
+    check(prefill_launches["runahead_topk_threshold"] == cfg.n_layers,
+          f"the bisect prefill launched K3 "
+          f"{prefill_launches['runahead_topk_threshold']} times, not once a "
+          f"layer ({cfg.n_layers})")
+    _, busy_ms, wall_ms, kernels, calls = profiled(lambda: prefill(
+        cfg, params, prompt, context, capacity_mode="bisect"))
+    say(f"phase 16 bisect prefill (4 x 64 prompt tokens, A = "
+        f"{rec.operands[0][0].numel()} assignments, cap "
+        f"{rec.operands[0][3]}): every layer's K3 keep mask == the torch "
+        f"backend's bit for bit ({cfg.n_layers} layers, {cfg.n_layers} K3 "
+        f"launches) | dropped fraction fifo {dropped['fifo']:.6f}, bisect "
+        f"{dropped['bisect']:.6f}")
+    if kernels:
+        say_kernel_times("phase 16 bisect prefill", kernels, busy_ms,
+                         (("K3", "runahead_topk"),))
+    row = _capacity_row(rec.operands, "phase 16's bisect prefill")
+    say_row("phase 16 K3 moe-prefill-bisect", row)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"phase 16 peak memory {peak:.2f} GB (weights {weights_gb:.2f} GB) "
+        f"(phase 16 took {time.perf_counter() - t0:.1f}s)")
+    return launches, prefill_launches, row
+
+
+def moe_train_depth(cfg, batch: int, seq: int) -> tuple[int, dict]:
+    """The deepest cut of ``cfg`` (widths unchanged) whose reckoned peak
+    fits MOE_TRAIN_BUDGET bytes, and the reckoning at full depth and at
+    the cut: 18 B a parameter (bf16 params and gradients, f32 master, mu
+    and nu, the clip's bf16 copy of the gradients), 16 B an element of
+    the largest leaf (a run's stacked expert weight: AdamW's and the
+    clip's f32 temporaries), the f32 logits three times over (logits,
+    softmax, gradient), remat's saved layer inputs, and one layer's
+    recompute (the token copies of dispatch and combine, the expert
+    buffers)."""
+    from repro_torch.models import moe
+
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    e_pad = moe.padded_experts(cfg.n_experts)
+    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    layer = attn + 2 * d + d * e_pad + 3 * e_pad * d * f
+    fixed = 2 * cfg.vocab_padded * d + d
+    tokens = batch * seq
+    cap = moe._capacity(tokens, cfg.n_experts, cfg.moe_top_k,
+                        cfg.capacity_factor)
+
+    def need(L: int) -> dict:
+        P = fixed + L * layer
+        parts = {
+            "params": P,
+            "state": 18 * P,
+            "largest leaf": 16 * L * e_pad * d * f,
+            "logits": 12 * tokens * cfg.vocab_padded,
+            "remat inputs": 2 * L * tokens * d,
+            "layer recompute": 2 * (4 * tokens * cfg.moe_top_k * d
+                                    + 3 * e_pad * cap * (d + 3 * f)),
+        }
+        parts["total"] = sum(v for k, v in parts.items() if k != "params")
+        return parts
+
+    L = cfg.n_layers
+    while L > 1 and need(L)["total"] > MOE_TRAIN_BUDGET:
+        L -= 1
+    return L, {"full": need(cfg.n_layers), "cut": need(L)}
+
+
+def phase_moe_train(gen):
+    """launch.train's main in-process for granite-moe-3b-a800m at its
+    published width, --capacity-mode bisect, the quantile clip, AdamW, at
+    phase 11's batch x sequence, cut in depth only as far as the byte
+    reckoning forces: losses, K3, K2 and K7 launches per step, ms a step,
+    tok/s, peak memory, dropped fraction, the last step profiled.
+    Returns (launches, K3's capacity row, K2's clip row)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import multi_count as mc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.optim.clip import clip_by_quantile
+
+    t0 = time.perf_counter()
+    cfg = get_config("granite-moe-3b-a800m")
+    batch, seq = 2, 4096
+    L, reckoned = moe_train_depth(cfg, batch, seq)
+    gb = lambda parts: ", ".join(
+        f"{k} {v / 1e9:.2f} G" + ("" if k == "params" else "B")
+        for k, v in parts.items())
+    say(f"phase 17 depth reckoning (budget {MOE_TRAIN_BUDGET / 1e9:.0f} GB "
+        f"of the card's 80): full depth {cfg.n_layers} layers: "
+        f"{gb(reckoned['full'])} | cut to {L} layers: {gb(reckoned['cut'])}")
+    per_step, prof, norms = [], {}, {}
+
+    def on_step(step, metrics):
+        per_step.append(dict(ops.LAUNCHES))
+        if step == MOE_TRAIN_STEPS - 2:
+            prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            prof["t0"] = time.perf_counter()
+        elif step == MOE_TRAIN_STEPS - 1:
+            torch.cuda.synchronize()
+            prof["wall_ms"] = (time.perf_counter() - prof["t0"]) * 1e3
+            prof["p"].__exit__(None, None, None)
+
+    def recorded_clip(grads, *a, **kw):
+        out = clip(grads, *a, **kw)
+        norms["last"] = out[1].detach()
+        return out
+
+    from repro_torch.train import step as train_step
+    clip = train_step.clip_by_quantile
+    train_step.clip_by_quantile = recorded_clip
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    try:
+        with MoERecorder() as rec:
+            out = train.main(MOE_TRAIN_ARGV + ["--layers", str(L)],
+                             on_step=on_step)
+    finally:
+        train_step.clip_by_quantile = clip
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["losses"]
+    check(len(losses) == MOE_TRAIN_STEPS
+          and all(map(math.isfinite, losses)),
+          f"MoE training losses not all finite: {losses}")
+    clip_rounds = inspect.signature(clip_by_quantile).parameters[
+        "rounds"].default
+    prev = {name: 0 for name in launches}
+    for i, snap in enumerate(per_step):
+        moved = {k: snap[k] - prev[k] for k in snap}
+        check(moved["runahead_topk_threshold"] == 2 * L,
+              f"step {i}: K3 launched {moved['runahead_topk_threshold']} "
+              f"times, not once a layer forward and once in its remat "
+              f"recompute ({2 * L})")
+        check(moved["multi_count"] == clip_rounds,
+              f"step {i}: the quantile clip launched K2 "
+              f"{moved['multi_count']} times, not once a round "
+              f"({clip_rounds})")
+        check(moved["flash_fwd"] == 2 * L,
+              f"step {i}: K7 launched {moved['flash_fwd']} times")
+        prev = snap
+    timed = out["step_seconds"][1:MOE_TRAIN_STEPS - 1]
+    ms = statistics.median(timed) * 1e3
+    n_tok = batch * seq
+    say(f"phase 17 moe train: granite-moe-3b-a800m full width (d_model "
+        f"1536, 24/8 heads of 64, 48 padded experts of d_ff 512, top-8, "
+        f"vocab 49155), depth cut {cfg.n_layers} -> {L} layers, batch "
+        f"{batch} x {seq}, capacity bisect, remat, quantile clip, AdamW | "
+        f"losses {[round(x, 4) for x in losses]} | warm-up step "
+        f"{out['step_seconds'][0] * 1e3:.0f} ms, steps 1-"
+        f"{MOE_TRAIN_STEPS - 2} {[round(t * 1e3, 1) for t in timed]} ms, "
+        f"median {ms:.1f} ms = {n_tok / ms * 1e3:.0f} tok/s | peak memory "
+        f"{peak_gb:.2f} GB (reckoned {reckoned['cut']['total'] / 1e9:.2f} "
+        f"GB) | per step: K3 {2 * L} (the capacity cut, forward and "
+        f"recompute), K2 {clip_rounds} (the clip), K7 {2 * L} | dropped "
+        f"fraction {rec.dropped_frac():.6f} over {len(rec.dropped)} MoE "
+        f"calls | launches {launches}")
+    events = prof["p"].key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    say_profile("phase 17", busy_ms, prof["wall_ms"], kernels,
+                launch_calls(events), 1, "step",
+                f"; one step (step {MOE_TRAIN_STEPS - 1})")
+    if kernels:
+        say_kernel_times("phase 17", kernels, busy_ms,
+                         (("K3", "runahead_topk"), ("K2", "multi_count"),
+                          ("K7", "flash_fwd_")))
+        say("phase 17 profile by group: " + ", ".join(
+            f"{g} {ms_:.1f} ms ({n_} launches)"
+            for g, (ms_, n_) in _kernel_groups(kernels).items()))
+
+    # K3 at the training capacity shape, on this run's last routing; K2
+    # at the clip's (1, leaves) with 2**spec_k - 1 candidates
+    tokens = batch * seq
+    scores, expert, e_pad, cap = rec.last
+    check((e_pad, scores.numel()) == (48, tokens * cfg.moe_top_k),
+          f"the last capacity cut had ({e_pad}, {scores.numel()})")
+    k3_row = _capacity_row(
+        [rec.last], f"phase 17's training shape (batch {batch} x {seq} "
+        f"tokens, top-{cfg.moe_top_k}), the run's last routing")
+    x = norms["last"][None, :].float()
+    spec_k = inspect.signature(clip_by_quantile).parameters["spec_k"].default
+    M = 2 ** spec_k - 1
+    taus = x.amin() + (x.amax() - x.amin()) * torch.rand(
+        (1, M), generator=gen, device="cuda")
+    got = ops.multi_count(x, taus, below=True)
+    want = mc.multi_count_plain(x, taus, True)
+    check(torch.equal(got, want), "K2 differs from plain at the clip's shape")
+    run = lambda: ops.multi_count(x, taus, below=True)
+    k2_row = dict(
+        source="src/repro_torch/kernels/csrc/multi_count.cu",
+        replaces="src/repro/kernels/multi_count.py:69", max_abs_err=0.0,
+        ms=device_ms(run), call_ms=call_ms(run),
+        plain_ms=device_ms(lambda: mc.multi_count_plain(x, taus, True)),
+        bound=bound_ms(4 * (x.numel() + 2 * M), 2 * x.numel() * M),
+        library_ms=None, library="none",
+        note=f"the quantile clip's (1, {x.shape[1]}) per-leaf norms of this "
+             f"run's last step, {M} candidates, counting below")
+    say_row("phase 17 K3 moe-train", k3_row)
+    say_row("phase 17 K2 moe-train", k2_row)
+    say(f"phase 17 took {time.perf_counter() - t0:.1f}s")
+    return launches, k3_row, k2_row
+
+
 def main() -> int:
     import torch
 
@@ -2337,6 +2833,10 @@ def main() -> int:
     launches_by_path["continuous-mixed-k"] = phase_mixed_k(gen)
     phase_horizon(per_step_streams)
     phase_speculative()
+    (launches_by_path["moe-serve"], launches_by_path["moe-prefill-bisect"],
+     k3_moe_serve) = phase_moe_serve(gen)
+    launches_by_path["moe-train"], k3_moe_train, k2_moe_train = (
+        phase_moe_train(gen))
 
     # the path whose run each kernel's launch count is read on: K2 runs
     # where the served requests' top_k differ (phase 13)
@@ -2358,6 +2858,22 @@ def main() -> int:
             library_ms=r["library_ms"]))
         if "latency_bound" in r:
             kernels[-1]["latency_bound_ms"] = r["latency_bound"][0]
+    # the MoE paths: K3 as the capacity cut (its rows measured at the cut's
+    # shapes), K2 as the quantile clip of MoE training
+    for name, path, r in (
+            ("runahead_topk_threshold", "moe-prefill-bisect", k3_moe_serve),
+            ("runahead_topk_threshold", "moe-train", k3_moe_train),
+            ("multi_count", "moe-train", k2_moe_train)):
+        launches = launches_by_path[path][name]
+        check(launches > 0, f"{name} was not launched on its path {path}")
+        kernels.append(dict(
+            name=name, route="cuda", source=r["source"],
+            replaces=r["replaces"], path=path, launches=launches,
+            launches_counted="eager launches and, per graph replay, the "
+                             "launches its capture recorded",
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound"][0], bound_by=r["bound"][1],
+            library_ms=r["library_ms"]))
     say(f"total {time.perf_counter() - t0:.1f}s")
     say(smi)
     say(json.dumps({"kernels": kernels}))

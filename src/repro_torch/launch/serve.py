@@ -42,6 +42,15 @@ the CPU to ``torch`` and ``gather`` (where ``hopper`` would run the
 kernels' plain versions).
 Weights are random, drawn from ``--seed``.  Meshes and autotuning are
 not ported yet.
+
+The MoE archs (``--arch qwen2-moe-a2.7b``, ``granite-moe-3b-a800m``)
+serve one-shot and on the dense ring (per step or fused), routing with
+the FIFO capacity cut as the JAX launcher does; ``--page-size`` and
+``--draft-len`` raise for them, as in JAX:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen2-moe-a2.7b --reduced --continuous --requests 6 \
+      --slots 2 --prompt-len 8 --new-tokens 6 --device cpu
 """
 from __future__ import annotations
 

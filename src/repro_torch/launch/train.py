@@ -13,10 +13,14 @@ by a ``torch.Generator`` on the device.  One device (the JAX driver's
       --clip-mode quantile
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --reduced --steps 6 --batch 4 --seq 32 --clip-mode quantile
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch granite-moe-3b-a800m --reduced --capacity-mode bisect \\
+      --steps 4 --batch 2 --seq 32 --clip-mode quantile
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import time
@@ -39,6 +43,8 @@ log = logging.getLogger("repro_torch.train")
 
 def build(args):
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     tc = TrainConfig(
         lr=args.lr,
         warmup_steps=min(100, args.steps // 10 + 1),
@@ -64,9 +70,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
-    # JAX's "bisect" routes MoE tokens; the port trains dense families
-    # only, so it refuses the choice rather than accept and ignore it
-    ap.add_argument("--capacity-mode", default="fifo", choices=["fifo"])
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train the config's first N layers (a depth cut; "
+                         "every width stays the config's)")
+    ap.add_argument("--capacity-mode", default="fifo",
+                    choices=["fifo", "bisect"],
+                    help="MoE capacity cut: GShard's FIFO drop, or the "
+                         "per-expert gate threshold by runahead bisection "
+                         "(K3 on the card)")
     ap.add_argument("--clip-mode", default="global",
                     choices=["global", "quantile"])
     ap.add_argument("--compress", default=None, choices=[None, "int8_ef"])

@@ -1,4 +1,5 @@
-"""Dense transformer forward, prefill and decode (port of ``repro.models``)."""
+"""Dense and MoE transformer forward, prefill and decode (port of
+``repro.models``)."""
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["ModelConfig"]

@@ -1,6 +1,12 @@
-"""Decode path, dense family: cache init, prefill, single-token decode
-step, the slotted cache of continuous batching and the paged KV cache
-(port of ``repro.models.decode``).
+"""Decode path, dense and MoE families: cache init, prefill, single-token
+decode step, the slotted cache of continuous batching and the paged KV
+cache (port of ``repro.models.decode``).
+
+A MoE block is a dense block whose MLP is ``models/moe.py::moe_apply``
+(``capacity_mode`` ``"fifo"`` or ``"bisect"``, as the JAX functions carry
+it).  Its capacity couples a step's batch rows, free slots included, so
+the paged cache and the speculative verify stay dense-only, as in JAX
+(``paged_supported``, ``verify_supported``).
 
 Cache layout mirrors the layer plan: a list with one entry per run, each a
 ``{"kv": KVCache}`` whose tensors carry the run's leading layer axis,
@@ -16,7 +22,7 @@ forward) returns a stash of the rows it overwrote, which
 ``rollback_cache_runs`` / ``rollback_paged_runs`` put back for rejected
 drafts.
 
-Not ported yet: int8 KV and the non-dense block kinds.
+Not ported yet: int8 KV and the block kinds other than dense and MoE.
 """
 from __future__ import annotations
 
@@ -27,9 +33,10 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mlp, apply_norm, embed, unembed
 from repro_torch.models.transformer import (
-    dense_plan,
+    apply_ffn,
     layer_plan,
     layer_unbind,
+    ported_plan,
     unembed_table,
 )
 
@@ -42,7 +49,7 @@ def init_cache(cfg: ModelConfig, batch: int, context: int,
     """Zero cache sized for `context` tokens."""
     return [{"kv": attn_lib.init_kv_cache(cfg, batch, context, dtype, device,
                                           lead=(count,))}
-            for _, count in dense_plan(cfg)]
+            for _, count in ported_plan(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -65,15 +72,18 @@ def _ring_fill(kv_full: torch.Tensor, cap: int) -> torch.Tensor:
 
 
 def _prefill_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                   positions: torch.Tensor, cap: int):
-    """One dense block forward that also emits its ring-filled K/V."""
+                   positions: torch.Tensor, cap: int, capacity_mode: str,
+                   moe_groups: int):
+    """One dense or MoE block forward that also emits its ring-filled
+    K/V."""
     eps = cfg.norm_eps
     h = apply_norm(cfg.norm, p["ln1"], x, eps)
     a, (k, v) = attn_lib.attend(p["attn"], cfg, h, positions, return_kv=True)
     x = x + a
     h = apply_norm(cfg.norm, p["ln2"], x, eps)
-    x = x + apply_mlp(cfg.act, p["mlp"], h)
-    return x, _ring_fill(k, cap), _ring_fill(v, cap)
+    out, _ = apply_ffn(cfg, p, h, capacity_mode=capacity_mode,
+                       moe_groups=moe_groups)
+    return x + out, _ring_fill(k, cap), _ring_fill(v, cap)
 
 
 def prefill(
@@ -83,21 +93,26 @@ def prefill(
     context: int,
     *,
     compute_dtype=torch.bfloat16,
+    capacity_mode: str = "fifo",
+    moe_groups: int = 1,
 ) -> tuple[torch.Tensor, Cache]:
     """Process the prompt; returns (last-position logits (B, V) f32, cache).
 
     Only the final position's logits are computed.  The cache holds K/V in
-    ``compute_dtype``, as the JAX prefill does.
+    ``compute_dtype``, as the JAX prefill does.  A MoE layer routes all
+    B * S prompt tokens as one batch (``moe_groups`` GShard groups), so
+    its capacity depends on B and S.
     """
     B, S = tokens.shape
     x = embed(params["embed"], tokens, compute_dtype)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     cache: Cache = []
-    for run_params, (_, count) in zip(params["runs"], dense_plan(cfg)):
+    for run_params, (_, count) in zip(params["runs"], ported_plan(cfg)):
         ks, vs = [], []
         for p_l in layer_unbind(run_params, count):
-            x, k, v = _prefill_block(cfg, p_l, x, positions, context)
+            x, k, v = _prefill_block(cfg, p_l, x, positions, context,
+                                     capacity_mode, moe_groups)
             ks.append(k)
             vs.append(v)
         cache.append({"kv": KVCache(k=torch.stack(ks), v=torch.stack(vs))})
@@ -111,14 +126,16 @@ def prefill(
 # ---------------------------------------------------------------------------
 
 def _step_block(cfg: ModelConfig, p: Params, x: torch.Tensor, pos,
-                kv: KVCache) -> torch.Tensor:
-    """One dense block for one token.  x: (B, 1, D); kv: one layer's view."""
+                kv: KVCache, capacity_mode: str) -> torch.Tensor:
+    """One dense or MoE block for one token.  x: (B, 1, D); kv: one
+    layer's view.  A MoE layer routes the B tokens as one group."""
     eps = cfg.norm_eps
     h = apply_norm(cfg.norm, p["ln1"], x, eps)
     a, _ = attn_lib.decode_attend(p["attn"], cfg, h, pos, kv)
     x = x + a
     h = apply_norm(cfg.norm, p["ln2"], x, eps)
-    return x + apply_mlp(cfg.act, p["mlp"], h)
+    out, _ = apply_ffn(cfg, p, h, capacity_mode=capacity_mode)
+    return x + out
 
 
 def decode_step(
@@ -129,6 +146,7 @@ def decode_step(
     cache: Cache,
     *,
     compute_dtype=torch.bfloat16,
+    capacity_mode: str = "fifo",
 ) -> tuple[torch.Tensor, Cache]:
     """One decode step: returns (logits (B, V) f32, cache updated in place).
 
@@ -138,10 +156,10 @@ def decode_step(
     """
     x = embed(params["embed"], token[:, None], compute_dtype)  # (B, 1, D)
     for run_params, entry, (_, count) in zip(params["runs"], cache,
-                                             dense_plan(cfg)):
+                                             ported_plan(cfg)):
         for p_l, kv_l in zip(layer_unbind(run_params, count),
                              layer_unbind(entry["kv"], count)):
-            x = _step_block(cfg, p_l, x, pos, kv_l)
+            x = _step_block(cfg, p_l, x, pos, kv_l, capacity_mode)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = unembed(unembed_table(cfg, params), x[:, 0], cfg.vocab)
     return logits, cache
@@ -169,7 +187,7 @@ def _verify_forward(cfg, params, tokens, state, attend, compute_dtype):
     x = embed(params["embed"], tokens, compute_dtype)        # (B, L, D)
     stashes = []
     for run_params, entry, (_, count) in zip(params["runs"], state,
-                                             dense_plan(cfg)):
+                                             layer_plan(cfg)):
         ks, vs = [], []
         for p_l, kv_l in zip(layer_unbind(run_params, count),
                              layer_unbind(entry["kv"], count)):
@@ -268,6 +286,7 @@ def prefill_into_slot(
     slot: int,
     *,
     compute_dtype=torch.bfloat16,
+    capacity_mode: str = "fifo",
 ) -> tuple[torch.Tensor, Cache]:
     """Prefill ONE request and land its state in batch row ``slot``.
 
@@ -277,7 +296,8 @@ def prefill_into_slot(
     Returns (last-position logits (1, V) f32, cache).
     """
     logits, sub = prefill(cfg, params, tokens, context,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype,
+                          capacity_mode=capacity_mode)
     return logits, write_cache_slot(cache, sub, slot)
 
 
@@ -414,7 +434,7 @@ def paged_prefill(
     offs_w = suf_slots % P
     pre = chain[:skip]
     for run_params, entry, (_, count) in zip(params["runs"], pool,
-                                             dense_plan(cfg)):
+                                             layer_plan(cfg)):
         kv = entry["kv"]
         for p_l, k_l, v_l in zip(layer_unbind(run_params, count), kv.k,
                                  kv.v):
@@ -452,7 +472,7 @@ def decode_step_paged(
     place)."""
     x = embed(params["embed"], token[:, None], compute_dtype)  # (B, 1, D)
     for run_params, entry, (_, count) in zip(params["runs"], pool,
-                                             dense_plan(cfg)):
+                                             layer_plan(cfg)):
         for p_l, kv_l in zip(layer_unbind(run_params, count),
                              layer_unbind(entry["kv"], count)):
             h = apply_norm(cfg.norm, p_l["ln1"], x, cfg.norm_eps)

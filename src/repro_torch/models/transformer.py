@@ -1,11 +1,15 @@
-"""Model assembly, dense family (port of ``repro.models.transformer``).
+"""Model assembly, dense and MoE families (port of
+``repro.models.transformer``).
 
 The layer stack is described by a LAYER PLAN: an ordered list of
 ``(block_kind, n_layers)`` runs, each run's parameters stacked along a
 leading layer axis as in the JAX package.  A Python loop over that axis
 replaces ``lax.scan``.  ``layer_plan`` covers every family (it is data);
-``init_params`` and ``forward`` build and run ``"dense"`` runs only and
-raise ``ValueError`` for the other block kinds.
+``init_params`` and ``forward`` build and run ``"dense"`` and ``"moe"``
+runs (``ported_plan``) and raise ``ValueError`` for the other block
+kinds.  A ``"moe"`` block is a dense block whose MLP is
+``models/moe.py::moe_apply``; ``forward`` sums its layers' load-balance
+losses as the JAX scan carries them.
 
 ``forward(remat=True)`` checkpoints each layer (non-reentrant
 ``torch.utils.checkpoint``, where JAX wraps the scan body in
@@ -17,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_mlp,
@@ -74,14 +79,17 @@ def layer_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
-def dense_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
+PORTED_KINDS = ("dense", "moe")
+
+
+def ported_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
     """The layer plan, checked to hold only block kinds the port runs."""
     plan = layer_plan(cfg)
     for kind, _ in plan:
-        if kind != "dense":
+        if kind not in PORTED_KINDS:
             raise ValueError(
                 f"block kind {kind!r} (family {cfg.family!r}) is not ported "
-                "yet; only 'dense' runs are")
+                f"yet; only {' and '.join(map(repr, PORTED_KINDS))} runs are")
     return plan
 
 
@@ -103,14 +111,19 @@ def layer_unbind(tree, count: int) -> list:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_dense_run(cfg: ModelConfig, gen, dtype, count: int) -> Params:
+def _init_run(kind: str, cfg: ModelConfig, gen, dtype, count: int
+              ) -> Params:
     d, lead = cfg.d_model, (count,)
-    return {
+    p = {
         "ln1": init_norm(cfg.norm, d, dtype, gen.device, lead),
         "attn": attn_lib.init_attention(gen, cfg, dtype, lead),
         "ln2": init_norm(cfg.norm, d, dtype, gen.device, lead),
-        "mlp": init_mlp(cfg.act, gen, d, cfg.d_ff, dtype, lead),
     }
+    if kind == "moe":
+        p["moe"] = moe_lib.init_moe(gen, cfg, dtype, lead)
+    else:
+        p["mlp"] = init_mlp(cfg.act, gen, d, cfg.d_ff, dtype, lead)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -118,8 +131,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Full parameter tree on ``generator.device``; runs stacked along a
     leading layer axis.  Shapes and scale are the JAX package's
     (``unembed`` is ``(d_model, vocab_padded)``)."""
-    runs = [_init_dense_run(cfg, generator, param_dtype, count)
-            for _, count in dense_plan(cfg)]
+    runs = [_init_run(kind, cfg, generator, param_dtype, count)
+            for kind, count in ported_plan(cfg)]
     p: Params = {
         "embed": init_embedding(generator, cfg.vocab_padded, cfg.d_model,
                                 param_dtype),
@@ -141,14 +154,27 @@ def unembed_table(cfg: ModelConfig, params: Params) -> torch.Tensor:
 # full-sequence forward
 # ---------------------------------------------------------------------------
 
+def apply_ffn(cfg: ModelConfig, p: Params, h: torch.Tensor, *,
+              capacity_mode: str = "fifo", moe_groups: int = 1):
+    """A block's MLP or MoE on its normed input: (out, MoEStats or None)."""
+    if "moe" not in p:
+        return apply_mlp(cfg.act, p["mlp"], h), None
+    return moe_lib.moe_apply(p["moe"], cfg, h, capacity_mode=capacity_mode,
+                             n_groups=moe_groups)
+
+
 def _apply_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """One dense block over the full sequence."""
+                 positions: torch.Tensor, capacity_mode: str,
+                 moe_groups: int):
+    """One dense or MoE block over the full sequence: (x, the MoE layer's
+    aux loss, a 0-d f32 tensor; None for a dense block)."""
     eps = cfg.norm_eps
     h = apply_norm(cfg.norm, p["ln1"], x, eps)
     x = x + attn_lib.attend(p["attn"], cfg, h, positions)
     h = apply_norm(cfg.norm, p["ln2"], x, eps)
-    return x + apply_mlp(cfg.act, p["mlp"], h)
+    out, stats = apply_ffn(cfg, p, h, capacity_mode=capacity_mode,
+                           moe_groups=moe_groups)
+    return x + out, None if stats is None else stats.aux_loss
 
 
 def forward(
@@ -156,26 +182,37 @@ def forward(
     params: Params,
     tokens: torch.Tensor,                 # (B, S) integer
     *,
+    capacity_mode: str = "fifo",
+    moe_groups: int = 1,
     remat: bool = True,
     compute_dtype=torch.bfloat16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits (B,S,V) f32, aux_loss).
+    """Full-sequence forward.  Returns (logits (B,S,V) f32, aux_loss: the
+    MoE layers' load-balance losses summed, 0 for a dense stack).
 
     ``remat`` checkpoints every layer when autograd records the forward;
-    without gradients it changes nothing.
+    without gradients it changes nothing.  A checkpointed MoE layer routes
+    again in its recompute (the same assignments: routing is
+    deterministic), so a ``"bisect"`` layer solves its capacity twice a
+    training step.
     """
     B, S = tokens.shape
     x = embed(params["embed"], tokens, compute_dtype)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     remat = remat and torch.is_grad_enabled()
-    for run_params, (_, count) in zip(params["runs"], dense_plan(cfg)):
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for run_params, (_, count) in zip(params["runs"], ported_plan(cfg)):
+        aux_run = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for p_l in layer_unbind(run_params, count):
+            args = (cfg, p_l, x, positions, capacity_mode, moe_groups)
             if remat:
-                x = checkpoint(_apply_block, cfg, p_l, x, positions,
-                               use_reentrant=False)
+                x, aux = checkpoint(_apply_block, *args, use_reentrant=False)
             else:
-                x = _apply_block(cfg, p_l, x, positions)
+                x, aux = _apply_block(*args)
+            if aux is not None:
+                aux_run = aux_run + aux
+        aux_total = aux_total + aux_run
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = unembed(unembed_table(cfg, params), x, cfg.vocab)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux_total

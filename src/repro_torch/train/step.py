@@ -9,9 +9,11 @@ in place (``optim/adamw.py``).  Remat is one checkpoint per layer
 (``models/transformer.py::forward``); at ``S >= 4096`` each layer's
 attention forward is K7 (``kernels/ops.py::flash_fwd``).
 
-The dense family only: ``capacity_mode`` and ``moe_groups`` are kept so
-that the config equals JAX's field for field, but a non-dense family
-raises until the MoE and mixer layers are ported.
+Dense and MoE families: a MoE model routes with ``capacity_mode``
+(``"bisect"``: each layer's capacity cut is one K3 launch on the card,
+twice a step under remat) in ``moe_groups`` GShard groups, and its
+load-balance loss enters the loss as JAX's ``aux_weight * aux /
+n_layers``.  The other families raise until their mixers are ported.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from repro_torch.optim.adamw import AdamWState, adamw_update
 from repro_torch.optim.clip import clip_by_global_norm, clip_by_quantile
 from repro_torch.tree import leaves, tree_map, unflatten
 
-DENSE_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "vlm", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,13 +54,15 @@ class TrainConfig:
 
 def loss_fn(cfg: ModelConfig, params, batch: dict, tc: TrainConfig
             ) -> tuple[torch.Tensor, dict]:
-    """CE + z-loss (+ the aux term, 0 for dense) over f32 logits.
+    """CE + z-loss + the MoE aux term (0 for dense) over f32 logits.
 
     The target logit is a gather: the JAX function's masked sum
     (``step.py:69-76``) adds only zeros beside it, so the value is the
     same, without a second (B, S, V) buffer.
     """
-    logits, aux = forward(cfg, params, batch["tokens"], remat=tc.remat)
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          capacity_mode=tc.capacity_mode,
+                          moe_groups=tc.moe_groups, remat=tc.remat)
     targets = batch["targets"].long()
     logz = torch.logsumexp(logits, dim=-1)                  # (B, S)
     tgt_logit = logits.gather(-1, targets[..., None])[..., 0]
@@ -75,9 +79,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     metrics).  ``params`` and the state are updated in place and returned;
     ``batch`` is {"tokens", "targets"}: (B, S) integer tensors on the
     params' device.  Metrics are 0-d tensors (no host read)."""
-    if cfg.family not in DENSE_FAMILIES:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"training family {cfg.family!r} is not ported yet (dense only)")
+            f"training family {cfg.family!r} is not ported yet (ported: "
+            f"{', '.join(PORTED_FAMILIES)})")
 
     def grads_of(params, batch):
         inputs = [p.detach().requires_grad_(True) for p in leaves(params)]

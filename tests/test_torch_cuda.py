@@ -950,3 +950,141 @@ def test_graph_warm_up_keeps_row_reduce_scratch(gen):
     with pytest.raises(RuntimeError, match="scratch"):
         with torch.cuda.graph(graph):
             grow(*grow_args)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: K3 at the capacity cut's shapes, and graphed decode steps
+# ---------------------------------------------------------------------------
+
+MOE_CAPACITY_CASES = [  # (experts padded, tokens, top_k, real experts)
+    (64, 1, 4, 60),        # one-token decode: A = 4
+    (64, 4, 4, 60),        # qwen2-moe, a 4-row decode step: A = 16
+    (64, 2048, 4, 60),     # a qwen2-moe prefill of 2048 tokens: A = 8192
+    (48, 8192, 8, 40),     # granite training, batch 2 x 4096: A = 65536
+]
+
+
+def _masked_scores(gen, e_pad, T, k, n_real):
+    """The capacity solve's (e_pad, A) operand: each assignment's gate in
+    its expert's row, -1.0 elsewhere; experts drawn with a skew, so some
+    rows run over capacity and some hold no assignment."""
+    A = T * k
+    weights = torch.rand((n_real,), generator=gen, device="cuda") ** 4
+    expert = torch.multinomial(weights, A, replacement=True, generator=gen)
+    gates = torch.rand((A,), generator=gen, device="cuda") * 0.9 + 0.05
+    rows = torch.arange(e_pad, device="cuda")[:, None]
+    return torch.where(rows == expert[None, :], gates[None, :], -1.0), \
+        gates, expert
+
+
+@pytest.mark.parametrize("e_pad,T,k,n_real", MOE_CAPACITY_CASES)
+def test_runahead_topk_capacity_shapes(gen, e_pad, T, k, n_real):
+    """K3 on the capacity cut's operand (mostly the -1.0 sentinel, k =
+    cap, rounds 6, spec_k 5) bit for bit against its plain version and
+    the CPU emulation of its scheme; the bisect keep mask on the card
+    equals the CPU's."""
+    from repro_torch.models import moe
+
+    cap = moe._capacity(T, n_real, k, 1.25)
+    x, gates, expert = _masked_scores(gen, e_pad, T, k, n_real)
+    kw = dict(k_target=cap, rounds=6, spec_k=5)
+    ops.reset_launches()
+    got = ops.runahead_topk_threshold(x, **kw)
+    assert ops.LAUNCHES["runahead_topk_threshold"] == 1
+    want = rt.runahead_topk_threshold_plain(x, **kw)
+    emulated = rt.runahead_topk_threshold_clustered(x, **kw)
+    for g, w, e in zip(got, want, emulated):
+        assert torch.equal(_bits(g), _bits(w))
+        assert torch.equal(_bits(g), _bits(e))
+    keep = moe._bisect_keep(gates, expert, e_pad, cap)
+    keep_cpu = moe._bisect_keep(gates.cpu(), expert.cpu(), e_pad, cap)
+    assert torch.equal(keep.cpu(), keep_cpu)
+    assert int(torch.bincount(expert[keep], minlength=e_pad).max()) <= cap
+
+
+def _tiny_moe(gen, dtype=torch.float32):
+    from repro_torch.models.testing import reduced_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = reduced_config("qwen2-moe-a2.7b")
+    return cfg, init_params(cfg, gen, dtype)
+
+
+@pytest.mark.parametrize("capacity_mode", ["fifo", "bisect"])
+def test_graphed_moe_decode_step_equals_its_eager_body(gen, capacity_mode):
+    """A reduced qwen2-moe decode step captured in a CUDA graph (its
+    capacity cut through K3 under "bisect") and replayed equals the same
+    step run eagerly, logits and cache bit for bit; the capture reads
+    nothing back to the host."""
+    from repro_torch.core.graphs import Graphs
+    from repro_torch.models.decode import decode_step, prefill
+
+    cfg, params = _tiny_moe(gen)
+    prompt = torch.randint(0, cfg.vocab, (4, 8), generator=gen,
+                           device="cuda")
+    _, cache = prefill(cfg, params, prompt, 12, capacity_mode=capacity_mode)
+    token = torch.randint(0, cfg.vocab, (4,), generator=gen, device="cuda")
+    pos = torch.full((4,), 8, dtype=torch.int64, device="cuda")
+
+    def body(c):
+        logits, _ = decode_step(cfg, params, token, pos, c,
+                                capacity_mode=capacity_mode)
+        return logits
+
+    snapshot = [{"kv": type(e["kv"])(e["kv"].k.clone(), e["kv"].v.clone())}
+                for e in cache]
+    want = body(cache)
+    want_k = cache[0]["kv"].k.clone()
+    for e, s in zip(cache, snapshot):
+        e["kv"].k.copy_(s["kv"].k)
+        e["kv"].v.copy_(s["kv"].v)
+    graphs = Graphs()
+    graphs.run("step", lambda: body(cache), device=torch.device("cuda"))
+    for e, s in zip(cache, snapshot):
+        e["kv"].k.copy_(s["kv"].k)
+        e["kv"].v.copy_(s["kv"].v)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = graphs.run("step", lambda: body(cache),
+                         device=torch.device("cuda"))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    assert torch.equal(cache[0]["kv"].k, want_k)
+    assert ops.LAUNCHES["runahead_topk_threshold"] == (
+        cfg.n_layers if capacity_mode == "bisect" else 0)
+
+
+def test_graphed_moe_serving_equals_the_eager_body(gen):
+    """Reduced qwen2-moe served one-shot (graphed decode steps against the
+    eager loop) and continuously on the dense ring (per step and at
+    step_horizon 4, graphs against eager step bodies), bit for bit, the
+    samples through K3-K5."""
+    from repro_torch.models.decode import decode_step, prefill
+    from repro_torch.serving import engine
+    from repro_torch.serving.sampler import SamplerConfig, sample
+
+    cfg, params = _tiny_moe(gen)
+    prompt = torch.randint(0, cfg.vocab, (3, 8), generator=gen,
+                           device="cuda")
+    sc = SamplerConfig(top_k=20, top_p=0.9, target_entropy=2.0,
+                       backend="hopper")
+    g = torch.Generator(device="cuda")
+    logits, cache = prefill(cfg, params, prompt, 14)
+    toks = [sample(logits, g.manual_seed(5), sc)]
+    for pos in range(8, 13):
+        logits, cache = decode_step(cfg, params, toks[-1], pos, cache)
+        toks.append(sample(logits, g, sc))
+    want = torch.stack(toks, dim=1)
+    graphs = engine.DecodeGraphs()
+    for _ in range(2):
+        got = engine.generate(cfg, params, prompt, 6, g.manual_seed(5),
+                              sampler=sc, graphs=graphs)
+        assert torch.equal(got, want)
+    want, _ = _streams(cfg, params, eager=True)
+    got, sched = _streams(cfg, params)
+    assert got == want and len(sched.graphs.keys) >= 2
+    fused, sched = _streams(cfg, params, step_horizon=4)
+    assert fused == want and sched.n_horizons >= 1

@@ -132,12 +132,12 @@ def test_ring_fill_wraps_like_jax():
 
 
 def test_unported_paths_raise():
-    moe = testing.reduced_config("qwen2-moe-a2.7b")
+    # the dense and MoE families are ported (MoE: tests/test_torch_moe.py);
+    # a hybrid (attention + SSM) stack is not, for init or training
+    hybrid = testing.reduced_config("hymba-1.5b")
     with pytest.raises(ValueError, match="not ported"):
-        transformer.init_params(moe, torch.Generator(), torch.float32)
-    # attend's flash branch (S >= FLASH_MIN_SEQ) is ported now
-    # (tests/test_torch_flash.py); training a non-dense family is not
+        transformer.init_params(hybrid, torch.Generator(), torch.float32)
     from repro_torch.train.step import TrainConfig, make_train_step
 
-    with pytest.raises(NotImplementedError, match="dense only"):
-        make_train_step(moe, TrainConfig(), lambda step: step)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_train_step(hybrid, TrainConfig(), lambda step: step)

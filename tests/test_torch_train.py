@@ -331,17 +331,25 @@ def test_microbatch_equivalence_and_remat_is_bit_exact():
 
 
 def test_launcher_refuses_bisect_capacity_mode():
+    """The launcher takes JAX's two capacity modes ("bisect" since MoE
+    training is ported) and refuses any other."""
     from repro_torch.launch import train as launch_train
 
     assert launch_train.parse_args([]).capacity_mode == "fifo"
+    assert launch_train.parse_args(
+        ["--capacity-mode", "bisect"]).capacity_mode == "bisect"
     with pytest.raises(SystemExit):
-        launch_train.parse_args(["--capacity-mode", "bisect"])
+        launch_train.parse_args(["--capacity-mode", "priority"])
 
 
 def test_non_dense_family_raises():
-    cfg = testing.reduced_config("qwen2-moe-a2.7b")
-    with pytest.raises(NotImplementedError, match="dense only"):
-        step.make_train_step(cfg, step.TrainConfig(), lambda s: s)
+    """MoE trains (tests/test_torch_moe.py); the unported families raise."""
+    step.make_train_step(testing.reduced_config("qwen2-moe-a2.7b"),
+                         step.TrainConfig(), lambda s: s)
+    for arch in ("hymba-1.5b", "xlstm-1.3b"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            step.make_train_step(testing.reduced_config(arch),
+                                 step.TrainConfig(), lambda s: s)
 
 
 # ---------------------------------------------------------------------------
