@@ -167,6 +167,31 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      step profiled (K3, K2 and K7 in situ); K3 at the run's last
      capacity cut (48, 65536) and K2 at the clip's (1, leaves) shape,
      each against its plain version.
+ 18. the tuner (core/tuning.py): at the served shape (B=4, V=151936) and
+     the sampler's budget of 8 x 5 = 40 steps, the device ms of a graphed
+     "hopper" solve at every spec_k from 1 to 8 for each kind (top-k with
+     a static k through K3's whole solve where the rounds are whole, with
+     a per-row k through K2; top-p, entropy, quantile), brackets equal to
+     the "torch" backend's, beside the analytic pick (held not slower than
+     the fixed (5, 8) by more than the readings' spread), the measured
+     pick and the fixed; K2, K4, K5 at every M = 2**k - 1 and the Hopper
+     profile's constants fitted to these readings; every candidate
+     geometry of the kernel tier for K2-K6 at their served shapes, timed,
+     held to the plain version and bit-stable, and the measured pick; the
+     launcher at full width with --backend auto --autotune, one-shot and
+     continuous paged, its cache in a temp dir, then replayed with the
+     solver tier's winners alone (streams equal the tuning.disabled()
+     runs', phase 9's for the continuous one) and with both tiers' (top-k-
+     only tokens equal the disabled run's), with its "tuned <key> -> ..."
+     lines; what --speculative --draft-len auto picks, beside what this
+     run's phase 15 verify-step readings give, and a short speculative
+     continuous serve through the launcher.
+
+Phases 3-17 run under tuning.disabled(): each holds launch counts that
+follow the caller's decomposition (K3 once and K4, K5 nine times a token
+at (rounds, spec_k) = (8, 5); K2 rounds + 1 times a mixed-k step; the
+clip's 8 K2 rounds) or a kernel at today's geometry against the CPU
+emulation of its split; phase 18 drives the tuned path.
 
 Phase 3 also holds K7 (flash_fwd) at the training shape (B=2, S=4096,
 16 q heads, 8 kv heads, head_dim 128) against its plain version in f32
@@ -241,6 +266,8 @@ HORIZON = 4
 # of the repetitive prompts the n-gram drafter reads
 DRAFT_LEN = 4
 VERIFY_LENS = (1, 2, 4, 8)
+# phase 18: the sampler's budget, rounds x spec_k, and its decomposition
+TUNE_ROUNDS, TUNE_SPEC_K = 8, 5
 VERIFY_REL_TOL = 0.05
 REPEAT_PERIOD = 8
 # K1's latency bound: a bit-exact step is 4 dependent operations (the
@@ -312,6 +339,11 @@ def device_ms(fn, calls: int = 20, reps: int = 5) -> float:
     ``calls`` calls captured in one CUDA graph, replayed ``reps`` times
     between CUDA events; the median replay over ``calls``.  Inputs stay
     in the 50 MB L2 between calls, as the sampler's logits do."""
+    return statistics.median(device_ms_reps(fn, calls, reps))
+
+
+def device_ms_reps(fn, calls: int = 20, reps: int = 5) -> list[float]:
+    """``device_ms``'s ``reps`` readings, each a replay over ``calls``."""
     import torch
 
     side = torch.cuda.Stream()
@@ -326,7 +358,7 @@ def device_ms(fn, calls: int = 20, reps: int = 5) -> float:
     graph.replay()
     times = [_event_ms(graph.replay) / calls for _ in range(reps)]
     del graph
-    return statistics.median(times)
+    return times
 
 
 def call_ms(fn, reps: int = 20) -> float:
@@ -2276,11 +2308,12 @@ def _spec_fused(session) -> None:
         f"{secs:.3f}s (first runs, captures included)")
 
 
-def _spec_verify_ms(session) -> None:
+def _spec_verify_ms(session) -> dict:
     """Device ms of one graphed verify step (4 live sampled slots, phase
     9's sampler) at each L of VERIFY_LENS: CUDA events around the step
-    graph's replay alone, median of 9 replays, against decide_draft_len's
-    price of (overhead + L) serial steps."""
+    graph's replay alone, median of 9 replays, beside the least-squares
+    line overhead + L rows through them (``tuning.verify_step_cost``)
+    that ``--draft-len auto`` prices a verify step by."""
     import dataclasses
 
     import torch
@@ -2320,16 +2353,21 @@ def _spec_verify_ms(session) -> None:
         ms[L] = statistics.median(times)
         del srv, sched
     one = ms[1]
+    row, overhead = tuning.verify_step_cost(ms)
+    pick = tuning.decide_draft_len(acceptance=0.6, token_cost=row,
+                                   overhead=overhead)
     rows = ", ".join(
-        f"L={L}: {ms[L]:.3f} ms ({ms[L] / one:.3f}x the L=1 step; the model "
-        f"prices {tuning.DISPATCH_OVERHEAD + L:.4f}x)" for L in VERIFY_LENS)
+        f"L={L}: {ms[L]:.3f} ms ({ms[L] / one:.3f}x the L=1 step; the line "
+        f"overhead + L rows prices {(overhead + L * row) / one:.3f}x)"
+        for L in VERIFY_LENS)
     say(f"phase 15 verify-step device ms (one graph replay, 4 live slots, "
-        f"median of 9, CUDA events): {rows} | decide_draft_len at "
-        f"acceptance 0.6 with the card's overhead picks L = "
-        f"{tuning.decide_draft_len(acceptance=0.6)}")
+        f"median of 9, CUDA events): {rows} | the line: overhead "
+        f"{overhead:.4f} ms + {row:.4f} ms a row, decide_draft_len at "
+        f"acceptance 0.6 picks L = {pick}")
+    return ms
 
 
-def phase_speculative() -> None:
+def phase_speculative() -> dict:
     """Speculative serving (draft_len DRAFT_LEN) at qwen3-4b's full width
     on phase 9's layout: the verify grid against serial steps, both
     acceptance arms forced, the n-gram drafter's readings, graph replays
@@ -2348,8 +2386,9 @@ def phase_speculative() -> None:
     graphed = _spec_ngram(session)
     _spec_graphs(session, graphed)
     _spec_fused(session)
-    _spec_verify_ms(session)
+    verify_ms = _spec_verify_ms(session)
     say(f"phase 15 took {time.perf_counter() - t0:.1f}s")
+    return verify_ms
 
 
 # ---------------------------------------------------------------------------
@@ -2803,6 +2842,411 @@ def phase_moe_train(gen):
     return launches, k3_row, k2_row
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the tuner
+# ---------------------------------------------------------------------------
+
+def _with_backend(argv: list[str], backend: str) -> list[str]:
+    """``argv`` with the value of ``--backend`` replaced."""
+    i = argv.index("--backend")
+    return argv[:i + 1] + [backend] + argv[i + 2:]
+
+
+def _tune_cases(gen):
+    """The sampler's solves at the served shape (B=4, V=151936): (label,
+    kind, operand, params, probe, fused), ``probe`` where the engine
+    spends an M=1 call on the sign at lo0, ``fused`` where K3's whole
+    solve takes the budget's whole-round decompositions."""
+    import torch
+
+    x = torch.randn((PATH_B, PATH_V), generator=gen, device="cuda") * 2.0
+    probs = torch.softmax(x, dim=-1)
+    k_rows = torch.tensor([1, 40, 300, 5000], device="cuda")
+    return [
+        ("top-k, static k (K3)", "count_above", x, dict(k=40), False, True),
+        ("top-k, per-row k (K2)", "count_above", x, dict(k=k_rows), True,
+         False),
+        ("top-p (K4)", "mass_at_or_above", probs, dict(p=0.9), True, False),
+        ("entropy (K5)", "entropy_at_temperature", x, dict(target=3.0), True,
+         False),
+        ("quantile (K2 below)", "count_below", x, dict(q=0.3), False, False),
+    ]
+
+
+def _one_decision(kind, operand, **kw):
+    """(key, decision) of one solve_kind call, from ``tuning.explain``
+    (the tuner's record cleared first)."""
+    from repro_torch.core import solver, tuning
+
+    tuning.tuner().recent.clear()
+    solver.solve_kind(kind, operand, **kw)
+    [(key, decision)] = tuning.explain()
+    return key, decision
+
+
+def _tune_solves(gen, tmp: Path) -> list[dict]:
+    """Device ms of a graphed "hopper" solve at every spec_k for the
+    sampler's budget (TUNE_ROUNDS x TUNE_SPEC_K steps), brackets against
+    the "torch" backend at the same spec_k; the analytic, measured and
+    fixed picks, the analytic pick held to the fixed one within the
+    spread of the readings."""
+    import torch
+
+    from repro_torch.core import solver, tuning
+
+    out = []
+    kw = dict(rounds=TUNE_ROUNDS, spec_k=TUNE_SPEC_K)
+    for i, (label, kind, op, params, probe, fused) in enumerate(
+            _tune_cases(gen)):
+        times = {}
+        for k in range(1, 9):
+            with tuning.override(spec_k=k):
+                def fn():
+                    return solver.solve_kind(kind, op, backend="hopper",
+                                             **kw, **params)
+
+                readings = device_ms_reps(fn, calls=10)
+                lo, hi = fn()
+                rlo, rhi = solver.solve_kind(kind, op, backend="torch",
+                                             **kw, **params)
+            if kind.startswith("count"):
+                same = torch.equal(lo, rlo) and torch.equal(hi, rhi)
+            else:
+                same = (torch.allclose(lo, rlo, rtol=1e-4, atol=1e-6)
+                        and torch.allclose(hi, rhi, rtol=1e-4, atol=1e-6))
+            check(same, f"{label}: the hopper bracket at spec_k {k} differs "
+                        f"from the torch backend's")
+            times[k] = (statistics.median(readings),
+                        max(readings) - min(readings))
+        key, analytic = _one_decision(kind, op, backend="hopper", **kw,
+                                      **params)
+        cache = tmp / f"solve-{i}.json"
+        tuning.set_cache_path(str(cache))
+        with tuning.autotune():
+            _, measured = _one_decision(kind, op, backend="hopper", **kw,
+                                        **params)
+        tuning.set_cache_path(str(tmp / "none.json"))
+        us = json.loads(cache.read_text())["entries"][key]["measured_us"]
+        a_ms, a_spread = times[analytic.spec_k]
+        f_ms, f_spread = times[TUNE_SPEC_K]
+        say(f"phase 18 solve {label}: device ms of a graphed solve of "
+            f"{TUNE_ROUNDS * TUNE_SPEC_K} steps (median of 5 replays of 10 "
+            f"solves; max-min in brackets) at spec_k "
+            + ", ".join(f"{k}: {t:.4f} ({sp:.4f})"
+                        for k, (t, sp) in times.items())
+            + f" | brackets == the torch backend's at every spec_k | "
+            f"analytic pick spec_k {analytic.spec_k} x {analytic.rounds} "
+            f"rounds [{analytic.source}] {a_ms:.4f} ms, measured pick "
+            f"spec_k {measured.spec_k} [{measured.source}; us {us}], fixed "
+            f"spec_k {TUNE_SPEC_K} x {TUNE_ROUNDS} {f_ms:.4f} ms | {key}")
+        out.append(dict(label=label, kind=kind, probe=probe, fused=fused,
+                        times=times, analytic=(analytic.spec_k, a_ms,
+                                               a_spread),
+                        fixed=(f_ms, f_spread)))
+    return out
+
+
+def _check_analytic_picks(solves: list[dict]) -> None:
+    """At the served shape the analytic pick is not slower than the fixed
+    decomposition by more than the spread of either's readings."""
+    for s in solves:
+        k, a_ms, a_spread = s["analytic"]
+        f_ms, f_spread = s["fixed"]
+        check(a_ms <= f_ms + max(a_spread, f_spread),
+              f"{s['label']}: the analytic pick spec_k {k} ({a_ms:.4f} ms) "
+              f"is slower than the fixed spec_k {TUNE_SPEC_K} ({f_ms:.4f} "
+              f"ms) by more than the spread")
+
+
+def _kernel_ms_by_m(gen) -> dict:
+    """Device ms of K2, K4 and K5 at the served (B, V) for M = 2**k - 1
+    candidates, k = 1..8 (a round's at spec_k k), at today's geometry."""
+    import torch
+
+    from repro_torch.core import tuning
+    from repro_torch.kernels import ops
+
+    x = torch.randn((PATH_B, PATH_V), generator=gen, device="cuda") * 2.0
+    probs = torch.softmax(x, dim=-1)
+    z = x - x.amax(-1, keepdim=True)
+    out = {}
+    with tuning.disabled():
+        for k in range(1, 9):
+            M = (1 << k) - 1
+
+            def cand(a, b):
+                return torch.linspace(a, b, M, device="cuda").repeat(
+                    PATH_B, 1)
+
+            taus, ps, ts = cand(-3.0, 3.0), cand(1e-8, 1e-4), cand(0.05, 20)
+            out[M] = {
+                "count": device_ms(lambda: ops.multi_count(x, taus)),
+                "mass_at_or_above": device_ms(
+                    lambda: ops.multi_mass(probs, ps)),
+                "entropy_at_temperature": device_ms(
+                    lambda: ops.multi_entropy_moments(z, ts)),
+            }
+    say("phase 18 kernels by M: device ms of a call at (4, 151936), today's "
+        "geometry: " + "; ".join(
+            f"M={m}: K2 {r['count']:.4f}, K4 {r['mass_at_or_above']:.4f}, "
+            f"K5 {r['entropy_at_temperature']:.4f}" for m, r in out.items()))
+    return out
+
+
+def _fit_profile(solves: list[dict], kernels: dict) -> None:
+    """The Hopper profile's measured constants (core/tuning.py
+    PROFILES["cuda"]), by least squares over this run's readings: per
+    kernel, a call at M candidates as launch + M * slope, the slope as
+    the kind's operations a (v, m) pair in units of the f32 peak
+    (kind_flops) and the mean launch as backend_overhead; the engine's
+    round loop as its kernels' time (a probe call where the sign at lo0
+    is unknown) plus rounds * (dispatch + spec_k * walk_step); K3's whole
+    solve as launch + rounds * (per_round + 2**spec_k * per_point)."""
+    import numpy as np
+
+    B, V, budget = PATH_B, PATH_V, TUNE_ROUNDS * TUNE_SPEC_K
+    ms = sorted(kernels)
+    kind_flops, launches = {}, []
+    for name in ("count", "mass_at_or_above", "entropy_at_temperature"):
+        A = np.array([[1.0, m] for m in ms])
+        y = np.array([kernels[m][name] for m in ms]) * 1e-3
+        (a, b), *_ = np.linalg.lstsq(A, y, rcond=None)
+        launches.append(float(a))
+        kind_flops[name] = float(b * F32_OPS_PER_S / (B * V))
+    rows, ys, fused = [], [], []
+    for s in solves:
+        ev = "count" if s["kind"].startswith("count") else s["kind"]
+        for k, (t, _) in s["times"].items():
+            rounds, t = -(-budget // k), t * 1e-3
+            if s["fused"] and rounds * k == budget:
+                fused.append(([1.0, rounds, rounds * (1 << k)], t))
+                continue
+            probe = kernels[1][ev] * 1e-3 if s["probe"] else 0.0
+            ys.append(t - probe - rounds * kernels[(1 << k) - 1][ev] * 1e-3)
+            rows.append([rounds, rounds * k])
+    (dispatch, walk), *_ = np.linalg.lstsq(np.array(rows), np.array(ys),
+                                           rcond=None)
+    f, *_ = np.linalg.lstsq(np.array([r for r, _ in fused]),
+                            np.array([t for _, t in fused]), rcond=None)
+    fit = dict(dispatch=float(dispatch), walk_step=float(walk),
+               backend_overhead=float(np.mean(launches)),
+               kind_flops={"count_above": kind_flops["count"],
+                           "count_below": kind_flops["count"],
+                           "mass_at_or_above": kind_flops["mass_at_or_above"],
+                           "entropy_at_temperature":
+                               kind_flops["entropy_at_temperature"]},
+               fused=tuple(float(v) for v in f))
+    say(f"phase 18 profile fit (least squares over this run's readings; "
+        f"core/tuning.py PROFILES['cuda'] holds a run's): {fit}")
+
+
+def _geometry_cases(gen):
+    """(family, key shape, operands, the launcher at params, the plain
+    version, exact) at the served shapes of K2-K6."""
+    import torch
+
+    from repro_torch.kernels import multi_count as mc
+    from repro_torch.kernels import multi_entropy as me
+    from repro_torch.kernels import multi_mass as mm
+    from repro_torch.kernels import paged_attend as pa
+    from repro_torch.kernels import runahead_threshold as rt
+
+    x = torch.randn((PATH_B, PATH_V), generator=gen, device="cuda") * 2.0
+    probs = torch.softmax(x, dim=-1)
+    z = x - x.amax(-1, keepdim=True)
+    lo, hi = x.amin(-1, keepdim=True), x.amax(-1, keepdim=True)
+    taus = lo + (hi - lo) * torch.rand((PATH_B, PATH_M), generator=gen,
+                                       device="cuda")
+    ps = torch.rand((PATH_B, PATH_M), generator=gen, device="cuda") * 1e-4
+    ts = 0.05 + 20 * torch.rand((PATH_B, PATH_M), generator=gen,
+                                device="cuda")
+    k6 = _k6_inputs(gen, K6_PATH, torch.bfloat16)
+    B, P, nkv = K6_PATH["B"], K6_PATH["P"], K6_PATH["nkv"]
+    chain = -(-K6_PATH["C"] // P)
+    rows = (PATH_B, PATH_V, PATH_M)
+    return [
+        ("multi_count", rows, lambda p: mc.multi_count_cuda(x, taus, nb=p),
+         lambda: mc.multi_count_plain(x, taus), True),
+        ("multi_mass", rows, lambda p: mm.multi_mass_cuda(probs, ps, nb=p),
+         lambda: mm.multi_mass_plain(probs, ps), False),
+        ("multi_entropy_moments", rows,
+         lambda p: me.multi_entropy_moments_cuda(z, ts, nb=p),
+         lambda: me.multi_entropy_moments_plain(z, ts), False),
+        ("runahead_topk", (PATH_B, PATH_V),
+         lambda p: rt.runahead_topk_threshold_cuda(
+             x, k_target=40, rounds=8, spec_k=5, clusters=p),
+         lambda: rt.runahead_topk_threshold_plain(
+             x, k_target=40, rounds=8, spec_k=5), True),
+        ("paged_attend", (B, nkv, chain, P, K6_PATH["L"],
+                          K6_PATH["nq"] // nkv, K6_PATH["hd"]),
+         lambda p: pa.paged_attend_cuda(*k6, context=K6_PATH["C"],
+                                        n_split=p),
+         lambda: pa.paged_attend_plain(*k6, context=K6_PATH["C"]), False),
+    ]
+
+
+def _tune_geometry(gen, tmp: Path) -> None:
+    """Every candidate geometry of the kernel tier at K2-K6's served
+    shapes: device ms, held to the plain version (K2, K3 bit for bit; K4,
+    K5 rtol 1e-5 / atol 1e-6; K6 bf16 within 1e-2, compared in f32) and
+    bit-stable run to run; then the measured tier's pick."""
+    import torch
+
+    from repro_torch.core import tuning
+    from repro_torch.kernels import ops
+
+    def tensors(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    tuning.set_cache_path(str(tmp / "kernels.json"))
+    for name, shape, launch, plain, exact in _geometry_cases(gen):
+        dtype = "bfloat16" if name == "paged_attend" else "float32"
+        key = tuning.KernelKey(name, shape, dtype,
+                               tuning.device_kind("cuda"))
+        param = tuning.KERNEL_PARAMS[name]
+        want = [w.float() for w in tensors(plain())]
+        cells = []
+        for _, cand in tuning.kernel_candidates(key):
+            v = cand.params[param]
+            got = [g.float() for g in tensors(launch(v))]
+            again = [g.float() for g in tensors(launch(v))]
+            for g, a, w in zip(got, again, want):
+                check(torch.equal(g.view(torch.int32), a.view(torch.int32)),
+                      f"{name} at {param}={v} is not bit-stable")
+                if exact:
+                    check(torch.equal(g, w), f"{name} at {param}={v} "
+                                             f"differs from plain")
+                elif name == "paged_attend":
+                    check(torch.allclose(g, w, rtol=1e-2, atol=1e-2),
+                          f"{name} at {param}={v} differs from plain")
+                else:
+                    check(torch.allclose(g, w, **TOL),
+                          f"{name} at {param}={v} differs from plain")
+            cells.append(f"{v}: {device_ms(lambda: launch(v)):.4f}")
+        fixed = tuning.kernel_candidates(key)[0][1].params
+        with tuning.autotune():
+            d = tuning.decide_kernel(
+                key, fixed=fixed,
+                measure=lambda c: ops._measure_kernel(key, c,
+                                                      torch.device("cuda")))
+        say(f"phase 18 geometry {name} {shape}: device ms at {param} "
+            + ", ".join(cells) + f" (today's {param}={fixed[param]}) | "
+            f"every candidate == plain, bit-stable | measured pick "
+            f"{d.label()} [{d.source}]")
+    tuning.set_cache_path(str(tmp / "none.json"))
+
+
+def _tuned_serves(tmp: Path, per_step_streams: dict) -> None:
+    """The launcher with --backend auto --autotune at full width, one-shot
+    and continuous paged, its cache in a temp dir; replayed with only the
+    solver tier's winners (the kernel tier at today's geometry: streams
+    equal the tuning.disabled() runs') and with both (top-k-only streams
+    equal the disabled run's); the decisions' ``tuned ... ->`` lines."""
+    import torch
+
+    from repro_torch.core import tuning
+    from repro_torch.launch import serve
+
+    one_shot = _with_backend(SERVE_ARGV, "auto")
+    cont = _with_backend(CONT_ARGV, "auto")
+    topk_only = _with_backend(
+        ["--arch", "qwen3-4b", "--batch", "4", "--prompt-len", "64",
+         "--new-tokens", str(NEW_TOKENS), "--top-k", "40",
+         "--backend", "hopper"], "auto")
+    full, solver_only = tmp / "serve.json", tmp / "serve-solver.json"
+    with tuning.disabled():
+        ref = serve.main(_with_backend(SERVE_ARGV, "hopper")).tokens
+        ref_topk = serve.main(topk_only).tokens
+    full.unlink(missing_ok=True)
+    tuning.set_cache_path(str(full))
+    t0 = time.perf_counter()
+    tuning.tuner().recent.clear()
+    tuning.tuner().recent_kernels.clear()
+    tuned = serve.main(one_shot + ["--autotune"]).tokens
+    tuned_cont = streams(serve.main(cont + ["--autotune"]))
+    tune_s = time.perf_counter() - t0
+    lines = ([f"tuned {k} -> {d.placement}/{d.backend} spec_k={d.spec_k} "
+              f"rounds={d.rounds} [{d.source}]"
+              for k, d in tuning.explain()]
+             + [f"tuned {k} -> {d.label()} [{d.source}]"
+                for k, d in tuning.explain_kernels()])
+    for line in lines:
+        say(f"phase 18 {line}")
+    data = json.loads(full.read_text())
+    check(data["entries"] and data["kernels"],
+          "the autotuned serves kept no measured winner")
+    solver_only.write_text(json.dumps(dict(data, kernels={})))
+    tuning.set_cache_path(str(solver_only))
+    tuning.tuner().recent_kernels.clear()
+    replay = serve.main(one_shot).tokens
+    replay_cont = streams(serve.main(cont))
+    check(all(d.source in ("cache", "model") for _, d in tuning.explain())
+          and all(d.source == "model" for _, d in tuning.explain_kernels()),
+          "the solver-tier replay measured again")
+    check(torch.equal(replay, ref) and replay_cont == per_step_streams,
+          "under the solver tier alone the streams differ from the "
+          "tuning.disabled() run's")
+    tuning.set_cache_path(str(full))
+    replay_topk = serve.main(topk_only).tokens
+    check(torch.equal(replay_topk, ref_topk),
+          "top-k-only streams under both tiers differ from the "
+          "tuning.disabled() run's")
+    tuning.set_cache_path(str(tmp / "none.json"))
+    say(f"phase 18 tuned serves: qwen3-4b full width, one-shot and "
+        f"continuous paged with --backend auto --autotune ({tune_s:.1f}s, "
+        f"{len(data['entries'])} solver and {len(data['kernels'])} kernel "
+        f"winners kept); replayed with the solver tier's winners alone: "
+        f"tokens == the tuning.disabled() runs' (one-shot row 0 "
+        f"{replay[0].tolist()}; {len(replay_cont)} continuous streams); "
+        f"with both tiers' winners: top-k-only tokens == the disabled "
+        f"run's; the autotuned run's own row 0 {tuned[0].tolist()}, "
+        f"{sum(tuned_cont[r] == per_step_streams[r] for r in tuned_cont)} "
+        f"of {len(tuned_cont)} continuous streams equal phase 9's")
+
+
+def _tuned_draft_len(verify_ms: dict) -> None:
+    """What ``--speculative`` with ``--draft-len auto`` picks, and what
+    this run's phase 15 verify-step readings would pick; a short
+    speculative continuous serve through the launcher."""
+    from repro_torch.core import tuning
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(CONT_ARGV + ["--speculative"])
+    launcher = serve.resolve_draft_len(args, serve.get_config(args.arch))
+    row, overhead = tuning.verify_step_cost(verify_ms)
+    here = tuning.decide_draft_len(acceptance=serve.ACCEPTANCE_PRIOR,
+                                   token_cost=row, overhead=overhead)
+    out = serve.main(CONT_ARGV + ["--speculative", "--requests", "4"])
+    check(len(out.completions) == 4 and out.scheduler.max_draft_len > 1,
+          "--continuous --speculative did not serve speculatively")
+    say(f"phase 18 draft length: --speculative --draft-len auto picks L = "
+        f"{launcher} (core/tuning.py VERIFY_STEP_MS: a verify step is "
+        f"{tuning.verify_step_cost()[1] / tuning.verify_step_cost()[0]:.1f}"
+        f" row costs of overhead); this run's phase 15 readings "
+        f"{verify_ms} give {overhead / row:.1f} and L = {here}; the "
+        f"speculative serve (4 requests): {out.counts['drafted']} drafted, "
+        f"{out.counts['accepted']} accepted at draft_len "
+        f"{out.scheduler.draft_len}")
+
+
+def phase_tuning(gen, per_step_streams: dict, verify_ms: dict) -> None:
+    """The tuner on the card: solve times at every spec_k with the
+    analytic, measured and fixed picks; the profile fit; every kernel
+    geometry's time; the tuned launcher; the draft length."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        solves = _tune_solves(gen, tmp)
+        _fit_profile(solves, _kernel_ms_by_m(gen))
+        _check_analytic_picks(solves)
+        _tune_geometry(gen, tmp)
+        _tuned_serves(tmp, per_step_streams)
+        _tuned_draft_len(verify_ms)
+    say(f"phase 18 took {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     import torch
 
@@ -2814,29 +3258,37 @@ def main() -> int:
         print(f"chip_smoke: no port package under {src}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    from repro_torch.core import tuning
+
     t0 = time.perf_counter()
     smi = phase_card()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    rows = phase_kernels(gen)
-    solve_launches = phase_solves(gen)
-    serve_launches, session = phase_serve()
-    phase_reference(gen)
-    phase_warm(session)
-    del session
-    launches_by_path = {"solves": solve_launches, "serve": serve_launches,
-                        "paper": phase_paper()}
-    launches_by_path["continuous"], per_step_streams = phase_continuous()
-    phase_continuous_reference(gen)
-    launches_by_path["train"] = phase_train()
-    phase_fault()
-    launches_by_path["continuous-mixed-k"] = phase_mixed_k(gen)
-    phase_horizon(per_step_streams)
-    phase_speculative()
-    (launches_by_path["moe-serve"], launches_by_path["moe-prefill-bisect"],
-     k3_moe_serve) = phase_moe_serve(gen)
-    launches_by_path["moe-train"], k3_moe_train, k2_moe_train = (
-        phase_moe_train(gen))
+    # phases 3-17 pin the caller's decomposition and today's geometry:
+    # each holds launch counts that follow (rounds, spec_k) = (8, 5) or a
+    # kernel at its fixed geometry against its emulation; phase 18 drives
+    # the tuned path
+    with tuning.disabled():
+        rows = phase_kernels(gen)
+        solve_launches = phase_solves(gen)
+        serve_launches, session = phase_serve()
+        phase_reference(gen)
+        phase_warm(session)
+        del session
+        launches_by_path = {"solves": solve_launches, "serve": serve_launches,
+                            "paper": phase_paper()}
+        launches_by_path["continuous"], per_step_streams = phase_continuous()
+        phase_continuous_reference(gen)
+        launches_by_path["train"] = phase_train()
+        phase_fault()
+        launches_by_path["continuous-mixed-k"] = phase_mixed_k(gen)
+        phase_horizon(per_step_streams)
+        verify_ms = phase_speculative()
+        (launches_by_path["moe-serve"], launches_by_path["moe-prefill-bisect"],
+         k3_moe_serve) = phase_moe_serve(gen)
+        launches_by_path["moe-train"], k3_moe_train, k2_moe_train = (
+            phase_moe_train(gen))
+    phase_tuning(gen, per_step_streams, verify_ms)
 
     # the path whose run each kernel's launch count is read on: K2 runs
     # where the served requests' top_k differ (phase 13)

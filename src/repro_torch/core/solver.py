@@ -22,9 +22,11 @@ Sign convention (paper §IV.A): the stored bit is '1' iff the value is
 negative; an exact zero counts positive.  The walk only compares bits, so
 monotone non-increasing problems work unchanged.
 
-Not ported yet: the mesh-sharded half and the tuner.  ``solve_kind`` runs
-the caller's ``(rounds, spec_k)`` as given, which is the JAX package's
-behaviour under ``tuning.disabled()``.
+Autotuning: ``solve_kind`` asks ``repro_torch.core.tuning`` how to spend
+the caller's serial-step budget ``rounds * spec_k`` (the decomposition and,
+for ``backend="auto"``, the backend), per static configuration; every
+decision keeps the budget, so tuned solves stay bit for bit equal to the
+serial sign-bit walk.  Not ported yet: the mesh-sharded half.
 """
 from __future__ import annotations
 
@@ -33,6 +35,8 @@ import importlib
 from typing import Callable
 
 import torch
+
+from repro_torch.core import tuning
 
 Tensor = torch.Tensor
 MultiEval = Callable[[Tensor], Tensor]          # taus (B, M) -> f values (B, M)
@@ -213,6 +217,24 @@ def problem(kind: str, operand: Tensor, *, backend: str = "torch", **params
     return factory(operand, **params)
 
 
+# the order "auto" ranks backends in on the CPU: the oracle first, as the
+# JAX package ranks ("jnp", "pallas")
+_BACKEND_ORDER = ("torch", "hopper")
+
+
+def backends_for(kind: str) -> list[str]:
+    """The backends registered for `kind`, oracle first."""
+    for module in _LAZY_BACKEND_MODULES.values():
+        importlib.import_module(module)
+    return [b for b in _BACKEND_ORDER if (kind, b) in _REGISTRY]
+
+
+def _static_param(v) -> bool:
+    """Python scalars are static: they select known-sign fast paths and
+    K3's whole-solve route, and key the measurement's operands."""
+    return v is None or isinstance(v, (bool, int, float, str))
+
+
 def solve_kind(
     kind: str,
     operand: Tensor,
@@ -220,18 +242,116 @@ def solve_kind(
     backend: str = "torch",
     rounds: int,
     spec_k: int,
+    tune: bool | None = None,
     **params,
 ) -> tuple[Tensor, Tensor]:
     """problem() + solve() in one call: the applications' entry point.
 
-    Runs the caller's ``rounds * spec_k`` decomposition as given on one
-    device.  ``backend="auto"`` needs the tuner, which is not ported yet.
+    The caller's ``rounds * spec_k`` fixes the serial-step budget; how it
+    is spent is decided per static configuration by the tuner
+    (``repro_torch.core.tuning``): the analytic model by default, measured
+    winners under ``tune=True`` or ``tuning.autotune()``;
+    ``tuning.disabled()`` runs ``(rounds, spec_k)`` as given.
+    ``backend`` is a preference: binding for "torch" and "hopper", free
+    for "auto", which ranks ("torch", "hopper") on CPU tensors and
+    "hopper" alone on CUDA tensors (on the card the oracle is the
+    reference, never a candidate).
     """
+    z = operand
+    if z.ndim != 2:
+        if backend == "auto":
+            backend = "hopper" if z.device.type == "cuda" else "torch"
+        return solve(problem(kind, z, backend=backend, **params),
+                     rounds=rounds, spec_k=spec_k)
+
+    iterations = rounds * spec_k
+    options = {"single": (1, 1)}
     if backend == "auto":
-        raise ValueError("backend='auto' needs the solver tuner, which the "
-                         "port does not have yet; use 'torch' or 'hopper'")
-    return solve(problem(kind, operand, backend=backend, **params),
-                 rounds=rounds, spec_k=spec_k)
+        cand_backends = (("hopper",) if z.device.type == "cuda"
+                         else tuple(backends_for(kind)) or ("torch",))
+    else:
+        cand_backends = (backend,)
+    fixed = tuning.Decision(spec_k=spec_k, rounds=rounds, placement="single",
+                            backend=cand_backends[0], source="fixed")
+    key = tuning.ConfigKey(
+        kind=kind, batch=z.shape[0], vocab=z.shape[1],
+        dtype=tuning.dtype_name(z.dtype), backend_pref=backend,
+        device_count=1, device_kind=tuning.device_kind(z.device),
+        iterations=iterations,
+        # K3's whole-solve route (kernels/solver_backends.py)
+        fused=(kind == "count_above" and "hopper" in cand_backends
+               and isinstance(params.get("k"), int)),
+    )
+    statics = {k: p for k, p in params.items() if _static_param(p)}
+    decision = tuning.decide(
+        key, options=options, backends=cand_backends, fixed=fixed,
+        measure=lambda cands: _measure_candidates(key, cands, statics,
+                                                  z.device),
+        tune=tune,
+    )
+    return _execute_decision(decision, kind, z, params, iterations)
+
+
+def _execute_decision(decision, kind: str, operand: Tensor, params: dict,
+                      iterations: int) -> tuple[Tensor, Tensor]:
+    """Run one solve the way a tuning Decision says to.
+
+    The decision's (rounds, spec_k) always covers the budget; when it
+    overshoots, ``iterations=`` makes the last round's walk partial, so
+    the solve spends exactly the budget (and bypasses a whole-solve
+    kernel, which walks whole rounds).
+    """
+    iters_arg = (None if iterations == decision.rounds * decision.spec_k
+                 else iterations)
+    return solve(problem(kind, operand, backend=decision.backend, **params),
+                 rounds=decision.rounds, spec_k=decision.spec_k,
+                 iterations=iters_arg)
+
+
+# kind -> (its target parameter, the value a measurement solves for at V)
+_MEASURE_TARGETS = {
+    "count_above": lambda v: ("k", max(1, v // 8)),
+    "count_below": lambda v: ("q", 0.3),
+    "mass_at_or_above": lambda v: ("p", 0.9),
+    "entropy_at_temperature": lambda v: ("target", 2.0),
+}
+
+
+def _measure_candidates(key, candidates, statics: dict,
+                        device: torch.device) -> list[dict]:
+    """Time candidate Decisions on the live device: the tuner's measured
+    tier.  A synthetic operand of the key's shape and dtype (seed 0, as
+    the JAX package draws it) and the caller's static parameters; each
+    candidate's whole solve timed by ``tuning.time_call`` (on the card a
+    CUDA graph of solves between CUDA events, the median of 5; on the CPU
+    ``perf_counter``, the median of 5).  A candidate that fails raises.
+    The launches made here are not counted in ``ops.LAUNCHES``."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    tuning.check_not_capturing(f"solve candidates for {key.cache_key()}")
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(key.batch, key.vocab)).astype(np.float32) * 2.0
+    if key.kind == "mass_at_or_above":
+        x = np.exp(x) / np.exp(x).sum(-1, keepdims=True)
+    x = torch.from_numpy(x).to(device=device,
+                               dtype=getattr(torch, key.dtype))
+    # the target the caller gave as a (B,) tensor (per-row targets, no
+    # known sign at lo0, no whole-solve route) is a (B,) tensor here too
+    params = dict(statics)
+    name, value = _MEASURE_TARGETS[key.kind](key.vocab)
+    if name not in params:
+        params[name] = torch.full((key.batch,), value, device=device)
+
+    counted = dict(ops.LAUNCHES)
+    try:
+        return [{"seconds": tuning.time_call(
+                    lambda d=d: _execute_decision(d, key.kind, x, params,
+                                                  key.iterations), device)}
+                for d in candidates]
+    finally:
+        ops.LAUNCHES.update(counted)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +404,8 @@ def _count_above_torch(operand: Tensor, *, k) -> MonotoneProblem:
     k_col = _param_col(k, x.device)
 
     def multi_eval(taus: Tensor) -> Tensor:
-        counts = (x[:, None, :] > taus[:, :, None]).sum(dim=-1)
+        counts = (x[:, None, :] > taus[:, :, None]).sum(dim=-1,
+                                                        dtype=torch.int32)
         return k_col - counts.float()
 
     # f(lo0) = k - V: negative whenever k < V (the non-degenerate case).
@@ -338,7 +459,8 @@ def _count_below_torch(operand: Tensor, *, q) -> MonotoneProblem:
     q_col = _param_col(q, x.device)
 
     def multi_eval(cs: Tensor) -> Tensor:
-        below = (x[:, None, :] < cs[:, :, None]).sum(dim=-1)
+        below = (x[:, None, :] < cs[:, :, None]).sum(dim=-1,
+                                                      dtype=torch.int32)
         return true_div(below.float(), n) - q_col
 
     # f(lo0) = 0/N - q: negative for any positive static q.

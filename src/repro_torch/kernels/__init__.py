@@ -15,5 +15,6 @@ kernels as the engine's ``"hopper"`` backend (imported lazily).
                              long prefill), with its autograd rule
   row_reduce.py              K4 and K5's shared grid, scratch, launch and
                              stage clock (csrc/row_reduce.cuh)
-  blocks.py                  chunk geometry (divisor_chunk)
+  blocks.py                  the JAX kernels' fit math, Hopper's
+                             shared-memory fit, chunk geometry
 """

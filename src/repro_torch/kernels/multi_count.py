@@ -24,7 +24,8 @@ def multi_count_plain(x: torch.Tensor, taus: torch.Tensor,
     """counts[b, m] = #{v : x[b, v] > taus[b, m]} (``<`` with ``below``)
     as float32."""
     cmp = torch.lt if below else torch.gt
-    return cmp(x[:, None, :], taus[:, :, None]).sum(dim=-1).float()
+    return cmp(x[:, None, :], taus[:, :, None]).sum(
+        dim=-1, dtype=torch.int32).float()
 
 
 @functools.cache
@@ -34,9 +35,11 @@ def _entry(symbol: str):
 
 
 def multi_count_cuda(x: torch.Tensor, taus: torch.Tensor,
-                     below: bool = False) -> torch.Tensor:
+                     below: bool = False, nb: int | None = None
+                     ) -> torch.Tensor:
     """Launch K2 on CUDA tensors: x (B, V) f32, taus (B, M) f32 -> (B, M)
-    f32, equal to the plain version bit for bit."""
+    f32, equal to the plain version bit for bit at any ``nb`` (blocks a
+    row, ``row_reduce.launch``)."""
     symbol = "multi_count_below_launch" if below else "multi_count_launch"
     return row_reduce.launch(lambda: _entry(symbol), "multi_count", x, taus,
-                             ("x", "taus"), 1)[:, 0]
+                             ("x", "taus"), 1, nb)[:, 0]

@@ -62,10 +62,12 @@ def _entry():
     return lib, row_reduce.bind(lib, "multi_entropy_launch")
 
 
-def multi_entropy_moments_cuda(z: torch.Tensor, ts: torch.Tensor
+def multi_entropy_moments_cuda(z: torch.Tensor, ts: torch.Tensor,
+                               nb: int | None = None
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K5 on CUDA tensors: z (B, V) f32 with every element <= 0,
-    ts (B, M) f32 positive -> (s, w), each (B, M) f32."""
+    ts (B, M) f32 positive -> (s, w), each (B, M) f32; ``nb`` blocks a
+    row (``row_reduce.launch``) sets the summing order."""
     out = row_reduce.launch(_entry, "multi_entropy_moments", z, ts,
-                            ("z", "ts"), 2)
+                            ("z", "ts"), 2, nb)
     return out[:, 0], out[:, 1]

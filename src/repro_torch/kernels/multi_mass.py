@@ -42,8 +42,10 @@ def _entry():
     return lib, row_reduce.bind(lib, "multi_mass_launch")
 
 
-def multi_mass_cuda(probs: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+def multi_mass_cuda(probs: torch.Tensor, taus: torch.Tensor,
+                    nb: int | None = None) -> torch.Tensor:
     """Launch K4 on CUDA tensors: probs (B, V) f32, taus (B, M) f32 ->
-    (B, M) f32."""
+    (B, M) f32; ``nb`` blocks a row (``row_reduce.launch``) sets the
+    summing order."""
     return row_reduce.launch(_entry, "multi_mass", probs, taus,
-                             ("probs", "taus"), 1)[:, 0]
+                             ("probs", "taus"), 1, nb)[:, 0]

@@ -44,9 +44,13 @@ def split_geometry(B: int, n_kv: int, n_chain: int) -> tuple[int, int]:
     H100 and is a constant on purpose: read from the device, it would
     make the split count, and so the output bits, differ from one card to
     another."""
-    want = -(-2 * N_SMS // max(1, B * n_kv))
-    n = max(1, min(n_chain, want))
-    pps = -(-n_chain // n)
+    return split_runs(n_chain, -(-2 * N_SMS // max(1, B * n_kv)))
+
+
+def split_runs(n_chain: int, n_split: int) -> tuple[int, int]:
+    """(n_split, pages per run) of a chain cut into at most ``n_split``
+    runs of equal length, none empty."""
+    pps = -(-n_chain // max(1, min(n_split, n_chain)))
     return -(-n_chain // pps), pps
 
 
@@ -137,12 +141,15 @@ def _entry():
     return lib, fn
 
 
-def paged_attend_cuda(pool_k, pool_v, table, pos, q, *, context: int):
+def paged_attend_cuda(pool_k, pool_v, table, pos, q, *, context: int,
+                      n_split: int | None = None):
     """Launch K6 on CUDA tensors; shapes as ``paged_attend_plain``.
 
     The pool and q share one dtype, bf16 or f32, and the output has it;
-    head_dim in ``HEAD_DIMS``.  The chain is split as ``split_geometry``
-    says: one C call launches the split and the combine kernels.
+    head_dim in ``HEAD_DIMS``.  The chain is cut into ``n_split`` runs of
+    equal length, none empty (default: ``split_geometry``'s; the kernel
+    tier of ``core/tuning.py`` passes its decision): one C call launches
+    the split and the combine kernels.
     """
     tensors = dict(pool_k=pool_k, pool_v=pool_v, table=table, pos=pos, q=q)
     for name, t in tensors.items():
@@ -179,7 +186,14 @@ def paged_attend_cuda(pool_k, pool_v, table, pos, q, *, context: int):
         raise ValueError(f"L={L}, n_rep={R}, page {P}, head_dim {D} need "
                          f"{smem} bytes of shared memory (at most "
                          f"{MAX_SMEM})")
-    n_split, pps = split_geometry(B, nkv, n_chain)
+    if n_split is None:
+        n_split, pps = split_geometry(B, nkv, n_chain)
+    else:
+        if split_runs(n_chain, n_split)[0] != n_split:
+            raise ValueError(f"n_split = {n_split} does not cut a chain of "
+                             f"{n_chain} pages into runs of equal length "
+                             f"with none empty")
+        pps = split_runs(n_chain, n_split)[1]
     lib, fn = _entry()
     with torch.cuda.device(q.device):
         table = table.to(torch.int32).contiguous()

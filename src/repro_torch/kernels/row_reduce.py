@@ -31,12 +31,18 @@ CARD_SMS = 132        # the H100's SMs, for the CPU emulations' split
 _SCRATCH: dict[int, list[tuple[torch.Tensor, torch.Tensor]]] = {}
 
 
+def max_blocks(V: int) -> int:
+    """The most blocks a row of V elements takes: no more than it has
+    128-element units for a block's 8 warps; at least one."""
+    units = -(-V // UNIT)
+    return max(1, -(-units // WARPS))
+
+
 def blocks_per_row(B: int, V: int, sms: int) -> int:
     """Blocks each row gets: the card's ``sms`` one-block slots spread
-    over the B rows (one wave), but no more than the row has 128-element
-    units for a block's 8 warps; at least one."""
-    units = -(-V // UNIT)
-    return max(1, min(sms // B, -(-units // WARPS)))
+    over the B rows (one wave), at most ``max_blocks(V)``; at least
+    one."""
+    return max(1, min(sms // B, max_blocks(V)))
 
 
 @functools.cache
@@ -95,11 +101,15 @@ def scratch(device: torch.device, n_partial: int, n_rows: int
 
 
 def launch(entry, what: str, x: torch.Tensor, cand: torch.Tensor,
-           names: tuple[str, str], k_acc: int) -> torch.Tensor:
+           names: tuple[str, str], k_acc: int, nb: int | None = None
+           ) -> torch.Tensor:
     """Check the operands, size the grid, and launch the C entry of
     ``entry()`` (its (library, function), built at first use) once on
-    the current stream; returns (B, k_acc, M) f32.  Raises on a launch
-    error (the tickets are untouched by a launch that never ran)."""
+    the current stream; returns (B, k_acc, M) f32.  ``nb`` (blocks per
+    row, 1 to ``max_blocks(V)``) defaults to
+    ``blocks_per_row``'s; the kernel tier of ``core/tuning.py`` passes
+    its decision.  Raises on a launch error (the tickets are untouched
+    by a launch that never ran)."""
     build.check_rows(x, names[0])
     build.check_rows(cand, names[1])
     B, V = x.shape
@@ -107,8 +117,12 @@ def launch(entry, what: str, x: torch.Tensor, cand: torch.Tensor,
     if cand.shape[0] != B or cand.device != x.device:
         raise ValueError(f"{names[1]} must be ({B}, M) on {x.device}, got "
                          f"{tuple(cand.shape)} on {cand.device}")
+    if nb is None:
+        nb = blocks_per_row(B, V, sm_count(x.device.index))
+    elif not 1 <= nb <= max_blocks(V):
+        raise ValueError(f"{what}: nb = {nb} blocks a row is not in [1, "
+                         f"{max_blocks(V)}] at V = {V}")
     lib, fn = entry()
-    nb = blocks_per_row(B, V, sm_count(x.device.index))
     with torch.cuda.device(x.device):
         partial = tickets = 0
         if nb > 1:

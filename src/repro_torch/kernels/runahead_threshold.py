@@ -36,6 +36,14 @@ def _slice(V: int, clusters: int) -> int:
     return (-(-V // clusters) + 3) // 4 * 4
 
 
+def legal_clusters(V: int) -> list[int]:
+    """The CTAs a row's cluster may have: 1 to 16 (above 8 the
+    non-portable cluster size) with a slice that fits a CTA's shared
+    memory."""
+    return [c for c in range(1, MAX_CLUSTERS + 1)
+            if _slice(V, c) <= SLICE_MAX]
+
+
 def cluster_geometry(B: int, V: int) -> tuple[int, int]:
     """(clusters, slice) for K3 on a (B, V) operand: a pure function of the
     shape.  A row is spread over CTAs of at least ``MIN_SLICE`` elements,
@@ -61,15 +69,16 @@ def cluster_geometry(B: int, V: int) -> tuple[int, int]:
 
 
 def _grid(lo: torch.Tensor, hi: torch.Tensor, spec_k: int) -> torch.Tensor:
-    """(B, n + 1) midpoint grid, level by level as the TPU kernel builds it."""
+    """(B, n + 1) midpoint grid, level by level as the TPU kernel builds it:
+    each point the mean of its neighbours at distance d of the level."""
     n = 1 << spec_k
-    pts = [None] * (n + 1)
-    pts[0], pts[n] = lo, hi
+    pts = torch.empty(lo.shape + (n + 1,), dtype=lo.dtype, device=lo.device)
+    pts[:, 0], pts[:, n] = lo, hi
     for level in range(1, spec_k + 1):
         d = 1 << (spec_k - level)
-        for m in range(d, n, 2 * d):
-            pts[m] = (pts[m - d] + pts[m + d]) / 2
-    return torch.stack(pts, dim=1)
+        pts[:, d:n:2 * d] = (pts[:, 0:n - d:2 * d]
+                             + pts[:, 2 * d:n + 1:2 * d]) / 2
+    return pts
 
 
 def runahead_topk_threshold_plain(x: torch.Tensor, *, k_target: int,
@@ -80,16 +89,17 @@ def runahead_topk_threshold_plain(x: torch.Tensor, *, k_target: int,
     n = 1 << spec_k
     kf = torch.full((), k_target, dtype=torch.float32, device=x.device)
 
-    def sign(tau):                   # bit of f(tau) = k - count(row > tau)
-        return (kf - (x > tau[:, None]).sum(dim=-1).float()) < 0
+    def signs(taus):          # (B, m) bits of f(tau) = k - count(row > tau)
+        counts = (x[:, None, :] > taus[:, :, None]).sum(
+            dim=-1, dtype=torch.int32).float()
+        return (kf - counts) < 0
 
     lo = x.amin(dim=-1) - 1.0
     hi = x.amax(dim=-1) + 1.0
-    sl = sign(lo)
+    sl = signs(lo[:, None])[:, 0]
     for _ in range(rounds):
         pts_vec = _grid(lo, hi, spec_k)                      # (B, n + 1)
-        sign_vec = torch.stack(
-            [sl] + [sign(pts_vec[:, m]) for m in range(1, n)], dim=1)
+        sign_vec = torch.cat([sl[:, None], signs(pts_vec[:, 1:n])], dim=1)
         li = torch.zeros_like(lo, dtype=torch.int64)
         hi_i = torch.full_like(li, n)
         s_cur = sign_vec[:, 0]
@@ -214,7 +224,7 @@ def runahead_topk_threshold_cuda(x: torch.Tensor, *, k_target: int,
     B, V = x.shape
     if clusters is None:
         clusters, size = cluster_geometry(B, V)
-    elif not 1 <= clusters <= MAX_CLUSTERS or _slice(V, clusters) > SLICE_MAX:
+    elif clusters not in legal_clusters(V):
         raise ValueError(f"clusters must be in [1, {MAX_CLUSTERS}] with "
                          f"slices of at most {SLICE_MAX} elements, got "
                          f"{clusters} for V = {V}")

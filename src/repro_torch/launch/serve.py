@@ -25,28 +25,34 @@ sync (``auto``: ``core/tuning.py::decide_step_horizon`` for the
 workload's mean budget).  On the card every decode step or horizon is
 one CUDA-graph replay, captured at its first step.
 
-``--draft-len L`` turns on speculative decoding: each decode step
-verifies L - 1 tokens an n-gram self-drafter proposed from the request's
-own history (``auto``: ``core/tuning.py::decide_draft_len`` at an
-acceptance prior of 0.6; ``--adaptive-draft`` re-decides L from the
-measured acceptance while serving).  With ``--step-horizon`` K > 1 the
+``--speculative`` turns on speculative decoding, as in the JAX launcher:
+each decode step verifies L - 1 tokens an n-gram self-drafter proposed
+from the request's own history.  ``--draft-len`` sets L (default ``auto``:
+``core/tuning.py::decide_draft_len`` at an acceptance prior of 0.6, the
+verify step priced from the card's measured verify steps,
+``tuning.verify_step_cost``); ``--draft-len N`` with N > 1 turns
+speculation on by itself.  ``--adaptive-draft`` re-decides L from the
+measured acceptance while serving.  With ``--step-horizon`` K > 1 the
 drafts are made on the card by repeating the current token:
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch qwen3-4b --reduced --continuous --draft-len 3 \
+      --arch qwen3-4b --reduced --continuous --speculative \
       --adaptive-draft --page-size 4 --device cpu
 
 Runs on the card unless ``--device cpu`` is given.  On the card the
 sampler backend and the page impl default to ``hopper`` (the kernels); on
 the CPU to ``torch`` and ``gather`` (where ``hopper`` would run the
-kernels' plain versions).
-Weights are random, drawn from ``--seed``.  Meshes and autotuning are
-not ported yet.
+kernels' plain versions).  ``--backend auto`` leaves the backend to the
+tuner per solve shape (``hopper`` on the card), and ``--autotune`` turns
+on its measured tier: candidates are timed on the device and the winners
+kept in the port's cache (``REPRO_TORCH_TUNING_CACHE``); a ``tuned <key>
+-> ...`` line per decision is logged after the serve.
+Weights are random, drawn from ``--seed``.  Meshes are not ported yet.
 
 The MoE archs (``--arch qwen2-moe-a2.7b``, ``granite-moe-3b-a800m``)
 serve one-shot and on the dense ring (per step or fused), routing with
 the FIFO capacity cut as the JAX launcher does; ``--page-size`` and
-``--draft-len`` raise for them, as in JAX:
+``--speculative`` raise for them, as in JAX:
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen2-moe-a2.7b --reduced --continuous --requests 6 \
@@ -55,6 +61,7 @@ the FIFO capacity cut as the JAX launcher does; ``--page-size`` and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import time
 from typing import NamedTuple
@@ -63,7 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
-from repro_torch.core.tuning import decide_draft_len, decide_step_horizon
+from repro_torch.core import tuning
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode import verify_supported
@@ -169,19 +176,28 @@ def continuous_requests(cfg: ModelConfig, args, sc: SamplerConfig
 ACCEPTANCE_PRIOR = 0.6     # --draft-len auto's assumed acceptance
 
 
+def speculating(args) -> bool:
+    """``--speculative``, or ``--draft-len N`` with N > 1."""
+    return args.speculative or args.draft_len not in ("auto", "1")
+
+
 def resolve_draft_len(args, cfg: ModelConfig) -> int:
-    """``--draft-len N`` pins L; ``auto`` asks ``decide_draft_len`` at the
-    acceptance prior (the live counters refine it with
-    ``--adaptive-draft``)."""
-    if args.draft_len == "1":
+    """1 without speculation; ``--draft-len N`` pins L; ``auto`` asks
+    ``decide_draft_len`` at the acceptance prior with a verify step
+    priced as the card's measured verify steps are
+    (``tuning.verify_step_cost``), not as L serial steps (the live
+    counters refine it with ``--adaptive-draft``)."""
+    if not speculating(args):
         return 1
     if not verify_supported(cfg):
         raise SystemExit(
-            "--draft-len needs an all-dense layer stack "
+            "--speculative needs an all-dense layer stack "
             f"(arch {args.arch!r} has recurrent/MoE layers)")
     if args.draft_len != "auto":
         return int(args.draft_len)
-    return decide_draft_len(acceptance=ACCEPTANCE_PRIOR)
+    row, overhead = tuning.verify_step_cost()
+    return tuning.decide_draft_len(acceptance=ACCEPTANCE_PRIOR,
+                                   token_cost=row, overhead=overhead)
 
 
 def resolve_step_horizon(args, draft_len: int = 1) -> int:
@@ -192,7 +208,7 @@ def resolve_step_horizon(args, draft_len: int = 1) -> int:
     if args.step_horizon != "auto":
         return int(args.step_horizon)
     per_step = 1.0 + ACCEPTANCE_PRIOR * (draft_len - 1)
-    return decide_step_horizon(
+    return tuning.decide_step_horizon(
         mean_remaining=max(1.0, 0.75 * args.new_tokens / per_step))
 
 
@@ -301,10 +317,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--top-p", type=float, default=0.0)
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--target-entropy", type=float, default=None)
-    ap.add_argument("--backend", default=None, choices=["torch", "hopper"],
-                    help="engine backend for every sampler solve (default: "
+    ap.add_argument("--backend", default=None,
+                    choices=["torch", "hopper", "auto"],
+                    help="engine backend for every sampler solve; auto "
+                         "lets the tuner choose per solve shape (default: "
                          "hopper with --device cuda, torch with --device "
                          "cpu)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="the tuner's measured tier: time the top "
+                         "candidate configurations on the device and keep "
+                         "the winners (REPRO_TORCH_TUNING_CACHE)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--continuous", action="store_true",
@@ -330,10 +352,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--step-horizon", default="1",
                     help="[continuous] decode steps fused per replay and "
                          "host sync: a count >= 1, or auto")
-    ap.add_argument("--draft-len", default="1",
-                    help="[continuous] tokens fed per verify step (1: no "
-                         "speculation), or auto for the speculation cost "
-                         "model")
+    ap.add_argument("--speculative", action="store_true",
+                    help="[continuous] draft-and-verify speculative "
+                         "decoding (n-gram self-drafting; dense archs)")
+    ap.add_argument("--draft-len", default="auto",
+                    help="[continuous] tokens fed per verify step, or auto "
+                         "for the speculation cost model; N > 1 turns "
+                         "speculation on by itself")
     ap.add_argument("--adaptive-draft", action="store_true",
                     help="[continuous] re-decide draft_len from the live "
                          "acceptance counters while serving")
@@ -350,8 +375,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         ("--draft-len", args.draft_len)):
         if value != "auto" and not (value.isdigit() and int(value) >= 1):
             ap.error(f"{flag} must be a count >= 1 or auto, got {value!r}")
-    if not args.continuous and args.draft_len != "1":
-        ap.error("--draft-len needs --continuous")
+    if not args.continuous and speculating(args):
+        ap.error("--speculative and --draft-len need --continuous")
     return args
 
 
@@ -374,10 +399,25 @@ def setup(argv=None) -> Session:
     return Session(cfg, params, args, sc, gen, device, DecodeGraphs())
 
 
+def log_decisions(autotuned: bool) -> None:
+    """One ``tuned <key> -> ...`` line per solver and kernel decision the
+    tuner took (``tuning.explain``), and the cache after a measured run."""
+    for cfg_key, d in tuning.explain():
+        log.info("tuned %s -> %s/%s spec_k=%d rounds=%d [%s]", cfg_key,
+                 d.placement, d.backend, d.spec_k, d.rounds, d.source)
+    for kern_key, kd in tuning.explain_kernels():
+        log.info("tuned %s -> %s [%s]", kern_key, kd.label(), kd.source)
+    if autotuned:
+        log.info("tuning cache: %s", tuning.cache_path())
+
+
 def main(argv=None) -> Served | ServedContinuous:
     session = setup(argv)
-    out = (run_continuous if session.args.continuous else run)(session)
+    with (tuning.autotune() if session.args.autotune
+          else contextlib.nullcontext()):
+        out = (run_continuous if session.args.continuous else run)(session)
     log.info("kernel launches: %s", dict(ops.LAUNCHES))
+    log_decisions(session.args.autotune)
     return out
 
 

@@ -1,5 +1,15 @@
 """Dense and MoE transformer forward, prefill and decode (port of
 ``repro.models``)."""
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import forward, init_params, layer_plan
+from repro_torch.models.decode import decode_step, init_cache, prefill
 
-__all__ = ["ModelConfig"]
+__all__ = [
+    "ModelConfig",
+    "forward",
+    "init_params",
+    "layer_plan",
+    "decode_step",
+    "init_cache",
+    "prefill",
+]

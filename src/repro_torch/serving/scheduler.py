@@ -57,7 +57,7 @@ makes (per slot per step, in slot order: (1, V) for a serial step, an
 (L - 1) coin draw and (1, L, V) for a verify step), and the graph turns
 them into Gumbel noise, so the streams are eager serving's bit for bit.
 
-Not ported: the mesh and the tuner.  Asking for a mesh raises.
+Not ported: the mesh.  Asking for a mesh raises.
 """
 from __future__ import annotations
 

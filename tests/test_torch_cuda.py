@@ -792,6 +792,7 @@ def test_graphed_oneshot_steps_equal_the_eager_loop(gen):
     """``generate``'s decode steps (graph replays, a device position)
     against the eager loop with a host-integer position, sampled through
     K3-K5, bit for bit; a second call replays every step."""
+    from repro_torch.core import tuning
     from repro_torch.models.decode import decode_step, prefill
     from repro_torch.serving import engine
     from repro_torch.serving.sampler import SamplerConfig, sample
@@ -815,8 +816,14 @@ def test_graphed_oneshot_steps_equal_the_eager_loop(gen):
                               sampler=sc, graphs=graphs)
         assert torch.equal(got, want)
         assert ops.LAUNCHES["runahead_topk_threshold"] == 6
-        assert ops.LAUNCHES["multi_mass"] == ops.LAUNCHES[
-            "multi_entropy_moments"] == 9 * 6
+        # K4 and K5 once a round of the decomposition the tuner chose
+        # (core/tuning.py) and once for the sign at lo0, each token
+        decided = {key.split("|")[0]: d for key, d in tuning.explain()
+                   if f"|B=3|V={cfg.vocab}|float32|pref=hopper|" in key}
+        for kind, kernel in (("mass_at_or_above", "multi_mass"),
+                             ("entropy_at_temperature",
+                              "multi_entropy_moments")):
+            assert ops.LAUNCHES[kernel] == (decided[kind].rounds + 1) * 6
         assert len(graphs.graphs.keys) == 1
 
 
@@ -1088,3 +1095,139 @@ def test_graphed_moe_serving_equals_the_eager_body(gen):
     assert got == want and len(sched.graphs.keys) >= 2
     fused, sched = _streams(cfg, params, step_horizon=4)
     assert fused == want and sched.n_horizons >= 1
+
+
+# ---------------------------------------------------------------------------
+# the tuner's kernel tier: every candidate geometry of K2-K6 (the
+# analytic tier's candidates, core/tuning.py::kernel_candidates)
+# ---------------------------------------------------------------------------
+
+def _geometries(kernel, shape, dtype="float32"):
+    from repro_torch.core import tuning
+
+    key = tuning.KernelKey(kernel, shape, dtype,
+                           torch.cuda.get_device_name(0))
+    return [d.params[tuning.KERNEL_PARAMS[kernel]]
+            for _, d in tuning.kernel_candidates(key)]
+
+
+ROW_TUNE_SHAPES = [(4, 151936, 31), (16, 151936, 31), (64, 151936, 33),
+                   (1, 300, 15)]
+
+
+@pytest.mark.parametrize("B,V,M", ROW_TUNE_SHAPES)
+def test_multi_count_every_geometry_exact(gen, B, V, M):
+    x, t = _inputs(gen, B, V, M)
+    want = mc.multi_count_plain(x, t)
+    for nb in _geometries("multi_count", (B, V, M)):
+        assert torch.equal(mc.multi_count_cuda(x, t, nb=nb), want), nb
+        assert torch.equal(mc.multi_count_cuda(x, t, below=True, nb=nb),
+                           mc.multi_count_plain(x, t, below=True)), nb
+
+
+@pytest.mark.parametrize("B,V,M", ROW_TUNE_SHAPES)
+def test_mass_and_entropy_every_geometry_within_tolerance(gen, B, V, M):
+    x, _ = _inputs(gen, B, V, M)
+    probs = torch.softmax(x, dim=-1)
+    taus = torch.rand((B, M), generator=gen, device="cuda") * 1e-4
+    z = x - x.amax(-1, keepdim=True)
+    ts = 0.05 + 20 * torch.rand((B, M), generator=gen, device="cuda")
+    want_m = mm.multi_mass_plain(probs, taus)
+    want_s, want_w = me.multi_entropy_moments_plain(z, ts)
+    for nb in _geometries("multi_mass", (B, V, M)):
+        got = mm.multi_mass_cuda(probs, taus, nb=nb)
+        torch.testing.assert_close(got, want_m, **TOL)
+        assert torch.equal(_bits(got),
+                           _bits(mm.multi_mass_cuda(probs, taus, nb=nb)))
+    for nb in _geometries("multi_entropy_moments", (B, V, M)):
+        s, w = me.multi_entropy_moments_cuda(z, ts, nb=nb)
+        torch.testing.assert_close(s, want_s, **TOL)
+        torch.testing.assert_close(w, want_w, **TOL)
+        s2, w2 = me.multi_entropy_moments_cuda(z, ts, nb=nb)
+        assert torch.equal(_bits(s), _bits(s2))
+        assert torch.equal(_bits(w), _bits(w2))
+
+
+@pytest.mark.parametrize("e_pad,T,k,n_real", MOE_CAPACITY_CASES)
+def test_runahead_topk_every_geometry_exact(gen, e_pad, T, k, n_real):
+    """K3 at the served shapes and the capacity cut's, bit for bit against
+    its plain version at every cluster size the tier offers."""
+    from repro_torch.models import moe
+
+    cap = moe._capacity(T, n_real, k, 1.25)
+    cases = [(_masked_scores(gen, e_pad, T, k, n_real)[0],
+              dict(k_target=cap, rounds=6, spec_k=5))]
+    for B in (4, 16):
+        x = torch.randn((B, 151936), generator=gen, device="cuda") * 2.0
+        cases.append((x, dict(k_target=40, rounds=8, spec_k=5)))
+    for x, kw in cases:
+        want = rt.runahead_topk_threshold_plain(x, **kw)
+        for c in _geometries("runahead_topk", tuple(x.shape)):
+            got = rt.runahead_topk_threshold_cuda(x, clusters=c, **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(_bits(g), _bits(w)), (tuple(x.shape), c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attend_every_geometry_within_tolerance(gen, dtype):
+    """K6 at the served decode shape (and L = 4 verify rows) under every
+    split count the tier offers, against the plain version with the same
+    split, and bit-stable run to run."""
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=1e-2, atol=1e-2))
+    for L in (1, 4):
+        args = _paged_inputs(gen, 16, 544, 8, 128, L, 32,
+                             [520, 529, 537, 543 - L], dtype)
+        key = (4, 8, 34, 16, L, 4, 128)
+        for n in _geometries("paged_attend", key, str(dtype)[6:]):
+            got = pa.paged_attend_cuda(*args, context=544, n_split=n)
+            assert torch.equal(got, pa.paged_attend_cuda(
+                *args, context=544, n_split=n)), n
+            want = pa.paged_attend_plain(*args, context=544, n_split=n)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_measurement_during_a_capture_raises(gen, tmp_path):
+    """A decision that needs a measurement is never taken inside a CUDA-
+    graph capture: the graph would record the measurement's launches."""
+    from repro_torch.core import tuning
+
+    tuning.set_cache_path(str(tmp_path / "cache.json"))
+    try:
+        x = torch.randn((4, 4096), generator=gen, device="cuda")
+        g = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="capture"):
+            with tuning.autotune(), torch.cuda.graph(g):
+                solver.solve_kind("count_below", x, backend="hopper",
+                                  rounds=8, spec_k=5, q=0.3)
+        torch.cuda.synchronize()
+        # eagerly the same solve measures, keeps its winner, and a capture
+        # replays it from the cache
+        with tuning.autotune():
+            want = solver.solve_kind("count_below", x, backend="hopper",
+                                     rounds=8, spec_k=5, q=0.3)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                got = solver.solve_kind("count_below", x, backend="hopper",
+                                        rounds=8, spec_k=5, q=0.3)
+        g.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    finally:
+        tuning.set_cache_path(None)
+
+
+def test_auto_on_the_card_only_ever_chooses_hopper(gen, tmp_path):
+    from repro_torch.core import tuning
+
+    tuning.set_cache_path(str(tmp_path / "cache.json"))
+    try:
+        x = torch.randn((4, 151936), generator=gen, device="cuda")
+        for tune in (False, True):
+            tuning.tuner().recent.clear()
+            solver.solve_kind("count_above", x, backend="auto", rounds=8,
+                              spec_k=5, k=40, tune=tune)
+            [(key, d)] = tuning.explain()
+            assert d.backend == "hopper", (key, d)
+    finally:
+        tuning.set_cache_path(None)

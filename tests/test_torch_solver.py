@@ -1,7 +1,9 @@
 """The port's solve engine and applications against the JAX package's.
 
 The JAX side runs under ``tuning.disabled()``: the caller's (rounds,
-spec_k) as given, the only behaviour the port has.  On the CPU the
+spec_k) as given; the port's tuner picks its own decomposition of the
+same budget, which gives the serial walk's bracket all the same
+(``tests/test_torch_tuning.py``).  On the CPU the
 "hopper" backend runs its kernels' plain versions.  Count kinds give
 identical brackets; mass and entropy agree within rtol=1e-5 (f32 sums in
 another order can move a bracket only by rounding noise).
@@ -178,6 +180,15 @@ def test_application_masks_match_jnp(backend):
 
 
 def test_auto_backend_waits_for_the_tuner():
-    with pytest.raises(ValueError, match="tuner"):
-        solver.solve_kind("count_above", torch.zeros((1, 4)), backend="auto",
-                          rounds=1, spec_k=1, k=1)
+    """``backend="auto"`` is the tuner's choice (core/tuning.py) among
+    the CPU's ("torch", "hopper"), and its bracket is the oracle's."""
+    from repro_torch.core import tuning
+
+    x = torch.arange(8, dtype=torch.float32)[None].repeat(2, 1)
+    lo, hi = solver.solve_kind("count_above", x, backend="auto", rounds=4,
+                               spec_k=3, k=3)
+    want = solver.solve_kind("count_above", x, backend="torch", rounds=4,
+                             spec_k=3, k=3)
+    assert torch.equal(lo, want[0]) and torch.equal(hi, want[1])
+    key, decision = tuning.explain()[-2]
+    assert "pref=auto" in key and decision.backend in ("torch", "hopper")
