@@ -15,7 +15,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      path's shapes: K2-K5 at the sampler's (B=4, V=151936, M=31 and M=1)
      and at ragged V (1000, 257): K2 and K3 bit for bit (K2 counting above
      and below, also at B=64 with M=33, two candidate tiles, at the
-     quantile clip's (1, 300, 15), and on rows of NaN, +-inf and +-0; K3
+     quantile clip's (1, 300) with M 15 and 255 (spec_k 4 and 8), and on
+     rows of NaN, +-inf and +-0; K3
      also against the generic engine loop over K2, and on rows holding
      NaN, whose bracket is (NaN, NaN)), K4 and K5 within rtol 1e-5 / atol
      1e-6 (K5 at the engine's extreme temperatures 0.05 and 20 too), bit
@@ -43,17 +44,20 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
   4. one solve per kind on the "hopper" backend under
      torch.cuda.set_sync_debug_mode("error") (the round loop never syncs),
      including count_above with a (B,) k tensor, which runs K2 through the
-     engine; brackets against the "torch" backend; count_below profiled:
-     one K2 a round (x < c counted in place) and no negation kernel.
+     engine; brackets against the "torch" backend; the launches those
+     solves make under the tuner's decisions; count_below profiled: one
+     K2 a round (x < c counted in place) and no negation kernel.
   5. the one-shot serving path: repro_torch.launch.serve (setup, then run,
      as its main does) for qwen3-4b at full width (36 layers, d_model
      2560, vocab 151936; random bf16 weights from a seed), 4 x 16 tokens
      sampled with top-k 40, top-p 0.9 and target entropy 3.0 on the
      "hopper" backend, each decode step one CUDA-graph replay
      (core/graphs.py; the first step eager, then captured); the launch
-     counters must show K3 once per token and K4, K5 nine times per
-     token (a replay counts the launches its capture recorded); launches
-     per token.
+     counters must show what the tuner's decisions for the sampler's
+     solves give (K3 once a token, K4 and K5 once a round and once for
+     the sign at lo0: nine times a token at (rounds, spec_k) = (8, 5);
+     a replay counts the launches its capture recorded); launches per
+     token.
   6. a reference check: the sampler's masked logits on both backends, and
      greedy generate on reduced qwen3-4b, "hopper" against "torch".
   7. phase 5's serve.run on its session again, warm (every decode step a
@@ -76,7 +80,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      over 4 slots on a paged cache (page 16) through K6 and the sampler
      kernels, each decode step one replay of the step graph of its
      statics: every request served, K6 launched 36 times per decode step,
-     K3 once and K4, K5 nine times per sample; tok/s first (graphs
+     K3-K5 as the tuner's decisions give for a decode step's 4 rows and
+     an admission's 1; tok/s first (graphs
      captured: keys and capture time) and warm (the same server again,
      replays only), latency, dispatches and host syncs per step, peak
      memory; the streams equal the eager step body's (the same requests
@@ -94,7 +99,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      quantile clip, AdamW: 1 warm-up step, 4 timed steps and 1 step under
      torch.profiler.  Every loss finite; K7 launched exactly 48 times per
      step (24 layers forward, 24 remat recomputes) and K2 exactly once
-     per round of the quantile clip's solve (8 a step); ms per step,
+     per round of the quantile clip's solve, as the tuner decides it at
+     (1, leaves) for the clip's budget of 32 steps; ms per step,
      tokens per second, peak memory, device busy time, idle share and
      K7's share of it.
  12. checkpoint and fault injection on the card: reduced internlm2-1.8b
@@ -105,8 +111,9 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      8 requests, 4 slots, paged cache, "hopper" backends) with top_k 20,
      40, 50, 100 in turn, so a decode step whose live slots' k differ
      solves top-k per row on the engine through K2: every request served,
-     K2 launched rounds + 1 times per such step (the probe at lo0: a
-     per-row k leaves its sign unknown), K3 once per other sample; the
+     K2 launched rounds + 1 times per such step (the rounds of the
+     tuner's decision, and the probe at lo0: a per-row k leaves its sign
+     unknown), K3 once per other sample; the
      step graphs captured (keys, capture time) and the streams equal the
      eager step body's bit for bit; tok/s first and warm, a profiled warm
      run of the first 4 requests (K2's time in situ; device busy time,
@@ -135,8 +142,9 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      repetitive prompts with phase 9's sampler and greedy requests
      (acceptance, tokens per verify step, tok/s first and warm, a
      profiled warm run, dispatches and host syncs per verify step, host
-     drafting ms, K6 = 36 x verify steps, K3/K4/K5 1/9/9 per step with a
-     sampled slot, peak memory); verify-step graph replays against their
+     drafting ms, K6 = 36 x verify steps, K3-K5 per step with a sampled
+     slot as the tuner's decisions for the 4 x L grid rows give, peak
+     memory); verify-step graph replays against their
      eager bodies, paged and dense; step_horizon 4 with repeat-last
      drafts against per-step serving with the same drafter; and the
      device ms of one graphed verify step at L = 1, 2, 4, 8 beside
@@ -145,7 +153,7 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      depth (24 layers, d_model 2048, 16/16 heads with QKV bias, 60
      experts padded to 64 of d_ff 1408, top-4, 4 shared units, vocab
      151936; 30.3 GB of random bf16 weights from seed 0).  One-shot with
-     phase 5's traffic (K3 once and K4, K5 nine times a token; the
+     phase 5's traffic (K3-K5 as phase 5's; the
      graphed tokens equal the eager loop's), continuous on the dense ring
      with phase 9's requests and no pages (the streams equal the eager
      step body's), each profiled warm (device busy, idle share); the
@@ -154,8 +162,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      prefill of the one-shot prompts with capacity_mode "bisect", every
      layer's keep mask (K3, one launch a layer) equal to the "torch"
      backend's bit for bit, beside "fifo": the dropped fractions; K3 at
-     that capacity shape (64, 1024) against its plain version and
-     torch.topk; peak memory.
+     that capacity shape (64, 1024) and the cut's decision against its
+     plain version and torch.topk; peak memory.
  17. the MoE family trained: launch.train for granite-moe-3b-a800m at
      its published width (d_model 1536, 24/8 heads of 64, 40 experts
      padded to 48 of d_ff 512, top-8, vocab 49155), capacity "bisect",
@@ -163,35 +171,45 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      depth cut only as far as a byte reckoning against 70 GB forces
      (printed, beside the measured peak).  Every loss finite; per step K3
      twice a layer (forward and remat recompute), K2 once a round of the
-     clip, K7 twice a layer; ms a step, tok/s, dropped fraction, the last
+     clip's decision, K7 twice a layer; ms a step, tok/s, dropped
+     fraction, the last
      step profiled (K3, K2 and K7 in situ); K3 at the run's last
-     capacity cut (48, 65536) and K2 at the clip's (1, leaves) shape,
-     each against its plain version.
- 18. the tuner (core/tuning.py): at the served shape (B=4, V=151936) and
-     the sampler's budget of 8 x 5 = 40 steps, the device ms of a graphed
-     "hopper" solve at every spec_k from 1 to 8 for each kind (top-k with
-     a static k through K3's whole solve where the rounds are whole, with
-     a per-row k through K2; top-p, entropy, quantile), brackets equal to
-     the "torch" backend's, beside the analytic pick (held not slower than
-     the fixed (5, 8) by more than the readings' spread), the measured
-     pick and the fixed; K2, K4, K5 at every M = 2**k - 1 and the Hopper
-     profile's constants fitted to these readings; every candidate
-     geometry of the kernel tier for K2-K6 at their served shapes, timed,
-     held to the plain version and bit-stable, and the measured pick; the
-     launcher at full width with --backend auto --autotune, one-shot and
-     continuous paged, its cache in a temp dir, then replayed with the
-     solver tier's winners alone (streams equal the tuning.disabled()
-     runs', phase 9's for the continuous one) and with both tiers' (top-k-
-     only tokens equal the disabled run's), with its "tuned <key> -> ..."
-     lines; what --speculative --draft-len auto picks, beside what this
-     run's phase 15 verify-step readings give, and a short speculative
-     continuous serve through the launcher.
+     capacity cut (48, 65536) and K2 at the clip's (1, leaves) shape
+     with its decision's 2**spec_k - 1 candidates, each against its plain
+     version.
+ 18. the tuner (core/tuning.py), on an empty cache: at the served shape
+     (B=4, V=151936) and the sampler's budget of 8 x 5 = 40 steps, and at
+     the quantile clip's (1, 300) and its budget of 8 x 4 = 32, the
+     device ms of a graphed "hopper" solve at every spec_k from 1 to 8
+     for each kind (top-k with a static k through K3's whole solve where
+     the rounds are whole, with a per-row k through K2; top-p, entropy,
+     quantile), brackets equal to the "torch" backend's (and how many
+     equal the fixed spec_k's bit for bit), beside the analytic pick
+     (held not slower than the fixed decomposition by more than the
+     readings' spread), the measured pick and the fixed; K2, K4, K5 at
+     every M = 2**k - 1 and the Hopper profile's constants fitted to the
+     served shape's readings, each held within 25% of PROFILES["cuda"];
+     every candidate geometry of the kernel tier for K2-K6 at their
+     served shapes, timed, held to the plain version and bit-stable, and
+     the measured pick; the launcher at full width, one-shot and
+     continuous paged: by default (phase 5's and 9's mode) and with
+     --backend auto --autotune (its cache in a temp dir) the streams
+     equal the tuning.disabled() runs', and so do the replays with the
+     solver tier's winners alone; with both tiers' winners the top-k-only
+     tokens do; its "tuned <key> -> ..." lines; what --speculative
+     --draft-len auto picks, beside what this run's phase 15 verify-step
+     readings give, and a short speculative continuous serve through the
+     launcher.
 
-Phases 3-17 run under tuning.disabled(): each holds launch counts that
-follow the caller's decomposition (K3 once and K4, K5 nine times a token
-at (rounds, spec_k) = (8, 5); K2 rounds + 1 times a mixed-k step; the
-clip's 8 K2 rounds) or a kernel at today's geometry against the CPU
-emulation of its split; phase 18 drives the tuned path.
+Phases 4-17 run the paths as a user runs them: in the tuner's default
+mode (the analytic solver tier and today's kernel geometry), on an empty
+tuning cache, as a fresh checkout has.  Every launch count they hold is
+read from the decisions the tuner reports for that path's run
+(``tuning.explain``: K3 once a static top-k solve whose rounds are whole,
+else a kernel once a round, and once more where the sign at lo0 is
+unknown).  Phase 3 holds each kernel at today's geometry against its
+plain version and the CPU emulation of its split, under
+tuning.disabled().
 
 Phase 3 also holds K7 (flash_fwd) at the training shape (B=2, S=4096,
 16 q heads, 8 kv heads, head_dim 128) against its plain version in f32
@@ -256,6 +274,9 @@ K1_TERMS = 10_000                 # the paper's term count
 K2_SASS = ("FSET", "FADD")
 K2_FIRST_MS = (0.0106, 0.0738)
 K2_CLIP = (1, 300, 15)
+# the quantile clip's candidates a round at spec_k 8 (the analytic tier's
+# pick at the clip's budget of 32 steps on the Hopper profile)
+K2_CLIP_WIDE = (1, 300, 255)
 # phase 13: the per-request top_k of the continuous serve, in turn
 MIXED_TOP_K = (20, 40, 50, 100)
 # phase 14: the decode steps a fused horizon runs
@@ -266,8 +287,12 @@ HORIZON = 4
 # of the repetitive prompts the n-gram drafter reads
 DRAFT_LEN = 4
 VERIFY_LENS = (1, 2, 4, 8)
-# phase 18: the sampler's budget, rounds x spec_k, and its decomposition
+# phase 18: the sampler's budget, rounds x spec_k, and its decomposition;
+# how far a constant of the Hopper profile fitted to a run's readings may
+# lie from core/tuning.py's PROFILES["cuda"] (two runs on one card agreed
+# within 5%)
 TUNE_ROUNDS, TUNE_SPEC_K = 8, 5
+PROFILE_SPREAD = 0.25
 VERIFY_REL_TOL = 0.05
 REPEAT_PERIOD = 8
 # K1's latency bound: a bit-exact step is 4 dependent operations (the
@@ -401,6 +426,105 @@ def kernels_per_call(fn) -> dict:
         torch.cuda.synchronize()
     return {e.key: e.count for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+# the kernel a "hopper" solve of each kind launches once a round, and
+# the kernels the solves launch
+ROUND_KERNEL = {"count_above": "multi_count", "count_below": "multi_count",
+                "mass_at_or_above": "multi_mass",
+                "entropy_at_temperature": "multi_entropy_moments"}
+SOLVER_KERNELS = ("multi_count", "runahead_topk_threshold", "multi_mass",
+                  "multi_entropy_moments")
+
+
+def forget_decisions() -> None:
+    """Clear the tuner's record of recent decisions (``tuning.explain``)
+    before a path is driven, so that it reports that path's alone."""
+    from repro_torch.core import tuning
+
+    tuning.tuner().recent.clear()
+    tuning.tuner().recent_kernels.clear()
+
+
+def decisions(backend: str = "hopper") -> dict:
+    """{(kind, B, fused): (Decision, budget)} of the solves that asked for
+    ``backend`` since the record was cleared, from ``tuning.explain``;
+    ``fused`` where the key is a static top-k's (K3's whole solve)."""
+    from repro_torch.core import tuning
+
+    out = {}
+    for key, d in tuning.explain():
+        parts = key.split("|")
+        f = dict(p.split("=", 1) for p in parts if "=" in p)
+        if f["pref"] != backend:
+            continue
+        k = (parts[0], int(f["B"]), parts[-1] == "fused")
+        check(k not in out, f"two decisions for {k}: {tuning.explain()}")
+        out[k] = (d, int(f["iters"]))
+    return out
+
+
+def decisions_note(backend: str = "hopper") -> str:
+    """This path's decisions, one ``kind B=.. spec_k x rounds [source]``
+    each."""
+    return "; ".join(
+        f"{kind} B={B}{' fused' if fused else ''} spec_k {d.spec_k} x "
+        f"{d.rounds} rounds of {budget} steps [{d.source}]"
+        for (kind, B, fused), (d, budget) in sorted(
+            decisions(backend).items()))
+
+
+def solver_launches(solves: dict) -> dict:
+    """The K2-K5 launches that ``solves`` ({(kind, B, fused): number of
+    solves}) make through the "hopper" backend under the decisions the
+    tuner reports for them: K3's whole solve once where the key is fused
+    and the decision's rounds are whole (``solve_kind`` passes
+    ``iterations=`` otherwise, which takes the engine's loop); else the
+    kind's kernel once a round, and once more for the sign at lo0, which
+    the engine knows only for a static top-k or quantile target."""
+    table = decisions()
+    out = dict.fromkeys(SOLVER_KERNELS, 0)
+    for (kind, B, fused), n in solves.items():
+        if not n:
+            continue
+        check((kind, B, fused) in table,
+              f"no decision for {kind} at B={B} (fused {fused}): "
+              f"{sorted(table)}")
+        d, budget = table[(kind, B, fused)]
+        if fused and d.rounds * d.spec_k == budget:
+            out["runahead_topk_threshold"] += n
+            continue
+        probe = kind != "count_below" and not (kind == "count_above"
+                                                and fused)
+        out[ROUND_KERNEL[kind]] += n * (d.rounds + int(probe))
+    return out
+
+
+def sampler_solves(samples: dict, per_row_k: int = 0) -> dict:
+    """The solves of ``samples`` ({B: number of samples}) through phase
+    5's sampler (a static top-k, top-p and the entropy temperature, one
+    solve each a sample), ``per_row_k`` of the B = PATH_B samples with a
+    top-k per row (the engine's loop over K2, no whole solve)."""
+    out = {}
+    for B, n in samples.items():
+        for kind, fused in (("count_above", True),
+                            ("mass_at_or_above", False),
+                            ("entropy_at_temperature", False)):
+            out[(kind, B, fused)] = out.get((kind, B, fused), 0) + n
+    if per_row_k:
+        out[("count_above", PATH_B, True)] -= per_row_k
+        out[("count_above", PATH_B, False)] = per_row_k
+    return out
+
+
+def check_solver_launches(launches: dict, solves: dict, what: str) -> dict:
+    """Checks that a path's K2-K5 launches are those its solves make under
+    the decisions the tuner reports (``solver_launches``); returns them."""
+    want = solver_launches(solves)
+    got = {name: launches[name] for name in SOLVER_KERNELS}
+    check(got == want, f"{what}: K2-K5 launches {got}, where the tuner's "
+                       f"decisions ({decisions_note()}) give {want}")
+    return want
 
 
 def _stage_note(stages: dict) -> str:
@@ -751,7 +875,7 @@ def _row_k2(gen, logits, between, shapes):
     from repro_torch.kernels import row_reduce
 
     err = 0.0
-    for B, V, M in shapes + [(64, PATH_V, 33), K2_CLIP]:
+    for B, V, M in shapes + [(64, PATH_V, 33), K2_CLIP, K2_CLIP_WIDE]:
         for special in (False, True):
             x = logits(B, V)
             taus = between(x, M)
@@ -794,8 +918,9 @@ def _row_k2(gen, logits, between, shapes):
     below_ms = device_ms(lambda: ops.multi_count(x, taus, below=True))
     below_call = call_ms(lambda: ops.multi_count(x, taus, below=True))
     clip = torch.rand(K2_CLIP[:2], generator=gen, device="cuda")
-    clip_t = clip[:, :K2_CLIP[2]] * 0.9
-    clip_ms = device_ms(lambda: ops.multi_count(clip, clip_t, below=True))
+    clip_ms = [device_ms(lambda m=m: ops.multi_count(
+        clip, clip[:, :m] * 0.9, below=True))
+        for m in (K2_CLIP[2], K2_CLIP_WIDE[2])]
     return dict(
         source="src/repro_torch/kernels/csrc/multi_count.cu",
         replaces="src/repro/kernels/multi_count.py:69", max_abs_err=err,
@@ -813,7 +938,8 @@ def _row_k2(gen, logits, between, shapes):
              f"version (3 launches: zero fill, count, cast) "
              f"{K2_FIRST_MS[0]:.4f} ms ({K2_FIRST_MS[1]:.4f} eager, H100 80GB "
              f"HBM3 at 700 W); the quantile clip's {K2_CLIP} below "
-             f"{clip_ms:.4f} ms; bound: bytes "
+             f"{clip_ms[0]:.4f} ms, {K2_CLIP_WIDE} {clip_ms[1]:.4f} ms; "
+             f"bound: bytes "
              f"{bytes_ms:.6f} ms, issue of {ipp:g} instructions a pair "
              f"(SASS: " + "; ".join(
                  f"{fn} " + " ".join(f"{op} {n}" for op, n in c.items())
@@ -1040,6 +1166,7 @@ def phase_solves(gen):
              ("count_below", x, dict(q=0.3))]
     torch.cuda.synchronize()
     ops.reset_launches()
+    forget_decisions()
     out = []
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1049,6 +1176,13 @@ def phase_solves(gen):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     launches = dict(ops.LAUNCHES)
+    # one solve of each case: top-k with a static k is the fused key
+    check_solver_launches(
+        launches, {(kind, PATH_B, kind == "count_above"
+                    and isinstance(params.get("k"), int)): 1
+                   for kind, _, params in cases}, "phase 4 solves")
+    (below, _), = [v for k, v in decisions().items()
+                   if k[0] == "count_below"]
     for (kind, operand, params), (lo, hi) in zip(cases, out):
         rlo, rhi = solver.solve_kind(kind, operand, backend="torch",
                                      rounds=8, spec_k=5, **params)
@@ -1063,19 +1197,21 @@ def phase_solves(gen):
                       "multi_entropy_moments")
     check(all(launches[name] > 0 for name in solver_kernels),
           f"a solver kernel did not run in the solves: {launches}")
-    # count_below counts x < c in place: one K2 a round (q > 0 makes the
-    # sign at lo0 known) and no negation kernel, of the operand or the
-    # candidates
+    # count_below counts x < c in place: one K2 a round of the tuner's
+    # decision (q > 0 makes the sign at lo0 known) and no negation
+    # kernel, of the operand or the candidates
     kernels = kernels_per_call(lambda: solver.solve_kind(
         "count_below", x, backend="hopper", rounds=8, spec_k=5, q=0.3))
     neg = {k: n for k, n in kernels.items() if "neg" in k.lower()}
     k2 = sum(n for k, n in kernels.items() if "multi_count_kernel" in k)
-    check(not neg and k2 == 8, f"count_below launched {k2} K2 kernels for "
-          f"8 rounds and negation kernels {neg}")
+    check(not neg and k2 == below.rounds,
+          f"count_below launched {k2} K2 kernels for {below.rounds} rounds "
+          f"and negation kernels {neg}")
     say(f"phase 4 solves: {len(cases)} hopper solves with no host sync, "
         f"brackets match the torch backend; count_below: {k2} K2 launches "
-        f"for 8 rounds, no negation kernel ({sum(kernels.values())} "
-        f"kernels a solve, profiled) | launches {launches}")
+        f"for {below.rounds} rounds, no negation kernel "
+        f"({sum(kernels.values())} kernels a solve, profiled) | launches "
+        f"{launches} | decisions: {decisions_note()}")
     return launches
 
 
@@ -1092,15 +1228,14 @@ def phase_serve():
     session = serve.setup(SERVE_ARGV)
     torch.cuda.synchronize()
     ops.reset_launches()
+    forget_decisions()
     served = serve.run(session)
     launches = dict(ops.LAUNCHES)
     toks = served.tokens
     check(tuple(toks.shape) == (4, NEW_TOKENS), f"tokens {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < 151936)).all()), "token out of range")
-    check(launches["runahead_topk_threshold"] == NEW_TOKENS
-          and launches["multi_mass"] == 9 * NEW_TOKENS
-          and launches["multi_entropy_moments"] == 9 * NEW_TOKENS,
-          f"main path did not go through K3-K5: {launches}")
+    check_solver_launches(launches, sampler_solves({PATH_B: NEW_TOKENS}),
+                          "phase 5 serve")
     graphs = session.decode.graphs
     check(len(graphs.keys) == 1, f"decode graphs {graphs.keys}")
     n_tok = toks.numel()
@@ -1110,7 +1245,8 @@ def phase_serve():
         f"step and the step graph's capture, {graphs.capture_s:.3f}s"
         f"; then {NEW_TOKENS - 2} replays) | hand-written kernel launches "
         f"per token {sum(launches.values()) / n_tok:.2f} | launches "
-        f"{launches} | row 0: {toks[0].tolist()}")
+        f"{launches} | decisions: {decisions_note()} | row 0: "
+        f"{toks[0].tolist()}")
     return launches, session
 
 
@@ -1410,21 +1546,21 @@ def phase_continuous():
     server = serve.server_for(session)
     torch.cuda.synchronize()
     ops.reset_launches()
+    forget_decisions()
     served = serve.run_continuous(session, server)
     launches = dict(ops.LAUNCHES)
     s, c = served.scheduler, served.counts
     n_layers = session.cfg.n_layers
     n_steps = c["decode_steps"]
-    n_samples = n_steps + c["admissions"]
     check(len(served.completions) == 8, "not every request was served")
     check(launches["paged_attend"] == n_layers * n_steps,
           f"K6 launched {launches['paged_attend']} times for "
           f"{n_steps} decode steps of {n_layers} layers")
-    check(launches["runahead_topk_threshold"] == n_samples
-          and launches["multi_mass"] == 9 * n_samples
-          and launches["multi_entropy_moments"] == 9 * n_samples,
-          f"the samples did not go through K3-K5 as expected "
-          f"({n_samples} samples): {launches}")
+    # a decode step samples the 4 slots, an admission its one row
+    check_solver_launches(
+        launches, sampler_solves({PATH_B: n_steps, 1: c["admissions"]}),
+        "phase 9 continuous")
+    decided = decisions_note()
     check(c["dispatches"] == n_steps + 2 * c["admissions"]
           and c["host_syncs"] == n_steps + c["admissions"],
           f"dispatch counters {c}")
@@ -1438,7 +1574,8 @@ def phase_continuous():
         f"({c['dispatches'] / n_steps:.2f} and "
         f"{c['host_syncs'] / n_steps:.2f} per step) | latency p50 "
         f"{lat[len(lat) // 2] * 1e3:.0f} ms, max {lat[-1] * 1e3:.0f} ms | "
-        f"peak {s.peak_pages} pages | launches {launches}")
+        f"peak {s.peak_pages} pages | launches {launches} | decisions: "
+        f"{decided}")
     say_graphs("phase 9", s)
 
     warm = serve.run_continuous(session, server)
@@ -1567,7 +1704,6 @@ def phase_train():
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train
-    from repro_torch.optim.clip import clip_by_quantile
 
     per_step, prof = [], {}
 
@@ -1588,6 +1724,7 @@ def phase_train():
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ops.reset_launches()
+    forget_decisions()
     out = train.main(TRAIN_ARGV, on_step=on_step)
     launches = dict(ops.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1595,18 +1732,19 @@ def phase_train():
     check(len(losses) == 6 and all(map(math.isfinite, losses)),
           f"training losses not all finite: {losses}")
     n_layers = 24
-    # the clip's solve: one K2 a round, q > 0 making the sign at lo0 known
-    clip_rounds = inspect.signature(clip_by_quantile).parameters[
-        "rounds"].default
+    # the clip's solve, one a step: the (1, leaves) quantile of the
+    # per-leaf norms, one K2 a round of the tuner's decision (q > 0 makes
+    # the sign at lo0 known)
+    want = solver_launches({("count_below", 1, False): 1})
     prev = {name: 0 for name in launches}
     for i, snap in enumerate(per_step):
-        k7 = snap["flash_fwd"] - prev["flash_fwd"]
-        k2 = snap["multi_count"] - prev["multi_count"]
-        check(k7 == 2 * n_layers, f"step {i}: K7 launched {k7} times, "
-                                  f"expected {2 * n_layers}")
-        check(k2 == clip_rounds, f"step {i}: the quantile clip launched K2 "
-                                 f"{k2} times, not once a round "
-                                 f"({clip_rounds})")
+        moved = {k: snap[k] - prev[k] for k in snap}
+        check(moved["flash_fwd"] == 2 * n_layers,
+              f"step {i}: K7 launched {moved['flash_fwd']} times, expected "
+              f"{2 * n_layers}")
+        check({k: moved[k] for k in SOLVER_KERNELS} == want,
+              f"step {i}: the quantile clip launched {moved}, where the "
+              f"tuner's decision ({decisions_note()}) gives {want}")
         prev = snap
     timed = out["step_seconds"][1:TRAIN_PROFILED_STEP]
     ms = statistics.median(timed) * 1e3
@@ -1618,7 +1756,7 @@ def phase_train():
         f"{[round(t * 1e3, 1) for t in timed]} ms, median {ms:.1f} ms = "
         f"{n_tok / ms * 1e3:.0f} tok/s | peak memory {peak_gb:.2f} GB | "
         f"K7 {2 * n_layers} and K2 {per_step[0]['multi_count']} launches per "
-        f"step | launches {launches}")
+        f"step (the clip: {decisions_note()}) | launches {launches}")
     events = prof["p"].key_averages()
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1678,10 +1816,11 @@ def _capture_log(name: str):
     return lines, handler
 
 
-def phase_fault():
+def phase_fault(cache: Path):
     """Reduced internlm2-1.8b on the card: killed at step 7 in a
-    subprocess, resumed from step_5 in-process; the resumed losses and
-    final checkpoint equal an uninterrupted run's."""
+    subprocess (on the tuning cache ``cache``, as this process), resumed
+    from step_5 in-process; the resumed losses and final checkpoint equal
+    an uninterrupted run's."""
     import json as _json
     import logging
     import os
@@ -1693,7 +1832,8 @@ def phase_fault():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         killed, straight = os.path.join(tmp, "killed"), os.path.join(
             tmp, "straight")
-        env = dict(os.environ, PYTHONPATH=str(src))
+        env = dict(os.environ, PYTHONPATH=str(src),
+                   REPRO_TORCH_TUNING_CACHE=str(cache))
         died = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.train", *FAULT_ARGV,
              "--ckpt-dir", killed, "--die-at-step", "7"],
@@ -1763,12 +1903,12 @@ def phase_mixed_k(gen):
     t0 = time.perf_counter()
     session = serve.setup(CONT_ARGV)
     sc = session.sampler
-    # K2 launches a per-row-k solve makes: one a round, and one more for
-    # the sign at lo0, which the engine knows only for a static k
+    # the engine knows the sign at lo0 only for a static k: a per-row-k
+    # solve spends one more K2 launch on it (solver_launches counts it)
     probe = solver.problem("count_above", torch.zeros((1, 2)),
                            backend="torch",
                            k=torch.ones(1, dtype=torch.long)).sign_lo is None
-    per_solve = sc.rounds + int(probe)
+    check(probe, "a per-row top-k solve knows its sign at lo0")
 
     def serve_mixed(server, n_requests=None):
         sched = server.scheduler
@@ -1793,27 +1933,28 @@ def phase_mixed_k(gen):
 
     server = serve.server_for(session)
     ops.reset_launches()
+    forget_decisions()
     done, secs, n_steps, n_adm, n_mixed = serve_mixed(server)
     launches = dict(ops.LAUNCHES)
-    n_samples = n_steps + n_adm
     n_tok = sum(len(c.tokens) for c in done)
     check(len(done) == 8, f"served {len(done)} of 8 requests")
     check(n_mixed > 0, "no decode step had mixed top_k")
-    check(launches["multi_count"] == per_solve * n_mixed
-          and launches["runahead_topk_threshold"] == n_samples - n_mixed
-          and launches["multi_mass"] == 9 * n_samples
-          and launches["multi_entropy_moments"] == 9 * n_samples,
-          f"{n_mixed} mixed-k steps of {n_samples} samples: expected K2 "
-          f"{per_solve} a mixed step, K3 on the rest, K4 and K5 9 a "
-          f"sample; got {launches}")
+    check_solver_launches(
+        launches, sampler_solves({PATH_B: n_steps, 1: n_adm}, n_mixed),
+        f"phase 13 ({n_mixed} mixed-k steps of {n_steps}, {n_adm} "
+        f"admissions)")
+    # K2 launches a mixed-k step's solve makes
+    per_solve = solver_launches(
+        {("count_above", PATH_B, False): 1})["multi_count"]
+    (mixed_d, _) = decisions()[("count_above", PATH_B, False)]
     say(f"phase 13 mixed top-k: qwen3-4b full width, 8 requests with top_k "
         f"{MIXED_TOP_K} in turn / {n_tok} tokens in {secs:.3f}s = "
         f"{n_tok / secs:.1f} tok/s on {torch.cuda.get_device_name(0)} "
         f"(first run, captures included) | {n_steps} decode steps "
         f"({n_mixed} with mixed top_k), {n_adm} admissions | "
-        f"K2 {per_solve} launches per mixed-k sample ({sc.rounds} rounds + "
-        f"{int(probe)} probe at lo0), {launches['multi_count']} in all | "
-        f"launches {launches}")
+        f"K2 {per_solve} launches per mixed-k sample ({mixed_d.rounds} "
+        f"rounds + 1 probe at lo0), {launches['multi_count']} in all | "
+        f"launches {launches} | decisions: {decisions_note()}")
     say_graphs("phase 13", server.scheduler)
     first = {c.rid: c.tokens for c in done}
     eager_server = serve.server_for(session)
@@ -2174,6 +2315,7 @@ def _spec_ngram(session) -> dict:
 
     sched.step_device = step_device
     ops.reset_launches()
+    forget_decisions()
     first, secs, c = timed_run(server, reqs)
     launches = dict(ops.LAUNCHES)
     del sched.step_device
@@ -2184,12 +2326,15 @@ def _spec_ngram(session) -> dict:
     check(launches["paged_attend"] == n_layers * n_steps,
           f"K6 launched {launches['paged_attend']} times for {n_steps} "
           f"verify steps of {n_layers} layers")
-    n_calls = n_solve + n_sampled_adm
-    check(launches["runahead_topk_threshold"] == n_calls
-          and launches["multi_mass"] == 9 * n_calls
-          and launches["multi_entropy_moments"] == 9 * n_calls,
-          f"the verify grids did not go through K3-K5 once per sampled step "
-          f"({n_solve} steps, {n_sampled_adm} admissions): {launches}")
+    # a verify step with a sampled slot solves over its 4 x L grid rows
+    # at once, a sampled admission over its one row
+    rows = PATH_B * sched.draft_len
+    per_grid = solver_launches(sampler_solves({rows: 1}))
+    check_solver_launches(
+        launches, sampler_solves({rows: n_solve, 1: n_sampled_adm}),
+        f"phase 15 n-gram ({n_solve} verify steps with a sampled slot, "
+        f"{n_sampled_adm} sampled admissions)")
+    decided = decisions_note()
     check(c["dispatches"] == n_steps + 2 * c["admissions"]
           and c["host_syncs"] == n_steps + c["admissions"],
           f"dispatch counters {c}")
@@ -2210,8 +2355,10 @@ def _spec_ngram(session) -> dict:
         f"{n_layers} x {n_steps} steps; K3 {launches['runahead_topk_threshold']}"
         f", K4 {launches['multi_mass']}, K5 "
         f"{launches['multi_entropy_moments']} for {n_solve} steps with a "
-        f"sampled slot (1, 9, 9 per step, over the 4x{DRAFT_LEN} grid rows) "
-        f"and {n_sampled_adm} sampled admissions")
+        f"sampled slot ({per_grid['runahead_topk_threshold']}, "
+        f"{per_grid['multi_mass']}, {per_grid['multi_entropy_moments']} "
+        f"per step, over the 4x{sched.draft_len} grid rows) and "
+        f"{n_sampled_adm} sampled admissions | decisions: {decided}")
     say_graphs("phase 15", sched)
     draft_s = sched.draft_s
     warm, secs, cw = timed_run(server, reqs)
@@ -2439,17 +2586,17 @@ class MoERecorder:
         return float(torch.stack(self.dropped).mean())
 
 
-def _capacity_row(operands, note: str) -> dict:
-    """K3 on the capacity cut's (e_pad, A) masked scores (k = cap, rounds 6,
-    spec_k 5): bit for bit against its plain version on every recorded
-    call's operand; timed (device, eager, plain, torch.topk) on the
-    first."""
+def _capacity_row(operands, decision, note: str) -> dict:
+    """K3 on the capacity cut's (e_pad, A) masked scores (k = cap, the
+    path's decision's rounds and spec_k): bit for bit against its plain
+    version on every recorded call's operand; timed (device, eager,
+    plain, torch.topk) on the first."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.kernels import runahead_threshold as rt
 
-    kw = dict(rounds=6, spec_k=5)
+    kw = dict(rounds=decision.rounds, spec_k=decision.spec_k)
     masks = []
     for scores, expert, e_pad, cap in operands:
         rows = torch.arange(e_pad, device=scores.device)[:, None]
@@ -2478,7 +2625,8 @@ def _capacity_row(operands, note: str) -> dict:
         bound=bound_ms(4 * (x.numel() + 2 * E), 2 * x.numel() * n_cmp),
         library_ms=device_ms(lambda: torch.topk(x, cap, dim=-1)),
         library="torch.topk",
-        note=f"({E}, {A}) masked scores, k = cap {cap}, {len(masks)} calls "
+        note=f"({E}, {A}) masked scores, k = cap {cap}, spec_k "
+             f"{kw['spec_k']} x {kw['rounds']} rounds, {len(masks)} calls "
              f"held bit for bit; {clusters} CTAs a row of {size} elements, "
              f"{E * clusters} CTAs on the card's 132 SMs; {note}")
 
@@ -2533,16 +2681,16 @@ def phase_moe_serve(gen):
     weights_gb = sum(t.numel() * t.element_size()
                      for t in leaves(params)) / 1e9
     ops.reset_launches()
+    forget_decisions()
     served = serve.run(session)
     launches = dict(ops.LAUNCHES)
     toks = served.tokens
     check(tuple(toks.shape) == (4, NEW_TOKENS), f"tokens {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
           "token out of range")
-    check(launches["runahead_topk_threshold"] == NEW_TOKENS
-          and launches["multi_mass"] == 9 * NEW_TOKENS
-          and launches["multi_entropy_moments"] == 9 * NEW_TOKENS,
-          f"the MoE serve did not sample through K3-K5: {launches}")
+    check_solver_launches(launches, sampler_solves({PATH_B: NEW_TOKENS}),
+                          "phase 16 MoE serve")
+    decided = decisions_note()
     graphs = session.decode.graphs
     check(len(graphs.keys) == 1, f"decode graphs {graphs.keys}")
     warm_s = serve.run(session).seconds
@@ -2563,7 +2711,8 @@ def phase_moe_serve(gen):
         f"first {served.seconds:.3f}s (one eager step and the capture, "
         f"{graphs.capture_s:.3f}s), warm {warm_s:.3f}s = "
         f"{n_tok / warm_s:.1f} tok/s; tokens == the eager loop's bit for "
-        f"bit | launches {launches} | row 0: {toks[0].tolist()}")
+        f"bit | launches {launches} | decisions: {decided} | row 0: "
+        f"{toks[0].tolist()}")
     _, busy_ms, wall_ms, kernels, calls = profiled(lambda: serve.run(session))
     say_profile("phase 16 one-shot", busy_ms, wall_ms, kernels, calls, n_tok,
                 "token", "; warm")
@@ -2585,16 +2734,15 @@ def phase_moe_serve(gen):
                           decode=DecodeGraphs())
     server = serve.server_for(cs)
     ops.reset_launches()
+    forget_decisions()
     first = serve.run_continuous(cs, server)
     cont = dict(ops.LAUNCHES)
     c = first.counts
-    n_samples = c["decode_steps"] + c["admissions"]
     check(len(first.completions) == 8, "not every MoE request was served")
-    check(cont["runahead_topk_threshold"] == n_samples
-          and cont["multi_mass"] == 9 * n_samples
-          and cont["multi_entropy_moments"] == 9 * n_samples,
-          f"the continuous MoE samples did not go through K3-K5 "
-          f"({n_samples} samples): {cont}")
+    check_solver_launches(
+        cont, sampler_solves({PATH_B: c["decode_steps"],
+                              1: c["admissions"]}),
+        "phase 16 continuous MoE serve")
     warm = serve.run_continuous(cs, server)
     check(streams(warm) == streams(first), "warm MoE streams differ")
     eager_server = serve.server_for(cs)
@@ -2627,6 +2775,7 @@ def phase_moe_serve(gen):
     for mode in ("fifo", "bisect"):
         with MoERecorder(check_keep=mode == "bisect") as rec:
             ops.reset_launches()
+            forget_decisions()
             prefill(cfg, params, prompt, context, capacity_mode=mode)
             torch.cuda.synchronize()
             prefill_launches = dict(ops.LAUNCHES)
@@ -2634,22 +2783,26 @@ def phase_moe_serve(gen):
     check(len(rec.equal) == cfg.n_layers and all(rec.equal),
           f"bisect keep masks (K3) differ from the torch backend's: "
           f"{rec.equal}")
-    check(prefill_launches["runahead_topk_threshold"] == cfg.n_layers,
-          f"the bisect prefill launched K3 "
-          f"{prefill_launches['runahead_topk_threshold']} times, not once a "
-          f"layer ({cfg.n_layers})")
+    # the capacity cut: one solve a layer, a static k (the capacity) over
+    # the (e_pad, A) masked scores
+    e_pad = rec.operands[0][2]
+    check_solver_launches(
+        prefill_launches, {("count_above", e_pad, True): cfg.n_layers},
+        "phase 16 bisect prefill")
+    (cut, _) = decisions()[("count_above", e_pad, True)]
     _, busy_ms, wall_ms, kernels, calls = profiled(lambda: prefill(
         cfg, params, prompt, context, capacity_mode="bisect"))
     say(f"phase 16 bisect prefill (4 x 64 prompt tokens, A = "
         f"{rec.operands[0][0].numel()} assignments, cap "
         f"{rec.operands[0][3]}): every layer's K3 keep mask == the torch "
-        f"backend's bit for bit ({cfg.n_layers} layers, {cfg.n_layers} K3 "
-        f"launches) | dropped fraction fifo {dropped['fifo']:.6f}, bisect "
-        f"{dropped['bisect']:.6f}")
+        f"backend's bit for bit ({cfg.n_layers} layers, "
+        f"{prefill_launches['runahead_topk_threshold']} K3 launches; "
+        f"{decisions_note()}) | dropped fraction fifo "
+        f"{dropped['fifo']:.6f}, bisect {dropped['bisect']:.6f}")
     if kernels:
         say_kernel_times("phase 16 bisect prefill", kernels, busy_ms,
                          (("K3", "runahead_topk"),))
-    row = _capacity_row(rec.operands, "phase 16's bisect prefill")
+    row = _capacity_row(rec.operands, cut, "phase 16's bisect prefill")
     say_row("phase 16 K3 moe-prefill-bisect", row)
     peak = torch.cuda.max_memory_allocated() / 1e9
     say(f"phase 16 peak memory {peak:.2f} GB (weights {weights_gb:.2f} GB) "
@@ -2712,7 +2865,6 @@ def phase_moe_train(gen):
     from repro_torch.kernels import multi_count as mc
     from repro_torch.kernels import ops
     from repro_torch.launch import train
-    from repro_torch.optim.clip import clip_by_quantile
 
     t0 = time.perf_counter()
     cfg = get_config("granite-moe-3b-a800m")
@@ -2750,6 +2902,7 @@ def phase_moe_train(gen):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ops.reset_launches()
+    forget_decisions()
     try:
         with MoERecorder() as rec:
             out = train.main(MOE_TRAIN_ARGV + ["--layers", str(L)],
@@ -2762,19 +2915,21 @@ def phase_moe_train(gen):
     check(len(losses) == MOE_TRAIN_STEPS
           and all(map(math.isfinite, losses)),
           f"MoE training losses not all finite: {losses}")
-    clip_rounds = inspect.signature(clip_by_quantile).parameters[
-        "rounds"].default
+    # per step: the capacity cut once a layer forward and once in its
+    # remat recompute, a static k over the (e_pad, A) masked scores; the
+    # clip's (1, leaves) quantile once
+    e_pad = rec.last[2]
+    want = solver_launches({("count_above", e_pad, True): 2 * L,
+                            ("count_below", 1, False): 1})
+    (cut, _) = decisions()[("count_above", e_pad, True)]
+    (clip_d, _) = decisions()[("count_below", 1, False)]
     prev = {name: 0 for name in launches}
     for i, snap in enumerate(per_step):
         moved = {k: snap[k] - prev[k] for k in snap}
-        check(moved["runahead_topk_threshold"] == 2 * L,
-              f"step {i}: K3 launched {moved['runahead_topk_threshold']} "
-              f"times, not once a layer forward and once in its remat "
-              f"recompute ({2 * L})")
-        check(moved["multi_count"] == clip_rounds,
-              f"step {i}: the quantile clip launched K2 "
-              f"{moved['multi_count']} times, not once a round "
-              f"({clip_rounds})")
+        check({k: moved[k] for k in SOLVER_KERNELS} == want,
+              f"step {i}: the capacity cut and the clip launched {moved}, "
+              f"where the tuner's decisions ({decisions_note()}) give "
+              f"{want}")
         check(moved["flash_fwd"] == 2 * L,
               f"step {i}: K7 launched {moved['flash_fwd']} times")
         prev = snap
@@ -2790,8 +2945,9 @@ def phase_moe_train(gen):
         f"{MOE_TRAIN_STEPS - 2} {[round(t * 1e3, 1) for t in timed]} ms, "
         f"median {ms:.1f} ms = {n_tok / ms * 1e3:.0f} tok/s | peak memory "
         f"{peak_gb:.2f} GB (reckoned {reckoned['cut']['total'] / 1e9:.2f} "
-        f"GB) | per step: K3 {2 * L} (the capacity cut, forward and "
-        f"recompute), K2 {clip_rounds} (the clip), K7 {2 * L} | dropped "
+        f"GB) | per step: K3 {want['runahead_topk_threshold']} (the "
+        f"capacity cut, forward and recompute), K2 {want['multi_count']} "
+        f"(the clip), K7 {2 * L} ({decisions_note()}) | dropped "
         f"fraction {rec.dropped_frac():.6f} over {len(rec.dropped)} MoE "
         f"calls | launches {launches}")
     events = prof["p"].key_averages()
@@ -2810,17 +2966,17 @@ def phase_moe_train(gen):
             for g, (ms_, n_) in _kernel_groups(kernels).items()))
 
     # K3 at the training capacity shape, on this run's last routing; K2
-    # at the clip's (1, leaves) with 2**spec_k - 1 candidates
+    # at the clip's (1, leaves) with the 2**spec_k - 1 candidates of the
+    # clip's decision
     tokens = batch * seq
     scores, expert, e_pad, cap = rec.last
     check((e_pad, scores.numel()) == (48, tokens * cfg.moe_top_k),
           f"the last capacity cut had ({e_pad}, {scores.numel()})")
     k3_row = _capacity_row(
-        [rec.last], f"phase 17's training shape (batch {batch} x {seq} "
-        f"tokens, top-{cfg.moe_top_k}), the run's last routing")
+        [rec.last], cut, f"phase 17's training shape (batch {batch} x "
+        f"{seq} tokens, top-{cfg.moe_top_k}), the run's last routing")
     x = norms["last"][None, :].float()
-    spec_k = inspect.signature(clip_by_quantile).parameters["spec_k"].default
-    M = 2 ** spec_k - 1
+    M = 2 ** clip_d.spec_k - 1
     taus = x.amin() + (x.amax() - x.amin()) * torch.rand(
         (1, M), generator=gen, device="cuda")
     got = ops.multi_count(x, taus, below=True)
@@ -2835,7 +2991,8 @@ def phase_moe_train(gen):
         bound=bound_ms(4 * (x.numel() + 2 * M), 2 * x.numel() * M),
         library_ms=None, library="none",
         note=f"the quantile clip's (1, {x.shape[1]}) per-leaf norms of this "
-             f"run's last step, {M} candidates, counting below")
+             f"run's last step, {M} candidates (spec_k {clip_d.spec_k} x "
+             f"{clip_d.rounds} rounds), counting below")
     say_row("phase 17 K3 moe-train", k3_row)
     say_row("phase 17 K2 moe-train", k2_row)
     say(f"phase 17 took {time.perf_counter() - t0:.1f}s")
@@ -2853,23 +3010,38 @@ def _with_backend(argv: list[str], backend: str) -> list[str]:
 
 
 def _tune_cases(gen):
-    """The sampler's solves at the served shape (B=4, V=151936): (label,
-    kind, operand, params, probe, fused), ``probe`` where the engine
-    spends an M=1 call on the sign at lo0, ``fused`` where K3's whole
-    solve takes the budget's whole-round decompositions."""
+    """The solves the tuner decides on the default paths: the sampler's at
+    the served shape (B=4, V=151936) and its budget, and the quantile
+    clip's at (1, leaves) and its own.  (label, kind, operand, params,
+    probe, fused, (rounds, spec_k)), ``probe`` where the engine spends an
+    M=1 call on the sign at lo0, ``fused`` where K3's whole solve takes
+    the budget's whole-round decompositions."""
     import torch
+
+    from repro_torch.optim.clip import clip_by_quantile
 
     x = torch.randn((PATH_B, PATH_V), generator=gen, device="cuda") * 2.0
     probs = torch.softmax(x, dim=-1)
     k_rows = torch.tensor([1, 40, 300, 5000], device="cuda")
+    norms = torch.rand(K2_CLIP[:2], generator=gen, device="cuda") + 0.1
+    clip = {n: p.default for n, p in inspect.signature(
+        clip_by_quantile).parameters.items() if n in ("q", "rounds",
+                                                      "spec_k")}
+    sampler = (TUNE_ROUNDS, TUNE_SPEC_K)
     return [
-        ("top-k, static k (K3)", "count_above", x, dict(k=40), False, True),
+        ("top-k, static k (K3)", "count_above", x, dict(k=40), False, True,
+         sampler),
         ("top-k, per-row k (K2)", "count_above", x, dict(k=k_rows), True,
-         False),
-        ("top-p (K4)", "mass_at_or_above", probs, dict(p=0.9), True, False),
+         False, sampler),
+        ("top-p (K4)", "mass_at_or_above", probs, dict(p=0.9), True, False,
+         sampler),
         ("entropy (K5)", "entropy_at_temperature", x, dict(target=3.0), True,
-         False),
-        ("quantile (K2 below)", "count_below", x, dict(q=0.3), False, False),
+         False, sampler),
+        ("quantile (K2 below)", "count_below", x, dict(q=0.3), False, False,
+         sampler),
+        (f"the quantile clip {tuple(norms.shape)} (K2 below)", "count_below",
+         norms, dict(q=clip["q"]), False, False,
+         (clip["rounds"], clip["spec_k"])),
     ]
 
 
@@ -2885,20 +3057,19 @@ def _one_decision(kind, operand, **kw):
 
 
 def _tune_solves(gen, tmp: Path) -> list[dict]:
-    """Device ms of a graphed "hopper" solve at every spec_k for the
-    sampler's budget (TUNE_ROUNDS x TUNE_SPEC_K steps), brackets against
-    the "torch" backend at the same spec_k; the analytic, measured and
-    fixed picks, the analytic pick held to the fixed one within the
-    spread of the readings."""
+    """Device ms of a graphed "hopper" solve at every spec_k for each
+    case's budget (rounds x spec_k steps), brackets against the "torch"
+    backend at the same spec_k and against the hopper bracket at the
+    fixed spec_k; the analytic, measured and fixed picks."""
     import torch
 
     from repro_torch.core import solver, tuning
 
     out = []
-    kw = dict(rounds=TUNE_ROUNDS, spec_k=TUNE_SPEC_K)
-    for i, (label, kind, op, params, probe, fused) in enumerate(
-            _tune_cases(gen)):
-        times = {}
+    for i, (label, kind, op, params, probe, fused, (rounds, spec_k)) in (
+            enumerate(_tune_cases(gen))):
+        kw = dict(rounds=rounds, spec_k=spec_k)
+        times, brackets = {}, {}
         for k in range(1, 9):
             with tuning.override(spec_k=k):
                 def fn():
@@ -2906,7 +3077,7 @@ def _tune_solves(gen, tmp: Path) -> list[dict]:
                                              **kw, **params)
 
                 readings = device_ms_reps(fn, calls=10)
-                lo, hi = fn()
+                lo, hi = brackets[k] = fn()
                 rlo, rhi = solver.solve_kind(kind, op, backend="torch",
                                              **kw, **params)
             if kind.startswith("count"):
@@ -2918,8 +3089,15 @@ def _tune_solves(gen, tmp: Path) -> list[dict]:
                         f"from the torch backend's")
             times[k] = (statistics.median(readings),
                         max(readings) - min(readings))
+        # brackets equal to the fixed spec_k's bit for bit: the count
+        # kinds' always (exact counts); K4's and K5's float sums can round
+        # a candidate's value apart at another decomposition
+        serial = sum(all(torch.equal(a, b) for a, b in zip(
+            brackets[k], brackets[spec_k])) for k in brackets)
         key, analytic = _one_decision(kind, op, backend="hopper", **kw,
                                       **params)
+        check(analytic.source == "model",
+              f"{label}: the analytic decision came from {analytic.source}")
         cache = tmp / f"solve-{i}.json"
         tuning.set_cache_path(str(cache))
         with tuning.autotune():
@@ -2928,33 +3106,36 @@ def _tune_solves(gen, tmp: Path) -> list[dict]:
         tuning.set_cache_path(str(tmp / "none.json"))
         us = json.loads(cache.read_text())["entries"][key]["measured_us"]
         a_ms, a_spread = times[analytic.spec_k]
-        f_ms, f_spread = times[TUNE_SPEC_K]
+        f_ms, f_spread = times[spec_k]
         say(f"phase 18 solve {label}: device ms of a graphed solve of "
-            f"{TUNE_ROUNDS * TUNE_SPEC_K} steps (median of 5 replays of 10 "
-            f"solves; max-min in brackets) at spec_k "
+            f"{rounds * spec_k} steps (median of 5 replays of 10 solves; "
+            f"max-min in brackets) at spec_k "
             + ", ".join(f"{k}: {t:.4f} ({sp:.4f})"
                         for k, (t, sp) in times.items())
-            + f" | brackets == the torch backend's at every spec_k | "
+            + f" | brackets == the torch backend's at every spec_k, "
+            f"{serial} of 8 bit for bit equal to the fixed spec_k's | "
             f"analytic pick spec_k {analytic.spec_k} x {analytic.rounds} "
             f"rounds [{analytic.source}] {a_ms:.4f} ms, measured pick "
             f"spec_k {measured.spec_k} [{measured.source}; us {us}], fixed "
-            f"spec_k {TUNE_SPEC_K} x {TUNE_ROUNDS} {f_ms:.4f} ms | {key}")
+            f"spec_k {spec_k} x {rounds} {f_ms:.4f} ms | {key}")
         out.append(dict(label=label, kind=kind, probe=probe, fused=fused,
-                        times=times, analytic=(analytic.spec_k, a_ms,
-                                               a_spread),
+                        served=tuple(op.shape) == (PATH_B, PATH_V),
+                        budget=rounds * spec_k, fixed_k=spec_k, times=times,
+                        analytic=(analytic.spec_k, a_ms, a_spread),
                         fixed=(f_ms, f_spread)))
     return out
 
 
 def _check_analytic_picks(solves: list[dict]) -> None:
-    """At the served shape the analytic pick is not slower than the fixed
-    decomposition by more than the spread of either's readings."""
+    """The analytic pick is not slower than the fixed decomposition by
+    more than the spread of either's readings: at the served shape, and
+    at the quantile clip's, which the training paths solve by default."""
     for s in solves:
         k, a_ms, a_spread = s["analytic"]
         f_ms, f_spread = s["fixed"]
         check(a_ms <= f_ms + max(a_spread, f_spread),
               f"{s['label']}: the analytic pick spec_k {k} ({a_ms:.4f} ms) "
-              f"is slower than the fixed spec_k {TUNE_SPEC_K} ({f_ms:.4f} "
+              f"is slower than the fixed spec_k {s['fixed_k']} ({f_ms:.4f} "
               f"ms) by more than the spread")
 
 
@@ -2995,7 +3176,8 @@ def _kernel_ms_by_m(gen) -> dict:
 
 def _fit_profile(solves: list[dict], kernels: dict) -> None:
     """The Hopper profile's measured constants (core/tuning.py
-    PROFILES["cuda"]), by least squares over this run's readings: per
+    PROFILES["cuda"]), by least squares over this run's readings at the
+    served shape, each held to the profile's within PROFILE_SPREAD: per
     kernel, a call at M candidates as launch + M * slope, the slope as
     the kind's operations a (v, m) pair in units of the f32 peak
     (kind_flops) and the mean launch as backend_overhead; the engine's
@@ -3004,7 +3186,9 @@ def _fit_profile(solves: list[dict], kernels: dict) -> None:
     solve as launch + rounds * (per_round + 2**spec_k * per_point)."""
     import numpy as np
 
-    B, V, budget = PATH_B, PATH_V, TUNE_ROUNDS * TUNE_SPEC_K
+    from repro_torch.core import tuning
+
+    B, V = PATH_B, PATH_V
     ms = sorted(kernels)
     kind_flops, launches = {}, []
     for name in ("count", "mass_at_or_above", "entropy_at_temperature"):
@@ -3015,7 +3199,10 @@ def _fit_profile(solves: list[dict], kernels: dict) -> None:
         kind_flops[name] = float(b * F32_OPS_PER_S / (B * V))
     rows, ys, fused = [], [], []
     for s in solves:
+        if not s["served"]:
+            continue
         ev = "count" if s["kind"].startswith("count") else s["kind"]
+        budget = s["budget"]
         for k, (t, _) in s["times"].items():
             rounds, t = -(-budget // k), t * 1e-3
             if s["fused"] and rounds * k == budget:
@@ -3028,16 +3215,30 @@ def _fit_profile(solves: list[dict], kernels: dict) -> None:
                                            rcond=None)
     f, *_ = np.linalg.lstsq(np.array([r for r, _ in fused]),
                             np.array([t for _, t in fused]), rcond=None)
-    fit = dict(dispatch=float(dispatch), walk_step=float(walk),
-               backend_overhead=float(np.mean(launches)),
-               kind_flops={"count_above": kind_flops["count"],
-                           "count_below": kind_flops["count"],
-                           "mass_at_or_above": kind_flops["mass_at_or_above"],
-                           "entropy_at_temperature":
-                               kind_flops["entropy_at_temperature"]},
-               fused=tuple(float(v) for v in f))
-    say(f"phase 18 profile fit (least squares over this run's readings; "
-        f"core/tuning.py PROFILES['cuda'] holds a run's): {fit}")
+    prof = tuning.PROFILES["cuda"]
+    pairs = {
+        "dispatch": (float(dispatch), prof.dispatch),
+        "walk_step": (float(walk), prof.walk_step),
+        "backend_overhead": (float(np.mean(launches)),
+                             prof.backend_overhead["hopper"]),
+        "kind_flops count": (kind_flops["count"],
+                             prof.kind_flops["count_above"]),
+        "kind_flops mass": (kind_flops["mass_at_or_above"],
+                            prof.kind_flops["mass_at_or_above"]),
+        "kind_flops entropy": (kind_flops["entropy_at_temperature"],
+                               prof.kind_flops["entropy_at_temperature"]),
+    }
+    for i, part in enumerate(("launch", "per round", "per point")):
+        pairs[f"fused {part}"] = (float(f[i]), prof.fused["hopper"][i])
+    off = {name: abs(fit / held - 1) for name, (fit, held) in pairs.items()}
+    say("phase 18 profile fit (least squares over this run's readings, "
+        "beside core/tuning.py PROFILES['cuda']): " + ", ".join(
+            f"{name} {fit:.4g} (held {held:.4g}, {off[name]:.1%} off)"
+            for name, (fit, held) in pairs.items()))
+    check(max(off.values()) <= PROFILE_SPREAD,
+          f"a fitted Hopper profile constant is more than "
+          f"{PROFILE_SPREAD:.0%} off PROFILES['cuda']: recalibrate "
+          f"core/tuning.py ({off})")
 
 
 def _geometry_cases(gen):
@@ -3106,7 +3307,7 @@ def _tune_geometry(gen, tmp: Path) -> None:
         param = tuning.KERNEL_PARAMS[name]
         want = [w.float() for w in tensors(plain())]
         cells = []
-        for _, cand in tuning.kernel_candidates(key):
+        for cand in tuning.kernel_candidates(key):
             v = cand.params[param]
             got = [g.float() for g in tensors(launch(v))]
             again = [g.float() for g in tensors(launch(v))]
@@ -3123,7 +3324,7 @@ def _tune_geometry(gen, tmp: Path) -> None:
                     check(torch.allclose(g, w, **TOL),
                           f"{name} at {param}={v} differs from plain")
             cells.append(f"{v}: {device_ms(lambda: launch(v)):.4f}")
-        fixed = tuning.kernel_candidates(key)[0][1].params
+        fixed = tuning.kernel_candidates(key)[0].params
         with tuning.autotune():
             d = tuning.decide_kernel(
                 key, fixed=fixed,
@@ -3137,11 +3338,13 @@ def _tune_geometry(gen, tmp: Path) -> None:
 
 
 def _tuned_serves(tmp: Path, per_step_streams: dict) -> None:
-    """The launcher with --backend auto --autotune at full width, one-shot
-    and continuous paged, its cache in a temp dir; replayed with only the
-    solver tier's winners (the kernel tier at today's geometry: streams
-    equal the tuning.disabled() runs') and with both (top-k-only streams
-    equal the disabled run's); the decisions' ``tuned ... ->`` lines."""
+    """The launcher at full width, one-shot and continuous paged, under
+    tuning.disabled(); by default (the analytic solver tier, today's
+    geometry: the streams equal the disabled runs', phase 9's for the
+    continuous one); with --backend auto --autotune, its cache in a temp
+    dir; replayed with only the solver tier's winners (streams equal the
+    disabled runs') and with both (top-k-only streams equal the disabled
+    run's); the decisions' ``tuned ... ->`` lines."""
     import torch
 
     from repro_torch.core import tuning
@@ -3155,8 +3358,13 @@ def _tuned_serves(tmp: Path, per_step_streams: dict) -> None:
          "--backend", "hopper"], "auto")
     full, solver_only = tmp / "serve.json", tmp / "serve-solver.json"
     with tuning.disabled():
-        ref = serve.main(_with_backend(SERVE_ARGV, "hopper")).tokens
+        ref = serve.main(SERVE_ARGV).tokens
+        ref_cont = streams(serve.main(CONT_ARGV))
         ref_topk = serve.main(topk_only).tokens
+    check(torch.equal(serve.main(SERVE_ARGV).tokens, ref)
+          and per_step_streams == ref_cont,
+          "the default path's streams (the analytic solver tier) differ "
+          "from the tuning.disabled() runs'")
     full.unlink(missing_ok=True)
     tuning.set_cache_path(str(full))
     t0 = time.perf_counter()
@@ -3183,7 +3391,7 @@ def _tuned_serves(tmp: Path, per_step_streams: dict) -> None:
     check(all(d.source in ("cache", "model") for _, d in tuning.explain())
           and all(d.source == "model" for _, d in tuning.explain_kernels()),
           "the solver-tier replay measured again")
-    check(torch.equal(replay, ref) and replay_cont == per_step_streams,
+    check(torch.equal(replay, ref) and replay_cont == ref_cont,
           "under the solver tier alone the streams differ from the "
           "tuning.disabled() run's")
     tuning.set_cache_path(str(full))
@@ -3193,7 +3401,9 @@ def _tuned_serves(tmp: Path, per_step_streams: dict) -> None:
           "tuning.disabled() run's")
     tuning.set_cache_path(str(tmp / "none.json"))
     say(f"phase 18 tuned serves: qwen3-4b full width, one-shot and "
-        f"continuous paged with --backend auto --autotune ({tune_s:.1f}s, "
+        f"continuous paged: by default (phase 9's streams) tokens == the "
+        f"tuning.disabled() runs'; with --backend auto --autotune "
+        f"({tune_s:.1f}s, "
         f"{len(data['entries'])} solver and {len(data['kernels'])} kernel "
         f"winners kept); replayed with the solver tier's winners alone: "
         f"tokens == the tuning.disabled() runs' (one-shot row 0 "
@@ -3235,9 +3445,13 @@ def phase_tuning(gen, per_step_streams: dict, verify_ms: dict) -> None:
     geometry's time; the tuned launcher; the draft length."""
     import tempfile
 
+    from repro_torch.core import tuning
+
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         tmp = Path(d)
+        # no winner of an earlier run is replayed as an analytic pick
+        tuning.set_cache_path(str(tmp / "none.json"))
         solves = _tune_solves(gen, tmp)
         _fit_profile(solves, _kernel_ms_by_m(gen))
         _check_analytic_picks(solves)
@@ -3258,18 +3472,23 @@ def main() -> int:
         print(f"chip_smoke: no port package under {src}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    import tempfile
+
     from repro_torch.core import tuning
 
     t0 = time.perf_counter()
     smi = phase_card()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    # phases 3-17 pin the caller's decomposition and today's geometry:
-    # each holds launch counts that follow (rounds, spec_k) = (8, 5) or a
-    # kernel at its fixed geometry against its emulation; phase 18 drives
-    # the tuned path
-    with tuning.disabled():
-        rows = phase_kernels(gen)
+    # the paths run as a user runs them, in the tuner's default mode (the
+    # analytic solver tier, today's kernel geometry) on an empty cache, as
+    # in a fresh checkout; their launch counts follow the decisions it
+    # reports.  Phase 3 holds each kernel at today's geometry against its
+    # plain version and emulations, under tuning.disabled().
+    with tempfile.TemporaryDirectory() as d:
+        tuning.set_cache_path(str(Path(d) / "none.json"))
+        with tuning.disabled():
+            rows = phase_kernels(gen)
         solve_launches = phase_solves(gen)
         serve_launches, session = phase_serve()
         phase_reference(gen)
@@ -3280,7 +3499,7 @@ def main() -> int:
         launches_by_path["continuous"], per_step_streams = phase_continuous()
         phase_continuous_reference(gen)
         launches_by_path["train"] = phase_train()
-        phase_fault()
+        phase_fault(Path(d) / "none.json")
         launches_by_path["continuous-mixed-k"] = phase_mixed_k(gen)
         phase_horizon(per_step_streams)
         verify_ms = phase_speculative()
@@ -3288,7 +3507,7 @@ def main() -> int:
          k3_moe_serve) = phase_moe_serve(gen)
         launches_by_path["moe-train"], k3_moe_train, k2_moe_train = (
             phase_moe_train(gen))
-    phase_tuning(gen, per_step_streams, verify_ms)
+        phase_tuning(gen, per_step_streams, verify_ms)
 
     # the path whose run each kernel's launch count is read on: K2 runs
     # where the served requests' top_k differ (phase 13)

@@ -23,7 +23,14 @@ Two tiers, as in the JAX package:
 
 The kernel tier does the same for the geometry of the kernels K2-K6
 (:class:`KernelKey` -> :class:`KernelDecision`), consulted by
-``kernels/ops.py`` at each launch on the card.
+``kernels/ops.py`` at each launch on the card: today's geometry unless
+the cache holds a measured winner, every legal candidate timed under the
+measured tier.
+
+Without the measured tier, decisions still replay the winners a cache
+holds (the default file, or the one ``REPRO_TORCH_TUNING_CACHE`` names);
+a kernel geometry replayed from it changes the output bits of K4, K5 and
+K6 within their tolerances.
 
 Profiles.  ``PROFILES["cpu"]`` is the JAX package's CPU profile, with the
 backend names ``jnp`` and ``pallas`` spelt ``torch`` and ``hopper``, so
@@ -232,8 +239,7 @@ class HardwareProfile:
       fused           per backend, (launch, per round, per round and
                       grid point) seconds of a whole-solve kernel (K3:
                       its CTAs count and exchange 2**spec_k bins a
-                      round);
-      sms             streaming multiprocessors, for the kernel tier.
+                      round).
     """
 
     flops: float
@@ -251,7 +257,6 @@ class HardwareProfile:
         default_factory=dict)
     fused: Mapping[str, tuple[float, float, float]] = dataclasses.field(
         default_factory=dict)
-    sms: int = 0
 
 
 PROFILES: dict[str, HardwareProfile] = {
@@ -265,7 +270,7 @@ PROFILES: dict[str, HardwareProfile] = {
         vmem_bytes=128 * 1024 * 1024,
     ),
     # NVIDIA H100 SXM: 67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s
-    # of HBM, 227 KB of shared memory a block, 132 SMs (the roofline of
+    # of HBM, 227 KB of shared memory a block (the roofline of
     # PERF.md's kernel table).  The rest is chip_smoke.py phase 18's least-
     # squares fit at the served shape (B = 4, V = 151936, a budget of 40
     # steps) on an NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md,
@@ -286,7 +291,6 @@ PROFILES: dict[str, HardwareProfile] = {
                     "entropy_at_temperature": 24.61},
         backend_spill={"torch": 1.0},
         fused={"hopper": (30.07e-6, 2.10e-6, 32.9e-9)},
-        sms=132,
     ),
 }
 
@@ -576,81 +580,54 @@ class KernelDecision:
         return ",".join(f"{k}={v}" for k, v in self.block)
 
 
-def kernel_candidates(
-    key: KernelKey,
-    profile: HardwareProfile | None = None,
-) -> list[tuple[float, KernelDecision]]:
-    """Analytic (predicted_seconds, KernelDecision) pairs, each legal for
-    the kernel at the key's shape; today's geometry first.
+def kernel_candidates(key: KernelKey) -> list[KernelDecision]:
+    """The geometries the kernel takes at the key's shape, each legal:
+    today's first, then a fixed list of alternatives in ascending order.
 
     Key shapes per family:
       multi_count / multi_mass / multi_entropy_moments: (B, V, M)
       runahead_topk:  (B, V)
       paged_attend:   (B, n_kv, n_chain, page_size, L, R, head_dim)
-    Unknown families (K1, K7) return [] (the caller's fixed geometry
-    stands).
+    Unknown families (K1, K7) and shapes the kernel cannot take return
+    [] (the caller's fixed geometry stands).
 
-    The model: the B rows' blocks run in waves of the card's SMs (K6: two
-    blocks an SM), each wave as long as one block's roofline time at one
-    SM's share of the card's rates.  On it, today's geometry
-    (``row_reduce.blocks_per_row``, ``runahead_threshold.
-    cluster_geometry``, ``paged_attend.split_geometry``: one wave over
-    the card) is as fast as any, and what separates the geometries is
-    the kernels' fixed costs per block (K2/K4/K5's ticket finish, K3's
-    exchange of counts every round, K6's combine), a few microseconds
-    that a roofline cannot rank.  So the analytic tier keeps today's
-    geometry, as the JAX package's keeps its default geometry under the
-    interpreter, and the measured tier decides; the other candidates are
-    ordered by the model, which picks the measured tier's top 3.
+    The alternatives: blocks a row at 1/4, 1/2, 2 and 4 times today's
+    (at most ``row_reduce.max_blocks``); K3's legal cluster sizes of 1 to
+    16; K6's chain cut into 1 to 64 runs, none empty.  No model ranks
+    them: the kernels' cost at the served shapes is a few microseconds
+    of fixed cost per block (K2/K4/K5's ticket finish, K3's exchange of
+    counts every round, K6's combine), which a roofline cannot order, and
+    today's geometry (one wave over the card) is the analytic pick.  The
+    measured tier times every candidate.
     """
-    profile = profile or PROFILES["cuda"]
-    sms = profile.sms or PROFILES["cuda"].sms
-    sm_flops, sm_bw = profile.flops / sms, profile.mem_bw / sms
-    itemsize = 2 if key.dtype in ("bfloat16", "float16") else 4
-    costs: dict[int, float] = {}
-    base = None
-
     if key.kernel in ("multi_count", "multi_mass", "multi_entropy_moments"):
         B, V, M = key.shape
-        kind = {"multi_count": "count_above",
-                "multi_mass": "mass_at_or_above"}.get(
-                    key.kernel, "entropy_at_temperature")
-        kf = profile.kind_flops.get(kind, _KIND_FLOPS[kind])
         top = _rr.max_blocks(V)
-        base = _rr.blocks_per_row(B, V, sms)
-        for nb in {min(max(1, base * f // 4), top) for f in (1, 2, 4, 8, 16)}:
-            per_block = max(V / nb * M * kf / sm_flops, V / nb * 4 / sm_bw)
-            costs[nb] = -(-B * nb // sms) * per_block
-
+        base = _rr.blocks_per_row(B, V, _rr.CARD_SMS)
+        values = [min(max(1, base * f // 4), top) for f in (1, 2, 8, 16)]
     elif key.kernel == "runahead_topk":
         B, V = key.shape
-        legal = _rt.legal_clusters(V)
-        if legal:
-            base = _rt.cluster_geometry(B, V)[0]
-            for c in {c for c in (1, 2, 4, 8, 16, base) if c in legal}:
-                costs[c] = -(-B * c // sms) * _rt._slice(V, c) * 4 / sm_bw
-
+        values = [c for c in (1, 2, 4, 8, 16) if c in _rt.legal_clusters(V)]
+        if not values:
+            return []
+        base = _rt.cluster_geometry(B, V)[0]
     elif key.kernel == "paged_attend":
         B, nkv, n_chain, P, L, R, D = key.shape
-        if blocks.fits_smem(_pa.smem_bytes(L, R, P, D, itemsize),
-                            budget=profile.vmem_bytes):
-            base = _pa.split_geometry(B, nkv, n_chain)[0]
-            page = max(4.0 * L * R * P * D / sm_flops,
-                       itemsize * 2.0 * P * D / sm_bw)
-            for n in {_pa.split_runs(n_chain, n)[0]
-                      for n in (1, 2, 4, 8, 16, 32, 64, base)}:
-                pps = _pa.split_runs(n_chain, n)[1]
-                costs[n] = -(-B * nkv * n // (2 * sms)) * pps * page
-
-    if base is None:
+        itemsize = 2 if key.dtype in ("bfloat16", "float16") else 4
+        if not blocks.fits_smem(_pa.smem_bytes(L, R, P, D, itemsize)):
+            return []
+        base = _pa.split_geometry(B, nkv, n_chain)[0]
+        values = [_pa.split_runs(n_chain, n)[0]
+                  for n in (1, 2, 4, 8, 16, 32, 64)]
+    else:
         return []
     name = KERNEL_PARAMS[key.kernel]
-    order = sorted(costs, key=lambda v: (v != base, costs[v], v))
-    return [(costs[v], KernelDecision.make({name: v})) for v in order]
+    return [KernelDecision.make({name: v})
+            for v in [base] + sorted(set(values) - {base})]
 
 
 @functools.lru_cache(maxsize=1024)
-def _ranked_kernels(key: KernelKey) -> tuple:
+def _kernel_geometries(key: KernelKey) -> tuple:
     """``kernel_candidates(key)`` once per key: launches consult the
     kernel tier on every eager call."""
     return tuple(kernel_candidates(key))
@@ -965,9 +942,9 @@ class Tuner:
         tuning is disabled and always in the measured candidate set.
         measure: times candidate param dicts (seconds each, NaN drops a
         candidate).  Mirrors :meth:`decide`: disabled -> fixed, cache hit
-        -> legality-checked replay, analytic -> the model's cheapest,
-        measured -> the top 3 and fixed timed, the winner persisted under
-        the cache's "kernels" section.
+        -> legality-checked replay, analytic -> today's geometry (see
+        :func:`kernel_candidates`), measured -> every candidate and fixed
+        timed, the winner persisted under the cache's "kernels" section.
         """
         ck = key.cache_key()
 
@@ -980,7 +957,7 @@ class Tuner:
         if _is_disabled():
             return _remember(KernelDecision.make(fixed, source="fixed"))
 
-        ranked = _ranked_kernels(key)
+        geometries = _kernel_geometries(key)
         with self._lock:
             self._load_locked()
             hit = self._kernels.get(ck)
@@ -990,19 +967,19 @@ class Tuner:
             except (KeyError, TypeError, ValueError):
                 d = None
             # replay legality: exactly the params this kernel takes, and
-            # a geometry the kernel accepts at this shape (one of the
-            # analytic tier's candidates, or today's)
-            legal = {c.block for _, c in ranked}
+            # a geometry the kernel accepts at this shape (one of its
+            # candidates, or today's)
+            legal = {c.block for c in geometries}
             legal.add(KernelDecision.make(fixed).block)
             if d is not None and set(d.params) == set(fixed) \
                     and d.block in legal:
                 return _remember(dataclasses.replace(d, source="cache"))
 
-        best = (ranked[0][1] if ranked
+        best = (geometries[0] if geometries
                 else KernelDecision.make(fixed, source="model"))
 
         if measure is not None and _autotune_active(tune):
-            cand = [d for _, d in ranked[:3]]
+            cand = list(geometries)
             fx = KernelDecision.make(fixed, source="fixed")
             if all(c.block != fx.block for c in cand):
                 cand.append(fx)

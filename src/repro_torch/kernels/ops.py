@@ -10,8 +10,9 @@ can show that it went through the kernels; ``reset_launches`` zeroes them.
 On the card every launch of K2-K6 takes its geometry from the tuner's
 kernel tier (``core/tuning.py``, as JAX's ``kernels/ops.py`` does): a
 ``KernelKey`` of the call's shape, dtype and device resolves to a
-``KernelDecision`` (blocks a row, CTAs a cluster, chain splits), today's
-fixed geometry by default and under ``tuning.disabled()``, a measured
+``KernelDecision`` (blocks a row, CTAs a cluster, chain splits): today's
+fixed geometry under ``tuning.disabled()`` and by default, unless the
+tuning cache holds a winner for the key, which is replayed; a measured
 winner under ``tuning.autotune()``.  The plain versions take no geometry,
 so on the CPU nothing is decided.
 """

@@ -45,8 +45,13 @@ the CPU to ``torch`` and ``gather`` (where ``hopper`` would run the
 kernels' plain versions).  ``--backend auto`` leaves the backend to the
 tuner per solve shape (``hopper`` on the card), and ``--autotune`` turns
 on its measured tier: candidates are timed on the device and the winners
-kept in the port's cache (``REPRO_TORCH_TUNING_CACHE``); a ``tuned <key>
--> ...`` line per decision is logged after the serve.
+kept in the port's cache (``REPRO_TORCH_TUNING_CACHE``, by default
+``build/repro_torch/solver_tuning.json`` in the checkout); a ``tuned
+<key> -> ...`` line per decision is logged after the serve.  Without
+``--autotune`` the serve still replays the winners that cache holds (its
+solve decompositions, and kernel geometries that change K4, K5 and K6's
+output bits within their tolerances); ``REPRO_DISABLE_TUNING=1`` pins the
+fixed decomposition and today's geometries.
 Weights are random, drawn from ``--seed``.  Meshes are not ported yet.
 
 The MoE archs (``--arch qwen2-moe-a2.7b``, ``granite-moe-3b-a800m``)

@@ -1098,8 +1098,8 @@ def test_graphed_moe_serving_equals_the_eager_body(gen):
 
 
 # ---------------------------------------------------------------------------
-# the tuner's kernel tier: every candidate geometry of K2-K6 (the
-# analytic tier's candidates, core/tuning.py::kernel_candidates)
+# the tuner's kernel tier: every candidate geometry of K2-K6
+# (core/tuning.py::kernel_candidates)
 # ---------------------------------------------------------------------------
 
 def _geometries(kernel, shape, dtype="float32"):
@@ -1108,7 +1108,7 @@ def _geometries(kernel, shape, dtype="float32"):
     key = tuning.KernelKey(kernel, shape, dtype,
                            torch.cuda.get_device_name(0))
     return [d.params[tuning.KERNEL_PARAMS[kernel]]
-            for _, d in tuning.kernel_candidates(key)]
+            for d in tuning.kernel_candidates(key)]
 
 
 ROW_TUNE_SHAPES = [(4, 151936, 31), (16, 151936, 31), (64, 151936, 33),

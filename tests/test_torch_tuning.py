@@ -411,18 +411,18 @@ K6_SHAPES = [(4, 8, 34, 16, 1, 4, 128), (4, 8, 34, 16, 4, 4, 128),
 def test_row_reduce_candidates_legal_fixed_first(family):
     for B, V, M in ROW_SHAPES:
         cands = tuning.kernel_candidates(_kkey(family, (B, V, M)))
-        assert cands[0][1].params == {"nb": rr.blocks_per_row(
+        assert cands[0].params == {"nb": rr.blocks_per_row(
             B, V, rr.CARD_SMS)}
-        for _, d in cands:
+        for d in cands:
             assert 1 <= d.params["nb"] <= rr.max_blocks(V)
 
 
 def test_topk_candidates_legal_fixed_first():
     for B, V in K3_SHAPES:
         cands = tuning.kernel_candidates(_kkey("runahead_topk", (B, V)))
-        assert cands[0][1].params == {"clusters": rt.cluster_geometry(
+        assert cands[0].params == {"clusters": rt.cluster_geometry(
             B, V)[0]}
-        for _, d in cands:
+        for d in cands:
             c = d.params["clusters"]
             assert 1 <= c <= rt.MAX_CLUSTERS and rt._slice(V, c) <= \
                 rt.SLICE_MAX
@@ -436,9 +436,9 @@ def test_paged_candidates_legal_fixed_first():
         B, nkv, n_chain, P, L, R, D = shape
         cands = tuning.kernel_candidates(_kkey("paged_attend", shape,
                                                "bfloat16"))
-        assert cands[0][1].params == {"n_split": pa.split_geometry(
+        assert cands[0].params == {"n_split": pa.split_geometry(
             B, nkv, n_chain)[0]}
-        for _, d in cands:
+        for d in cands:
             n = d.params["n_split"]
             assert 1 <= n <= n_chain
             assert pa.split_runs(n_chain, n)[0] == n
@@ -471,7 +471,9 @@ def test_kernel_cache_roundtrip_and_stale_schema(cache):
     with tuning.autotune():
         d1 = t1.decide_kernel(_kkey(), fixed={"nb": 33}, measure=measure)
     assert d1.source == "measured" and d1.params == seen[0][1]
-    assert {"nb": 33} in seen[0]
+    # every legal geometry is timed, today's first
+    assert seen[0] == [d.params for d in tuning.kernel_candidates(_kkey())]
+    assert seen[0][0] == {"nb": 33}
     on_disk = json.loads(cache.read_text())
     [(ck, entry)] = on_disk["kernels"].items()
     assert ck == _kkey().cache_key() and entry["decision"]["block"] == \
