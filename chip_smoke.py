@@ -200,6 +200,35 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      --draft-len auto picks, beside what this run's phase 15 verify-step
      readings give, and a short speculative continuous serve through the
      launcher.
+ 19. the xlstm family served: xlstm-1.3b at its width and depth (48
+     layers: 42 mLSTM, 6 sLSTM; d_model 2048, 4 heads of 512, vocab
+     50304; 3.23 GB of random bf16 weights from seed 0) through
+     launch.serve: one-shot with phase 5's traffic (graphed decode steps
+     against the eager loop, bit for bit; K3-K5 as the tuner's decisions
+     give), continuous on the dense ring (8 requests of 500 prompt
+     tokens, not a multiple of the mLSTM chunk, n_new uniform in [16,
+     32], 4 slots) per step (the streams equal the eager step body's)
+     and at step_horizon 4 (the streams equal the per-step ones); tok/s
+     first and warm, device busy and idle share (profiled: the warm
+     one-shot serve, and 4 requests' graphed decode steps after their
+     eager admissions), each admission's ms (timed in the eager serve;
+     the sLSTM prefill is a serial loop), a graphed
+     decode step's device ms, one-shot and continuous, against its byte
+     bound (weights but the embedding, K/V, recurrent state read and
+     written); an inactive lane's whole cache bit for bit across a
+     graphed step while the live lanes' recurrent states move; prefill
+     and 8 decode steps against the full forward's logits in f32 at full
+     width, the depth cut to the first run of each kind (within
+     RECURRENT_F32_TOL of the largest |logit|); no token >= the vocab;
+     peak memory.
+ 20. the hymba family served, as phase 19: hymba-1.5b at its width and
+     depth (32 layers: 3 global and 29 sliding-window (1024) attention ||
+     SSM blocks, d_model 1600, 25/5 heads of 64, d_ff 5504, vocab 32001
+     padded to 32128; 2.79 GB of bf16), one-shot at batch 2 x 4096 prompt
+     tokens (K7 in the prefill, banded on 29 layers, 32 launches; the SWA
+     ring wrapped), continuous with 1500-token prompts (past the window,
+     under FLASH_MIN_SEQ); no token >= 32001 (the phantom columns sit at
+     the row's max - 80 after the sampler's clamp).
 
 Phases 4-17 run the paths as a user runs them: in the tuner's default
 mode (the analytic solver tier and today's kernel geometry), on an empty
@@ -222,7 +251,12 @@ kernel's key tile (``flash_fwd.bf16_check``); and at a ragged banded
 shape (S=1000,
 window 128, f32, atol 2e-5 / rtol 1e-4); bit for bit run to run.  Its
 bound counts the causal half of the score matrix at the bf16 tensor-core
-rate (989 TFLOP/s); the achieved TFLOP/s is printed beside it.
+rate (989 TFLOP/s); the achieved TFLOP/s is printed beside it.  At the
+recurrent paths' shapes phase 3 holds K3-K5 at B=4 on xlstm's vocab row
+(50304) and hymba's (32001 padded to 32128, the phantom columns at the
+row's max - 80), and K7 at hymba's prefill (B=2, S=4096, 25/5 heads of
+64, bf16) with window 1024 and 0 by ``bf16_check``, timed beside one SDPA
+call with a boolean band mask and enable_gqa.
 
 The line before the last is a JSON object listing the kernels, each with
 the path its launch count was read on ("serve": phase 5; "paper": phase
@@ -231,7 +265,10 @@ the path its launch count was read on ("serve": phase 5; "paper": phase
 launch), and three more for the MoE paths, each measured at its path's
 shapes: K3 as the capacity cut of phase 16's bisect prefill
 ("moe-prefill-bisect") and of phase 17's training ("moe-train"), and K2
-as phase 17's quantile clip ("moe-train").  A launch count is the wrappers' count of eager launches plus,
+as phase 17's quantile clip ("moe-train"); and for the recurrent paths,
+K3-K5 at the vocab rows of phases 19 and 20 ("xlstm-serve",
+"hymba-serve": their one-shot serves) and K7 at hymba's prefill shape
+("hymba-prefill": phase 20's one-shot prefill).  A launch count is the wrappers' count of eager launches plus,
 for every graph replay, the launches its capture recorded.  Each entry's
 bound_ms is the larger of its bytes and operations bounds; K1's chain of
 dependent steps is bounded by latency instead, which its entry carries
@@ -333,6 +370,32 @@ MOE_TRAIN_ARGV = ["--arch", "granite-moe-3b-a800m", "--steps",
                   "--capacity-mode", "bisect", "--clip-mode", "quantile",
                   "--log-every", "1", "--seed", "0"]
 MOE_TRAIN_BUDGET = 70e9
+# phases 19 and 20: the recurrent families at full width and depth with
+# phase 5's sampler, one-shot and on the dense ring (8 requests, n_new
+# uniform in [16, 32], two arriving a step, 4 slots) at step horizons 1
+# and 4.  xlstm: phase 5's one-shot traffic, 500-token prompts (not a
+# multiple of the mLSTM chunk); hymba: a 4096-token one-shot prompt (K7 in
+# the prefill, the SWA ring wrapped), 1500-token prompts (past the window,
+# under FLASH_MIN_SEQ)
+XLSTM_SERVE_ARGV = ["--arch", "xlstm-1.3b", "--batch", "4", "--prompt-len",
+                    "64", "--new-tokens", "16"] + SAMPLER_ARGV
+XLSTM_CONT_ARGV = ["--arch", "xlstm-1.3b", "--continuous", "--requests", "8",
+                   "--slots", "4", "--arrival-burst", "2", "--prompt-len",
+                   "500", "--new-tokens", "32"] + SAMPLER_ARGV
+HYMBA_SERVE_ARGV = ["--arch", "hymba-1.5b", "--batch", "2", "--prompt-len",
+                    "4096", "--new-tokens", "16"] + SAMPLER_ARGV
+HYMBA_CONT_ARGV = ["--arch", "hymba-1.5b", "--continuous", "--requests", "8",
+                   "--slots", "4", "--arrival-burst", "2", "--prompt-len",
+                   "1500", "--new-tokens", "32"] + SAMPLER_ARGV
+# the f32 check of prefill + decode steps against the forward, depth cut
+# to the first run of each kind: (prompt, positions compared) an arch (the
+# hymba prompt runs past its window of 1024); its tolerance, a fraction of
+# the logits' largest |value|
+RECURRENT_CHECK = {"xlstm-1.3b": (100, 9), "hymba-1.5b": (1100, 9)}
+RECURRENT_F32_TOL = 1e-3
+# K3-K5 at the recurrent paths' vocab rows (B = 4), K7 at hymba's prefill
+NEW_VOCABS = {"xlstm-serve": 50304, "hymba-serve": 32001}
+K7_HYMBA = dict(B=2, S=4096, H=25, Hk=5, D=64, window=1024)
 FAULT_ARGV = ["--arch", "internlm2-1.8b", "--reduced", "--device", "cuda",
               "--steps", "10", "--batch", "4", "--seq", "64", "--clip-mode",
               "quantile", "--ckpt-every", "5", "--log-every", "1"]
@@ -1148,6 +1211,162 @@ def _rows_k7(gen):
              f"max |diff| from the plain version "
              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))}
 
+
+
+def _rows_new_paths(gen) -> dict:
+    """Phase 3 at the recurrent paths' shapes: K3-K5 at B=4 on the vocab
+    rows of xlstm-1.3b (50304) and hymba-1.5b (32001, padded to 32128: its
+    127 phantom columns at the row's max - 80, where the sampler's clamp
+    puts the unembedding's -1e30), K3 bit for bit, K4 and K5 within rtol
+    1e-5 / atol 1e-6; K7 at hymba's prefill shape (B=2, S=4096, 25 query
+    heads over 5 K/V heads, head_dim 64, bf16) with window 1024 (its 29
+    sliding-window layers) and 0 (its 3 global ones), each by
+    ``flash_fwd.bf16_check`` and bit-stable, timed beside its bound and
+    one SDPA call with a boolean band mask and enable_gqa.  Returns {path:
+    {kernel: row}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_fwd as ff
+    from repro_torch.kernels import multi_entropy as me
+    from repro_torch.kernels import multi_mass as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import runahead_threshold as rt
+
+    out = {}
+    kw = dict(k_target=40, rounds=8, spec_k=5)
+    n_cmp = 2 + 1 + kw["rounds"] * kw["spec_k"]
+    for path, vocab in NEW_VOCABS.items():
+        V = -(-vocab // 128) * 128
+        x = torch.randn((PATH_B, V), generator=gen, device="cuda") * 2.0
+        x[:, vocab:] = x[:, :vocab].amax(-1, keepdim=True) - 80.0
+        got = rt.runahead_topk_threshold_cuda(x, **kw)
+        want = rt.runahead_topk_threshold_plain(x, **kw)
+        for g, w in zip(got, want):
+            check(torch.equal(g, w), f"K3 differs from plain at {(PATH_B, V)}")
+        clusters, size = rt.cluster_geometry(PATH_B, V)
+        k3 = dict(
+            source="src/repro_torch/kernels/csrc/runahead_threshold.cu",
+            replaces="src/repro/kernels/runahead_threshold.py:123",
+            max_abs_err=0.0,
+            ms=device_ms(lambda: ops.runahead_topk_threshold(x, **kw)),
+            call_ms=call_ms(lambda: ops.runahead_topk_threshold(x, **kw)),
+            plain_ms=device_ms(lambda: rt.runahead_topk_threshold_plain(
+                x, **kw), calls=2),
+            bound=bound_ms(4 * (x.numel() + 2 * PATH_B),
+                           2 * x.numel() * n_cmp),
+            library_ms=device_ms(lambda: torch.topk(x, 40, dim=-1)),
+            library="torch.topk",
+            note=f"({PATH_B}, {V}), {V - vocab} phantom columns at max - 80; "
+                 f"bit for bit; {clusters} CTAs a row of {size} elements")
+        p = torch.softmax(x, dim=-1)
+        lo, hi = p.amin(-1, keepdim=True), p.amax(-1, keepdim=True)
+        taus = lo + (hi - lo) * torch.rand((PATH_B, PATH_M), generator=gen,
+                                           device="cuda")
+        got, again = mm.multi_mass_cuda(p, taus), mm.multi_mass_cuda(p, taus)
+        want = mm.multi_mass_plain(p, taus)
+        check(torch.equal(got, again) and torch.allclose(got, want, **TOL),
+              f"K4 differs from plain or is not bit-stable at {(PATH_B, V)}")
+        k4 = dict(
+            source="src/repro_torch/kernels/csrc/multi_mass.cu",
+            replaces="src/repro/kernels/multi_mass.py:65",
+            max_abs_err=(got - want).abs().max().item(),
+            ms=device_ms(lambda: ops.multi_mass(p, taus)),
+            call_ms=call_ms(lambda: ops.multi_mass(p, taus)),
+            plain_ms=device_ms(lambda: mm.multi_mass_plain(p, taus)),
+            bound=bound_ms(4 * (p.numel() + 2 * taus.numel()),
+                           3 * p.numel() * PATH_M),
+            library_ms=None, library="none",
+            note=f"({PATH_B}, {V}) x M={PATH_M}; bit-stable")
+        z = x - x.amax(-1, keepdim=True)
+        ts = torch.exp(torch.empty((PATH_B, PATH_M), device="cuda").uniform_(
+            -3.0, 3.0, generator=gen))
+        got = me.multi_entropy_moments_cuda(z, ts)
+        again = me.multi_entropy_moments_cuda(z, ts)
+        want = me.multi_entropy_moments_plain(z, ts)
+        err = 0.0
+        for g, a, w in zip(got, again, want):
+            check(torch.equal(g, a) and torch.allclose(g, w, **TOL),
+                  f"K5 differs from plain or is not bit-stable at "
+                  f"{(PATH_B, V)}")
+            err = max(err, (g - w).abs().max().item())
+        pairs = z.numel() * PATH_M
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        sfu_ms = pairs / (sms * SFU_PER_CLOCK * max_sm_clock_hz()) * 1e3
+        k5 = dict(
+            source="src/repro_torch/kernels/csrc/multi_entropy.cu",
+            replaces="src/repro/kernels/multi_entropy.py:84",
+            max_abs_err=err,
+            ms=device_ms(lambda: ops.multi_entropy_moments(z, ts)),
+            call_ms=call_ms(lambda: ops.multi_entropy_moments(z, ts)),
+            plain_ms=device_ms(lambda: me.multi_entropy_moments_plain(z, ts)),
+            bound=max((sfu_ms, "operations"),
+                      bound_ms(4 * (z.numel() + 3 * ts.numel()), 4 * pairs)),
+            library_ms=None, library="none",
+            note=f"({PATH_B}, {V}) x M={PATH_M}; bit-stable; the SFU's "
+                 f"exponentials bound it")
+        out[path] = {"runahead_topk_threshold": k3, "multi_mass": k4,
+                     "multi_entropy_moments": k5}
+
+    sh = K7_HYMBA
+    B, S, H, Hk, D = sh["B"], sh["S"], sh["H"], sh["Hk"], sh["D"]
+    n_rep = H // Hk
+    q, k, v = _k7_inputs(gen, sh, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.arange(S, device="cuda")
+    rows, notes = {}, []
+    for window in (sh["window"], 0):
+        got = ff.flash_fwd_cuda(q, k, v, window=window, n_rep=n_rep)
+        check(torch.equal(got, ff.flash_fwd_cuda(q, k, v, window=window,
+                                                 n_rep=n_rep)),
+              f"K7 not bit-stable at hymba's shape, window {window}")
+        accuracy = ff.bf16_check(got, q, k, v, window=window, n_rep=n_rep)
+        check(accuracy.ok, f"K7 bf16 less accurate than its plain version "
+                           f"at hymba's shape, window {window}: {accuracy}")
+        err = (got.float() - ff.flash_fwd_plain(
+            q, k, v, window=window, n_rep=n_rep).float()).abs().max().item()
+        band = pos[None, :] <= pos[:, None]
+        if window:
+            band &= pos[None, :] > pos[:, None] - window
+        w = window or S
+        # the (query, key) pairs the band holds, 4 flops a pair and dim
+        pairs = w * (w + 1) / 2 + (S - w) * w
+        n_ops = 4 * B * H * D * pairs
+        n_bytes = 2 * (2 * B * S * H * D + 2 * B * S * Hk * D)
+        run = lambda: ops.flash_fwd(q, k, v, window=window,  # noqa: E731
+                                    n_rep=n_rep)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=band, enable_gqa=True)
+        ms = device_ms(run, calls=5, reps=3)
+        rows[window] = dict(
+            source="src/repro_torch/kernels/csrc/flash_fwd.cu",
+            replaces="src/repro/kernels/flash_fwd.py:82", max_abs_err=err,
+            ms=ms, call_ms=call_ms(run, reps=5),
+            plain_ms=device_ms(lambda: ff.flash_fwd_plain(
+                q, k, v, window=window, n_rep=n_rep), calls=1, reps=3),
+            bound=bound_ms(n_bytes, n_ops, BF16_OPS_PER_S),
+            library_ms=device_ms(sdpa, calls=5, reps=3),
+            library="F.scaled_dot_product_attention(boolean band mask, "
+                    "enable_gqa)",
+            note=f"B={B} S={S} H={H}/{Hk} D={D} bf16, window {window}: "
+                 f"{n_ops / 1e9:.1f} GFLOP, {n_ops / ms / 1e9:.1f} TFLOP/s "
+                 f"achieved; {accuracy}")
+    for window, r in rows.items():
+        say_row(f"phase 3 flash_fwd hymba-prefill window {window}", r)
+    # the row of the path: its 29 banded layers' shape; the 3 global
+    # layers' reading beside it
+    g = rows[0]
+    row = dict(rows[sh["window"]])
+    row["note"] += (f" | window 0 (the global layers): {g['ms']:.4f} ms, "
+                    f"bound {g['bound'][0]:.6f} ms, SDPA "
+                    f"{g['library_ms']:.4f} ms")
+    out["hymba-prefill"] = {"flash_fwd": row}
+    for path, by_name in out.items():
+        if path == "hymba-prefill":
+            continue
+        for name, r in by_name.items():
+            say_row(f"phase 3 {name} {path}", r)
+    return out
 
 def phase_solves(gen):
     import torch
@@ -3461,6 +3680,338 @@ def phase_tuning(gen, per_step_streams: dict, verify_ms: dict) -> None:
     say(f"phase 18 took {time.perf_counter() - t0:.1f}s")
 
 
+
+# ---------------------------------------------------------------------------
+# phases 19 and 20: the recurrent families
+# ---------------------------------------------------------------------------
+
+def _cache_bytes(cache) -> tuple[int, int]:
+    """(K/V bytes, recurrent state bytes) of a cache."""
+    from repro_torch.tree import leaves_with_path
+
+    kv = state = 0
+    for path, t in leaves_with_path(cache):
+        n = t.numel() * t.element_size()
+        if "/kv/" in path:
+            kv += n
+        else:
+            state += n
+    return kv, state
+
+
+def _step_bound(params, cache) -> tuple[float, str]:
+    """A batched decode step's byte bound (ms) over ``cache``: every weight
+    read once but the embedding table (its B rows are gathered), every
+    K/V row of the cache read (the dense ring is read whole, masked), and
+    every recurrent state read and written once."""
+    from repro_torch.tree import leaves
+
+    weights = sum(t.numel() * t.element_size() for t in leaves(params))
+    embed = params["embed"].numel() * params["embed"].element_size()
+    kv, state = _cache_bytes(cache)
+    n = weights - embed + kv + 2 * state
+    return n / HBM_BYTES_PER_S * 1e3, (
+        f"{n / 1e9:.3f} GB: weights but the embedding "
+        f"{(weights - embed) / 1e9:.3f}, K/V {kv / 1e9:.3f}, recurrent "
+        f"state {state / 1e9:.3f} read and written")
+
+
+def _graph_ms(graphs, key) -> float:
+    """Device ms of one replay of ``key``'s graph (CUDA events around one
+    replay, median of 9)."""
+    return statistics.median(
+        _event_ms(lambda: graphs.run(key, None, device="cuda"))
+        for _ in range(9))
+
+
+def timed_admissions(server) -> list[float]:
+    """Wraps ``server``'s scheduler's admit so that each admission's wall
+    ms (prefill and first sample, the device synced before and after) is
+    appended to the returned list."""
+    import torch
+
+    sched = server.scheduler
+    admit, times = sched.admit, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = admit(*a, **kw)
+        torch.cuda.synchronize()
+        if ok:
+            times.append((time.perf_counter() - t0) * 1e3)
+        return ok
+
+    sched.admit = timed
+    return times
+
+
+def _decode_window(label: str, server, requests) -> None:
+    """Four requests admitted into a drained scheduler (eagerly, outside
+    the window), then its graphed steps until they finish, profiled: the
+    device's busy time and idle share while the card decodes.  (A whole
+    serve's profile is dominated by the eager admissions' ~10**5 launches
+    each, and reading it back takes minutes.)"""
+    sched = server.scheduler
+    check(sched.n_active == 0, "the scheduler still holds requests")
+    for r in requests[:4]:
+        check(sched.admit(r.rid, r.prompt, r.n_new, r.seed, r.sampler),
+              "admission failed")
+
+    def run():
+        n = 0
+        while sched.n_active:
+            sched.step()
+            n += 1
+        return n
+
+    n, busy_ms, wall_ms, kernels, calls = profiled(run)
+    sched.pop_finished()
+    say_profile(f"{label} continuous decode", busy_ms, wall_ms, kernels,
+                calls, n, "decode step", "; 4 requests, the graphed steps "
+                "after their admissions")
+
+
+def _frozen_lanes(server, requests) -> str:
+    """Two requests admitted into lanes 0 and 1 of a served scheduler: a
+    graphed step leaves lanes 2 and 3 (stale state of earlier requests)
+    bit for bit as they were, every cache leaf; the live lanes' recurrent
+    states move.  Then the two are served to their end."""
+    import torch
+
+    from repro_torch.tree import leaves_with_path
+
+    sched = server.scheduler
+    check(sched.n_active == 0, "the scheduler still holds requests")
+    for r in requests[:2]:
+        check(sched.admit(r.rid, r.prompt, r.n_new, r.seed, r.sampler),
+              "admission failed")
+    check([s is not None for s in sched.slots] == [True, True, False, False],
+          "lanes 0 and 1 are not the live ones")
+    before = [(p, t[:, 2:].clone(), t[:, :2].clone())
+              for p, t in leaves_with_path(sched.cache)]
+    sched.step()
+    torch.cuda.synchronize()
+    moved = 0
+    for (path, idle, live), (_, t) in zip(before,
+                                          leaves_with_path(sched.cache)):
+        check(torch.equal(t[:, 2:], idle),
+              f"an inactive lane's {path} changed across a graphed step")
+        if "/kv/" not in path:
+            moved += not torch.equal(t[:, :2], live)
+    n_state = sum("/kv/" not in p for p, _, _ in before)
+    check(moved == n_state, f"{n_state - moved} of {n_state} recurrent "
+                            f"leaves of the live lanes did not move")
+    while sched.n_active:
+        sched.step()
+    sched.pop_finished()
+    return (f"inactive lanes 2, 3 bit for bit across a graphed step in "
+            f"all {len(before)} cache leaves; the live lanes' {n_state} "
+            f"recurrent leaves moved")
+
+
+def _prefill_reproduces_forward(arch: str, gen) -> str:
+    """At full width in f32, the depth cut to the first run of each kind:
+    the prefill's last logits and each decode step's against the
+    full-sequence forward's at the same positions, max |diff| within
+    RECURRENT_F32_TOL of the logits' largest |value|."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import decode, transformer
+
+    full = get_config(arch)
+    plan = transformer.layer_plan(full)
+    seen, depth = set(), 0
+    for kind, count in plan:
+        if kind in seen:
+            break
+        seen.add(kind)
+        depth += count
+    cfg = dataclasses.replace(full, n_layers=depth)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = transformer.init_params(cfg, g, torch.float32)
+    S, n = RECURRENT_CHECK[arch]
+    tokens = torch.randint(0, cfg.vocab, (1, S + n), generator=gen,
+                           device="cuda")
+    f32 = dict(compute_dtype=torch.float32)
+    want, _ = transformer.forward(cfg, params, tokens, **f32)
+    logits, cache = decode.prefill(cfg, params, tokens[:, :S], S + n, **f32)
+    got = [logits]
+    for pos in range(S, S + n - 1):
+        logits, cache = decode.decode_step(cfg, params, tokens[:, pos], pos,
+                                           cache, **f32)
+        got.append(logits)
+    got = torch.stack(got, dim=1)[..., :cfg.vocab]
+    want = want[:, S - 1:S + n - 1, :cfg.vocab]
+    err = (got - want).abs().max().item()
+    top = want.abs().max().item()
+    check(err <= RECURRENT_F32_TOL * top,
+          f"{arch}: prefill + decode steps differ from the forward by "
+          f"{err:.3g} (largest |logit| {top:.3g})")
+    del params, cache
+    return (f"f32, depth cut to {depth} layers ({transformer.layer_plan(cfg)})"
+            f", prompt {S} + {n - 1} steps: prefill and steps == the forward "
+            f"within {err:.3g} (largest |logit| {top:.3g}; tolerance "
+            f"{RECURRENT_F32_TOL} of it)")
+
+
+def phase_recurrent(phase: int, arch: str, oneshot_argv, cont_argv, gen,
+                    describe: str) -> dict:
+    """One recurrent family served as a user serves it: launch.serve's
+    setup and runs at full width and depth, random bf16 weights from seed
+    0; one-shot (its decode graph against the eager loop) and continuous
+    on the dense ring at step horizons 1 and 4 (streams equal; the
+    graphed steps' streams equal the eager step body's); tok/s, idle
+    share, admission ms, graphed decode steps against their byte bounds,
+    frozen lanes, prefill + steps against the forward, peak memory.
+    Returns {path: launches}: ``<family>-serve`` (the one-shot run) and
+    ``<family>-continuous``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import DecodeGraphs
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    label = f"phase {phase}"
+    family = arch.split("-")[0]
+    torch.cuda.empty_cache()
+    session = serve.setup(oneshot_argv)
+    cfg, params, args = session.cfg, session.params, session.args
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in leaves(params)) / 1e9
+    ops.reset_launches()
+    forget_decisions()
+    served = serve.run(session)
+    launches = dict(ops.LAUNCHES)
+    toks = served.tokens
+    check(tuple(toks.shape) == (args.batch, args.new_tokens),
+          f"tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"a token >= {cfg.vocab} (a phantom column) was sampled")
+    check_solver_launches(launches,
+                          sampler_solves({args.batch: args.new_tokens}),
+                          f"{label} {arch} serve")
+    decided = decisions_note()
+    graphs = session.decode.graphs
+    check(len(graphs.keys) == 1, f"decode graphs {graphs.keys}")
+    warm_s = serve.run(session).seconds
+    state = session.gen.get_state()
+    again = serve.run(session)
+    session.gen.set_state(state)
+    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           generator=session.gen, device="cuda")
+    want = eager_generate(cfg, params, prompt, args.new_tokens, session.gen,
+                          session.sampler)
+    check(torch.equal(again.tokens, want),
+          f"the graphed {arch} tokens differ from the eager loop's")
+    n_tok = toks.numel()
+    say(f"{label} {family} serve: {arch} full width and depth ({describe}), "
+        f"{weights_gb:.2f} GB of bf16 weights drawn in {init_s:.1f}s | "
+        f"one-shot batch {args.batch} x prompt {args.prompt_len}, "
+        f"{n_tok} tokens: first {served.seconds:.3f}s (one eager step and "
+        f"the capture, {graphs.capture_s:.3f}s), warm {warm_s:.3f}s = "
+        f"{n_tok / warm_s:.1f} tok/s; tokens == the eager loop's bit for "
+        f"bit, none >= {cfg.vocab} | launches {launches} | decisions: "
+        f"{decided} | row 0: {toks[0].tolist()}")
+    _, busy_ms, wall_ms, kernels, calls = profiled(lambda: serve.run(session))
+    say_profile(f"{label} one-shot", busy_ms, wall_ms, kernels, calls, n_tok,
+                "token", "; warm")
+    if kernels:
+        say_kernel_times(f"{label} one-shot", kernels, busy_ms,
+                         SAMPLER_KERNELS + (("K7", "flash_fwd_"),))
+    key = graphs.keys[0]
+    step_ms = _graph_ms(graphs, key)
+    bound, what = _step_bound(params, session.decode._states[key].cache)
+    say(f"{label} graphed one-shot decode step (B={args.batch}, CUDA events "
+        f"around one replay, median of 9): {step_ms:.3f} ms against its "
+        f"byte bound {bound:.3f} ms ({what}; {bound / step_ms:.3f} of the "
+        f"bound)")
+    paths = {f"{family}-serve": launches}
+    session = session._replace(decode=DecodeGraphs())
+
+    # continuous on the dense ring, per step and in fused horizons of 4
+    cs = session._replace(args=serve.parse_args(cont_argv))
+    server = serve.server_for(cs)
+    ops.reset_launches()
+    forget_decisions()
+    first = serve.run_continuous(cs, server)
+    cont = dict(ops.LAUNCHES)
+    c = first.counts
+    check(len(first.completions) == 8, f"not every {arch} request served")
+    check(all(0 <= t < cfg.vocab for s in streams(first).values()
+              for t in s), f"a token >= {cfg.vocab} was sampled")
+    check_solver_launches(
+        cont, sampler_solves({4: c["decode_steps"], 1: c["admissions"]}),
+        f"{label} continuous {arch} serve")
+    paths[f"{family}-continuous"] = cont
+    warm = serve.run_continuous(cs, server)
+    check(streams(warm) == streams(first), f"warm {arch} streams differ")
+    eager_server = serve.server_for(cs)
+    eager_server.scheduler.graphs = EagerGraphs()
+    adm = timed_admissions(eager_server)
+    eager = serve.run_continuous(cs, eager_server)
+    check(streams(eager) == streams(first),
+          f"the graphed {arch} streams differ from the eager step body's")
+    del eager_server
+    n_tok = sum(len(x.tokens) for x in warm.completions)
+    lat = sorted(x.latency_s for x in warm.completions)
+    steps = warm.counts["decode_steps"]
+    say(f"{label} {family} continuous (dense ring, 8 requests of "
+        f"{cs.args.prompt_len} + 16..32 tokens over 4 slots, step_horizon "
+        f"1): first {first.seconds:.3f}s, warm {warm.seconds:.3f}s = "
+        f"{n_tok / warm.seconds:.1f} tok/s, {steps} steps "
+        f"({warm.seconds / steps * 1e3:.1f} ms a step incl. admissions), "
+        f"latency p50 {lat[len(lat) // 2] * 1e3:.0f} ms max "
+        f"{lat[-1] * 1e3:.0f} ms; streams == the eager step body's bit for "
+        f"bit | launches {cont} | decisions: {decisions_note()}")
+    say_graphs(f"{label} {family} continuous", server.scheduler)
+    say(f"{label} admissions (prefill of {cs.args.prompt_len} tokens and the "
+        f"first sample, synced; the eager serve's): median "
+        f"{statistics.median(adm):.1f} ms, min {min(adm):.1f}, max "
+        f"{max(adm):.1f} over {len(adm)}, {sum(adm) / 1e3:.3f}s in all")
+    requests = serve.continuous_requests(cfg, cs.args, cs.sampler)
+    _decode_window(label, server, requests)
+    sched = server.scheduler
+    [key] = [k for k in sched.graphs.keys if k[0] == "step"]
+    step_ms = _graph_ms(sched.graphs, key)
+    bound, what = _step_bound(params, sched.cache)
+    say(f"{label} graphed continuous decode step (4 slots, CUDA events "
+        f"around one replay, median of 9): {step_ms:.3f} ms against its "
+        f"byte bound {bound:.3f} ms ({what}; {bound / step_ms:.3f} of the "
+        f"bound)")
+    say(f"{label} frozen lanes: " + _frozen_lanes(server, requests))
+
+    hs = cs._replace(args=serve.parse_args(cont_argv + [
+        "--step-horizon", str(HORIZON)]))
+    fused_server = serve.server_for(hs)
+    fused = serve.run_continuous(hs, fused_server)
+    check(streams(fused) == streams(first),
+          f"the {arch} fused streams differ from the per-step streams")
+    fused_warm = serve.run_continuous(hs, fused_server)
+    check(streams(fused_warm) == streams(first),
+          f"the warm {arch} fused streams differ")
+    f = fused_warm.counts
+    say(f"{label} {family} horizons (step_horizon {HORIZON}): streams == "
+        f"the per-step streams bit for bit | first {fused.seconds:.3f}s, "
+        f"warm {fused_warm.seconds:.3f}s = "
+        f"{n_tok / fused_warm.seconds:.1f} tok/s; {f['decode_steps']} "
+        f"iterations in {f['horizons']} horizons ({f['wasted_steps']} "
+        f"all-idle), {f['host_syncs']} host syncs")
+    del server, fused_server
+    say(f"{label} reference: {_prefill_reproduces_forward(arch, gen)}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"{label} peak memory {peak:.2f} GB (weights {weights_gb:.2f} GB) "
+        f"({label} took {time.perf_counter() - t0:.1f}s)")
+    return paths
+
 def main() -> int:
     import torch
 
@@ -3489,6 +4040,7 @@ def main() -> int:
         tuning.set_cache_path(str(Path(d) / "none.json"))
         with tuning.disabled():
             rows = phase_kernels(gen)
+            path_rows = _rows_new_paths(gen)
         solve_launches = phase_solves(gen)
         serve_launches, session = phase_serve()
         phase_reference(gen)
@@ -3508,6 +4060,18 @@ def main() -> int:
         launches_by_path["moe-train"], k3_moe_train, k2_moe_train = (
             phase_moe_train(gen))
         phase_tuning(gen, per_step_streams, verify_ms)
+        launches_by_path.update(phase_recurrent(
+            19, "xlstm-1.3b", XLSTM_SERVE_ARGV, XLSTM_CONT_ARGV, gen,
+            "48 layers: 42 mLSTM and 6 sLSTM, d_model 2048, 4 heads of 512, "
+            "vocab 50304"))
+        launches_by_path.update(phase_recurrent(
+            20, "hymba-1.5b", HYMBA_SERVE_ARGV, HYMBA_CONT_ARGV, gen,
+            "32 layers: 3 global and 29 sliding-window (1024) attention || "
+            "SSM blocks, d_model 1600, 25/5 heads of 64, SSM state 16, d_ff "
+            "5504, vocab 32001 padded to 32128"))
+        launches_by_path["hymba-prefill"] = launches_by_path["hymba-serve"]
+        check(launches_by_path["hymba-prefill"]["flash_fwd"] == 32,
+              "K7 did not run once a layer in hymba's 4096-token prefill")
 
     # the path whose run each kernel's launch count is read on: K2 runs
     # where the served requests' top_k differ (phase 13)
@@ -3545,6 +4109,19 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"]))
+    # the recurrent paths: K3-K5 at their vocab rows, K7 at hymba's prefill
+    for path, by_name in path_rows.items():
+        for name, r in by_name.items():
+            launches = launches_by_path[path][name]
+            check(launches > 0, f"{name} was not launched on its path {path}")
+            kernels.append(dict(
+                name=name, route="cuda", source=r["source"],
+                replaces=r["replaces"], path=path, launches=launches,
+                launches_counted="eager launches and, per graph replay, the "
+                                 "launches its capture recorded",
+                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                bound_by=r["bound"][1], library_ms=r["library_ms"]))
     say(f"total {time.perf_counter() - t0:.1f}s")
     say(smi)
     say(json.dumps({"kernels": kernels}))

@@ -3,9 +3,11 @@
 ``params_from_jax`` takes the JAX parameter pytree AFTER ``jax.device_get``
 (nested dicts and lists of numpy arrays) and returns the same tree of torch
 tensors, so both packages can run on identical weights;
-``adamw_state_from_jax`` carries a JAX ``AdamWState`` across the same way.
-They take numpy only: this module imports neither JAX nor anything of the
-JAX package.
+``adamw_state_from_jax`` carries a JAX ``AdamWState`` across the same way,
+and ``cache_from_jax`` a decode cache (``KVCache``, ``SSMState``,
+``MLSTMState``, ``SLSTMState`` NamedTuples), each state mapped onto the
+port's own NamedTuple by class and field name.  They take numpy only: this
+module imports neither JAX nor anything of the JAX package.
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` rejects; they cross bit for bit through a ``uint16``
@@ -16,7 +18,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import SSMState
+from repro_torch.models.xlstm import MLSTMState, SLSTMState
 from repro_torch.optim.adamw import AdamWState
+
+# the port's counterpart of each JAX NamedTuple a tree may hold
+_NAMED = {cls.__name__: cls
+          for cls in (KVCache, SSMState, MLSTMState, SLSTMState)}
 
 
 def _leaf(a, device, dtype) -> torch.Tensor:
@@ -31,16 +40,45 @@ def _leaf(a, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
+def _named(np_tuple, device, dtype):
+    """A JAX NamedTuple -> the port's class of the same name, field by
+    field.  A JAX field the port's class lacks must be None (the int8 K/V
+    scales: the port has no int8 cache)."""
+    name = type(np_tuple).__name__
+    if name not in _NAMED:
+        raise TypeError(f"no port counterpart of the NamedTuple {name}")
+    cls = _NAMED[name]
+    fields = np_tuple._asdict()
+    extra = [f for f in fields if f not in cls._fields
+             and fields[f] is not None]
+    if extra:
+        raise ValueError(f"{name} fields {extra} have no place in the "
+                         f"port's {name} (no int8 K/V cache)")
+    return cls(**{f: params_from_jax(fields[f], device, dtype)
+                  for f in cls._fields})
+
+
 def params_from_jax(np_tree, device, dtype: torch.dtype | None = None):
-    """Numpy pytree -> the same tree of tensors on ``device``.
+    """Numpy pytree -> the same tree of tensors on ``device``; a NamedTuple
+    becomes the port's NamedTuple of the same name.
 
     ``dtype`` casts every floating leaf (None keeps each leaf's own type).
     """
     if isinstance(np_tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in np_tree.items()}
+    if isinstance(np_tree, tuple) and hasattr(np_tree, "_fields"):
+        return _named(np_tree, device, dtype)
     if isinstance(np_tree, (list, tuple)):
         return type(np_tree)(params_from_jax(v, device, dtype) for v in np_tree)
     return _leaf(np_tree, device, dtype)
+
+
+def cache_from_jax(np_cache, device) -> list:
+    """A JAX decode cache after ``jax.device_get`` (a list of per-run dicts
+    of ``KVCache`` / ``SSMState`` / ``MLSTMState`` / ``SLSTMState``) -> the
+    port's cache on ``device``, each state the port's NamedTuple, every
+    leaf in its own dtype."""
+    return [params_from_jax(entry, device) for entry in np_cache]
 
 
 def adamw_state_from_jax(np_state, device) -> AdamWState:

@@ -62,6 +62,19 @@ the FIFO capacity cut as the JAX launcher does; ``--page-size`` and
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen2-moe-a2.7b --reduced --continuous --requests 6 \
       --slots 2 --prompt-len 8 --new-tokens 6 --device cpu
+
+The recurrent archs (``--arch xlstm-1.3b``: mLSTM / sLSTM blocks;
+``--arch hymba-1.5b``: attention || SSM blocks, sliding-window attention
+on all but 3 layers) serve one-shot and on the dense ring (per step or
+fused), their recurrent state carried in the cache; ``--page-size`` and
+``--speculative`` raise for them, as in JAX:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch xlstm-1.3b --reduced --batch 2 --prompt-len 12 \
+      --new-tokens 6 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch hymba-1.5b --reduced --continuous --requests 6 --slots 2 \
+      --prompt-len 12 --new-tokens 6 --step-horizon 4 --device cpu
 """
 from __future__ import annotations
 

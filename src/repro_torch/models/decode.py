@@ -1,55 +1,90 @@
-"""Decode path, dense and MoE families: cache init, prefill, single-token
-decode step, the slotted cache of continuous batching and the paged KV
-cache (port of ``repro.models.decode``).
+"""Decode path: cache init, prefill, single-token decode step, the
+slotted cache of continuous batching and the paged KV cache (port of
+``repro.models.decode``).
 
 A MoE block is a dense block whose MLP is ``models/moe.py::moe_apply``
 (``capacity_mode`` ``"fifo"`` or ``"bisect"``, as the JAX functions carry
-it).  Its capacity couples a step's batch rows, free slots included, so
-the paged cache and the speculative verify stay dense-only, as in JAX
-(``paged_supported``, ``verify_supported``).
+it).  Its capacity couples a step's batch rows, free slots included.  The
+paged cache and the speculative verify stay dense-only, as in JAX
+(``paged_supported``, ``verify_supported``): recurrent state has no page
+structure and no per-position checkpoints to roll back.
 
-Cache layout mirrors the layer plan: a list with one entry per run, each a
-``{"kv": KVCache}`` whose tensors carry the run's leading layer axis,
-``(L, B, C, n_kv, head_dim)``; a page pool replaces ``(B, C)`` by
-``(n_pages, page_size)``.  A Python loop over the layer axis replaces
-``lax.scan``.  Every function here writes caches and pools IN PLACE (the
-JAX functions return new ones); the returned cache is the same object.
-That is why the dense continuous step freezes inactive lanes by restoring
-the rows it touched (``cache_lanes`` / ``freeze_cache_lanes``) instead of
-selecting a copied pre-step cache back in, and why the speculative verify
+Cache layout mirrors the layer plan: a list with one entry per run, each
+a dict of NamedTuples whose tensors carry the run's leading layer axis,
+then the batch:
+  dense / moe      {"kv": KVCache}, (L, B, C, n_kv, head_dim) each
+  hymba_global     {"kv", "ssm": SSMState}, C = the context
+  hymba_swa        {"kv", "ssm"}, a ring of C = min(window, context)
+  mlstm / slstm    {"state": MLSTMState | SLSTMState}, O(1) in the context
+A page pool replaces ``(B, C)`` by ``(n_pages, page_size)``.  A Python
+loop over the layer axis replaces ``lax.scan``.  Every function here
+writes caches and pools IN PLACE (the JAX functions return new ones); the
+returned cache is the same object, its tensors the same storage, which
+is what a CUDA graph of a decode step needs (it holds them by address).
+That is why the dense continuous step freezes inactive lanes without a
+copy of the pre-step cache: a ring row is stashed and restored
+(``cache_lanes`` / ``freeze_cache_lanes``), and a recurrent state, which
+a step rewrites whole, is written as ``where(active, new, old)`` in place
+(``decode_step(active=...)``).  The speculative verify
 (``decode_verify`` / ``decode_verify_paged``: L rows per slot in one
 forward) returns a stash of the rows it overwrote, which
 ``rollback_cache_runs`` / ``rollback_paged_runs`` put back for rejected
 drafts.
 
-Not ported yet: int8 KV and the block kinds other than dense and MoE.
+Not ported yet: int8 KV and the ``whisper_dec`` kind.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mlp, apply_norm, embed, unembed
 from repro_torch.models.transformer import (
+    HYMBA_KINDS,
+    XLSTM_KINDS,
     apply_ffn,
+    hymba_mix,
+    hymba_window,
     layer_plan,
     layer_unbind,
     ported_plan,
     unembed_table,
 )
+from repro_torch.tree import leaves, tree_map
 
 Params = dict
 Cache = list
 
 
+def _kv_capacity(kind: str, cfg: ModelConfig, context: int) -> int:
+    if kind == "hymba_swa":
+        return min(cfg.sliding_window, context)
+    return context
+
+
 def init_cache(cfg: ModelConfig, batch: int, context: int,
                dtype=torch.bfloat16, *, device="cuda") -> Cache:
-    """Zero cache sized for `context` tokens."""
-    return [{"kv": attn_lib.init_kv_cache(cfg, batch, context, dtype, device,
-                                          lead=(count,))}
-            for _, count in ported_plan(cfg)]
+    """Zero cache sized for `context` tokens: K/V and the SSM's conv tail
+    in ``dtype``, recurrent states in f32."""
+    cache: Cache = []
+    for kind, count in ported_plan(cfg):
+        lead = (count,)
+        if kind in XLSTM_KINDS:
+            cache.append({"state": xlstm_lib.MIXERS[kind].init_state(
+                cfg, batch, device, lead)})
+            continue
+        entry = {"kv": attn_lib.init_kv_cache(
+            cfg, batch, _kv_capacity(kind, cfg, context), dtype, device,
+            lead=lead)}
+        if kind in HYMBA_KINDS:
+            entry["ssm"] = ssm_lib.init_ssm_state(
+                cfg, batch, cfg.n_heads * cfg.head_dim, dtype, device, lead)
+        cache.append(entry)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -71,19 +106,37 @@ def _ring_fill(kv_full: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.roll(kv_full[:, S - cap:], shifts=(S - cap) % cap, dims=1)
 
 
-def _prefill_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+def _prefill_block(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
                    positions: torch.Tensor, cap: int, capacity_mode: str,
                    moe_groups: int):
-    """One dense or MoE block forward that also emits its ring-filled
-    K/V."""
+    """One block forward that also emits its cache entry: the ring-filled
+    K/V (at the kind's capacity ``cap``) and the recurrent state after the
+    prompt's last step.  Returns (x, entry)."""
     eps = cfg.norm_eps
+    if kind in XLSTM_KINDS:
+        h = apply_norm(cfg.norm, p["ln"], x, eps)
+        out, state = xlstm_lib.MIXERS[kind].apply(p[kind], cfg, h,
+                                                  return_state=True)
+        return x + out, {"state": state}
     h = apply_norm(cfg.norm, p["ln1"], x, eps)
-    a, (k, v) = attn_lib.attend(p["attn"], cfg, h, positions, return_kv=True)
+    window = hymba_window(kind, cfg) if kind in HYMBA_KINDS else 0
+    a, (k, v) = attn_lib.attend(p["attn"], cfg, h, positions, window=window,
+                                return_kv=True)
+    entry = {"kv": KVCache(k=_ring_fill(k, cap), v=_ring_fill(v, cap))}
+    if kind in HYMBA_KINDS:
+        s, entry["ssm"] = ssm_lib.ssm_apply(p["ssm"], cfg, h,
+                                            return_state=True)
+        return hymba_mix(cfg, p, x, a, s), entry
     x = x + a
     h = apply_norm(cfg.norm, p["ln2"], x, eps)
     out, _ = apply_ffn(cfg, p, h, capacity_mode=capacity_mode,
                        moe_groups=moe_groups)
-    return x + out, _ring_fill(k, cap), _ring_fill(v, cap)
+    return x + out, entry
+
+
+def _stack_layers(entries: list) -> dict:
+    """Per-layer cache entries -> one entry with the layer axis in front."""
+    return tree_map(lambda *xs: torch.stack(xs), entries[0], *entries[1:])
 
 
 def prefill(
@@ -98,24 +151,26 @@ def prefill(
 ) -> tuple[torch.Tensor, Cache]:
     """Process the prompt; returns (last-position logits (B, V) f32, cache).
 
-    Only the final position's logits are computed.  The cache holds K/V in
-    ``compute_dtype``, as the JAX prefill does.  A MoE layer routes all
-    B * S prompt tokens as one batch (``moe_groups`` GShard groups), so
-    its capacity depends on B and S.
+    Only the final position's logits are computed.  The cache holds K/V
+    and the SSM's conv tail in ``compute_dtype``, recurrent states in f32,
+    as the JAX prefill does; a ``hymba_swa`` ring is filled at its own
+    capacity, the prompt's last ``min(window, context)`` positions.  A MoE
+    layer routes all B * S prompt tokens as one batch (``moe_groups``
+    GShard groups), so its capacity depends on B and S.
     """
     B, S = tokens.shape
     x = embed(params["embed"], tokens, compute_dtype)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     cache: Cache = []
-    for run_params, (_, count) in zip(params["runs"], ported_plan(cfg)):
-        ks, vs = [], []
+    for run_params, (kind, count) in zip(params["runs"], ported_plan(cfg)):
+        cap = _kv_capacity(kind, cfg, context)
+        entries = []
         for p_l in layer_unbind(run_params, count):
-            x, k, v = _prefill_block(cfg, p_l, x, positions, context,
-                                     capacity_mode, moe_groups)
-            ks.append(k)
-            vs.append(v)
-        cache.append({"kv": KVCache(k=torch.stack(ks), v=torch.stack(vs))})
+            x, entry = _prefill_block(kind, cfg, p_l, x, positions, cap,
+                                      capacity_mode, moe_groups)
+            entries.append(entry)
+        cache.append(_stack_layers(entries))
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = unembed(unembed_table(cfg, params), x[:, -1], cfg.vocab)
     return logits, cache
@@ -125,13 +180,42 @@ def prefill(
 # decode step
 # ---------------------------------------------------------------------------
 
-def _step_block(cfg: ModelConfig, p: Params, x: torch.Tensor, pos,
-                kv: KVCache, capacity_mode: str) -> torch.Tensor:
-    """One dense or MoE block for one token.  x: (B, 1, D); kv: one
-    layer's view.  A MoE layer routes the B tokens as one group."""
+def write_state(old: tuple, new: tuple, active: torch.Tensor | None
+                ) -> None:
+    """A step's new recurrent state into ``old``'s tensors, in place:
+    every lane, or with ``active`` (B,) bool only the active ones
+    (``where(active, new, old)``), leaving an inactive lane's state bit
+    for bit as it was."""
+    for o, n in zip(old, new):
+        if active is None:
+            o.copy_(n)
+        else:
+            keep = active.reshape((-1,) + (1,) * (o.ndim - 1))
+            torch.where(keep, n.to(o.dtype), o, out=o)
+
+
+def _step_block(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
+                pos, entry: dict, capacity_mode: str,
+                active: torch.Tensor | None) -> torch.Tensor:
+    """One block for one token.  x: (B, 1, D); entry: one layer's views of
+    the run's cache entry, written in place (K/V at ``pos``, states
+    through ``write_state``).  A MoE layer routes the B tokens as one
+    group."""
     eps = cfg.norm_eps
+    if kind in XLSTM_KINDS:
+        h = apply_norm(cfg.norm, p["ln"], x, eps)
+        out, state = xlstm_lib.MIXERS[kind].step(p[kind], cfg, h,
+                                                 entry["state"])
+        write_state(entry["state"], state, active)
+        return x + out
     h = apply_norm(cfg.norm, p["ln1"], x, eps)
-    a, _ = attn_lib.decode_attend(p["attn"], cfg, h, pos, kv)
+    window = hymba_window(kind, cfg) if kind in HYMBA_KINDS else 0
+    a, _ = attn_lib.decode_attend(p["attn"], cfg, h, pos, entry["kv"],
+                                  window=window)
+    if kind in HYMBA_KINDS:
+        s, state = ssm_lib.ssm_step(p["ssm"], cfg, h, entry["ssm"])
+        write_state(entry["ssm"], state, active)
+        return hymba_mix(cfg, p, x, a, s)
     x = x + a
     h = apply_norm(cfg.norm, p["ln2"], x, eps)
     out, _ = apply_ffn(cfg, p, h, capacity_mode=capacity_mode)
@@ -147,19 +231,24 @@ def decode_step(
     *,
     compute_dtype=torch.bfloat16,
     capacity_mode: str = "fifo",
+    active: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Cache]:
     """One decode step: returns (logits (B, V) f32, cache updated in place).
 
     ``pos`` is a Python int (every row at the same depth: one-shot
     ``generate``) or a (B,) device tensor (continuous batching: one
-    position per slot, never read back to the host).
+    position per slot, never read back to the host).  ``active`` (B,)
+    bool, where given, keeps the recurrent state of every inactive lane
+    bit for bit (the K/V row a lane writes is put back by
+    ``freeze_cache_lanes``).
     """
     x = embed(params["embed"], token[:, None], compute_dtype)  # (B, 1, D)
-    for run_params, entry, (_, count) in zip(params["runs"], cache,
-                                             ported_plan(cfg)):
-        for p_l, kv_l in zip(layer_unbind(run_params, count),
-                             layer_unbind(entry["kv"], count)):
-            x = _step_block(cfg, p_l, x, pos, kv_l, capacity_mode)
+    for run_params, entry, (kind, count) in zip(params["runs"], cache,
+                                                ported_plan(cfg)):
+        for p_l, e_l in zip(layer_unbind(run_params, count),
+                            layer_unbind(entry, count)):
+            x = _step_block(kind, cfg, p_l, x, pos, e_l, capacity_mode,
+                            active)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = unembed(unembed_table(cfg, params), x[:, 0], cfg.vocab)
     return logits, cache
@@ -270,10 +359,11 @@ def rollback_cache_runs(cache: Cache, stash: list, pos: torch.Tensor,
 
 def write_cache_slot(cache: Cache, sub: Cache, slot: int) -> Cache:
     """Overwrite batch row ``slot`` of ``cache`` with the B=1 cache ``sub``,
-    in place: the admission path of the continuous scheduler."""
-    for big, small in zip(cache, sub):
-        big["kv"].k[:, slot] = small["kv"].k[:, 0]
-        big["kv"].v[:, slot] = small["kv"].v[:, 0]
+    in place: the admission path of the continuous scheduler.  Every leaf
+    (K/V rings, SSM and xLSTM states) is laid out (layers, batch, ...), so
+    one walk writes them all, each cast to the slotted cache's dtype."""
+    for big, small in zip(leaves(cache), leaves(sub)):
+        big[:, slot] = small[:, 0]
     return cache
 
 
@@ -302,12 +392,17 @@ def prefill_into_slot(
 
 
 def cache_lanes(cache: Cache, pos: torch.Tensor) -> list:
-    """The rows a per-slot ``decode_step`` at ``pos`` will overwrite: for
-    each run, ``(k, v)`` at ring slot ``pos % C`` of every batch row,
-    (layers, B, n_kv, hd) each."""
+    """The ring rows a per-slot ``decode_step`` at ``pos`` will overwrite:
+    for each run, ``(k, v)`` at ring slot ``pos % C`` of every batch row,
+    (layers, B, n_kv, hd) each; None for a run without K/V.  Recurrent
+    states are not stashed: ``decode_step(active=...)`` writes only the
+    active lanes'."""
     out = []
     for entry in cache:
-        kv = entry["kv"]
+        kv = entry.get("kv")
+        if kv is None:
+            out.append(None)
+            continue
         rows = torch.arange(kv.k.shape[1], device=pos.device)
         slot = pos % kv.capacity
         out.append((kv.k[:, rows, slot], kv.v[:, rows, slot]))
@@ -320,10 +415,14 @@ def freeze_cache_lanes(cache: Cache, stash: list, pos: torch.Tensor,
     rows ``cache_lanes`` saved where ``~active``, in place.
 
     The JAX function selects the whole pre-step cache back in; a step
-    writes exactly one ring slot per lane, so restoring that slot leaves
+    writes exactly one ring slot per lane, so restoring that slot (and
+    passing ``active`` to ``decode_step`` for the recurrent states) leaves
     an inactive lane bit-identical to its pre-step state.
     """
-    for entry, (k_old, v_old) in zip(cache, stash):
+    for entry, rows_old in zip(cache, stash):
+        if rows_old is None:
+            continue
+        k_old, v_old = rows_old
         kv = entry["kv"]
         rows = torch.arange(kv.k.shape[1], device=pos.device)
         slot = pos % kv.capacity

@@ -1,15 +1,24 @@
-"""Model assembly, dense and MoE families (port of
-``repro.models.transformer``).
+"""Model assembly (port of ``repro.models.transformer``).
 
 The layer stack is described by a LAYER PLAN: an ordered list of
 ``(block_kind, n_layers)`` runs, each run's parameters stacked along a
 leading layer axis as in the JAX package.  A Python loop over that axis
 replaces ``lax.scan``.  ``layer_plan`` covers every family (it is data);
-``init_params`` and ``forward`` build and run ``"dense"`` and ``"moe"``
-runs (``ported_plan``) and raise ``ValueError`` for the other block
-kinds.  A ``"moe"`` block is a dense block whose MLP is
-``models/moe.py::moe_apply``; ``forward`` sums its layers' load-balance
-losses as the JAX scan carries them.
+``init_params`` and ``forward`` build and run the kinds of
+``PORTED_KINDS`` (``ported_plan``) and raise ``ValueError`` for the
+others (``whisper_dec``).  Block kinds:
+
+  dense          GQA attention + MLP
+  moe            GQA attention + MoE FFN (``models/moe.py::moe_apply``);
+                 ``forward`` sums its layers' load-balance losses as the
+                 JAX scan carries them
+  hymba_global   (full attention || SSM) + SwiGLU      (hymba, 3 layers)
+  hymba_swa      (sliding-window attention || SSM) + SwiGLU  (the rest)
+  mlstm / slstm  xLSTM mixers, no FFN                  (xlstm)
+
+A hymba block adds ``0.5 * (norm(attention) + norm(ssm))`` of the same
+normed input (``models/ssm.py``); the xLSTM mixers are
+``models/xlstm.py``'s.
 
 ``forward(remat=True)`` checkpoints each layer (non-reentrant
 ``torch.utils.checkpoint``, where JAX wraps the scan body in
@@ -22,6 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_mlp,
@@ -79,7 +90,10 @@ def layer_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
-PORTED_KINDS = ("dense", "moe")
+PORTED_KINDS = ("dense", "moe", "hymba_global", "hymba_swa", "mlstm",
+                "slstm")
+HYMBA_KINDS = ("hymba_global", "hymba_swa")
+XLSTM_KINDS = tuple(xlstm_lib.MIXERS)
 
 
 def ported_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -89,7 +103,7 @@ def ported_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
         if kind not in PORTED_KINDS:
             raise ValueError(
                 f"block kind {kind!r} (family {cfg.family!r}) is not ported "
-                f"yet; only {' and '.join(map(repr, PORTED_KINDS))} runs are")
+                f"yet; only {', '.join(map(repr, PORTED_KINDS))} runs are")
     return plan
 
 
@@ -113,12 +127,21 @@ def layer_unbind(tree, count: int) -> list:
 
 def _init_run(kind: str, cfg: ModelConfig, gen, dtype, count: int
               ) -> Params:
-    d, lead = cfg.d_model, (count,)
+    """A run's parameters, the JAX ``_init_block`` tree of ``kind`` with
+    the run's layer axis in front."""
+    d, lead, dev = cfg.d_model, (count,), gen.device
+    if kind in XLSTM_KINDS:
+        return {"ln": init_norm(cfg.norm, d, dtype, dev, lead),
+                kind: xlstm_lib.MIXERS[kind].init(gen, cfg, dtype, lead)}
     p = {
-        "ln1": init_norm(cfg.norm, d, dtype, gen.device, lead),
+        "ln1": init_norm(cfg.norm, d, dtype, dev, lead),
         "attn": attn_lib.init_attention(gen, cfg, dtype, lead),
-        "ln2": init_norm(cfg.norm, d, dtype, gen.device, lead),
     }
+    if kind in HYMBA_KINDS:
+        p["ssm"] = ssm_lib.init_ssm(gen, cfg, dtype, lead=lead)
+        p["attn_norm"] = init_norm(cfg.norm, d, dtype, dev, lead)
+        p["ssm_norm"] = init_norm(cfg.norm, d, dtype, dev, lead)
+    p["ln2"] = init_norm(cfg.norm, d, dtype, dev, lead)
     if kind == "moe":
         p["moe"] = moe_lib.init_moe(gen, cfg, dtype, lead)
     else:
@@ -163,13 +186,39 @@ def apply_ffn(cfg: ModelConfig, p: Params, h: torch.Tensor, *,
                              n_groups=moe_groups)
 
 
-def _apply_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+def hymba_window(kind: str, cfg: ModelConfig) -> int:
+    """The attention window of a hymba block: 0 (full) for a global
+    layer, ``cfg.sliding_window`` for the others."""
+    return 0 if kind == "hymba_global" else cfg.sliding_window
+
+
+def hymba_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x + 0.5 (norm(a) + norm(s)), then the block's MLP: the rest of a
+    hymba block once its attention ``a`` and SSM ``s`` outputs exist."""
+    eps = cfg.norm_eps
+    a = apply_norm(cfg.norm, p["attn_norm"], a, eps)
+    s = apply_norm(cfg.norm, p["ssm_norm"], s, eps)
+    x = x + 0.5 * (a + s)
+    h = apply_norm(cfg.norm, p["ln2"], x, eps)
+    return x + apply_mlp(cfg.act, p["mlp"], h)
+
+
+def _apply_block(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, capacity_mode: str,
                  moe_groups: int):
-    """One dense or MoE block over the full sequence: (x, the MoE layer's
-    aux loss, a 0-d f32 tensor; None for a dense block)."""
+    """One block of ``kind`` over the full sequence: (x, the MoE layer's
+    aux loss, a 0-d f32 tensor; None for any other block)."""
     eps = cfg.norm_eps
+    if kind in XLSTM_KINDS:
+        h = apply_norm(cfg.norm, p["ln"], x, eps)
+        return x + xlstm_lib.MIXERS[kind].apply(p[kind], cfg, h), None
     h = apply_norm(cfg.norm, p["ln1"], x, eps)
+    if kind in HYMBA_KINDS:
+        a = attn_lib.attend(p["attn"], cfg, h, positions,
+                            window=hymba_window(kind, cfg))
+        s = ssm_lib.ssm_apply(p["ssm"], cfg, h)
+        return hymba_mix(cfg, p, x, a, s), None
     x = x + attn_lib.attend(p["attn"], cfg, h, positions)
     h = apply_norm(cfg.norm, p["ln2"], x, eps)
     out, stats = apply_ffn(cfg, p, h, capacity_mode=capacity_mode,
@@ -202,10 +251,10 @@ def forward(
                              device=tokens.device).expand(B, S)
     remat = remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for run_params, (_, count) in zip(params["runs"], ported_plan(cfg)):
+    for run_params, (kind, count) in zip(params["runs"], ported_plan(cfg)):
         aux_run = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for p_l in layer_unbind(run_params, count):
-            args = (cfg, p_l, x, positions, capacity_mode, moe_groups)
+            args = (kind, cfg, p_l, x, positions, capacity_mode, moe_groups)
             if remat:
                 x, aux = checkpoint(_apply_block, *args, use_reentrant=False)
             else:

@@ -11,7 +11,8 @@ position, bit for bit.  The graph and its static state (KV cache, token,
 position, the step's noise draw) are kept in a ``DecodeGraphs`` the
 caller owns, per (params, config, sampler, compute dtype, batch,
 context, device), so a later call with the same model and shapes replays
-it at once; the prefill's cache is copied into the static one.  Nothing
+it at once; the prefill's cache (K/V rings and recurrent states alike) is
+copied into the static one, which every step writes in place.  Nothing
 is read back to the host until the caller does.
 """
 from __future__ import annotations
@@ -30,11 +31,12 @@ from repro_torch.serving.sampler import (
     gumbel_from_uniform,
     sample,
 )
+from repro_torch.tree import leaves
 
 
 class _DecodeState(NamedTuple):
     params: dict                   # held: the graph reads it by address
-    cache: list                    # the KV cache, written in place
+    cache: list                    # K/V and recurrent state, in place
     token: torch.Tensor            # (B,) current tokens
     pos: torch.Tensor              # (B,) the position each row writes
     uniforms: torch.Tensor         # (B, V) the step's uniform draw
@@ -83,9 +85,8 @@ class DecodeGraphs:
         if st is None:
             st = self._states[key] = fresh(cache)
         else:
-            for big, new in zip(st.cache, cache):
-                big["kv"].k.copy_(new["kv"].k)
-                big["kv"].v.copy_(new["kv"].v)
+            for big, new in zip(leaves(st.cache), leaves(cache)):
+                big.copy_(new)
         return st
 
 

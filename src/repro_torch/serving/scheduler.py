@@ -6,8 +6,9 @@ evicts requests per decode step instead of waiting for a whole batch to
 drain (the one-shot ``serving.engine.generate`` shape).  Device state is
 slot-major and fixed-shape:
 
-  * either one slotted dense KV cache (``models.decode.init_cache`` at
-    batch = n_slots), recycled in place by per-slot prefill, or a page
+  * either one slotted dense cache (``models.decode.init_cache`` at
+    batch = n_slots: K/V rings and, for the recurrent families, SSM and
+    xLSTM states), recycled in place by per-slot prefill, or a page
     pool plus an ``(n_slots, max_chain)`` page table (``page_size``), with
     pages allocated, shared copy-on-write and freed on the host
     (``serving.paged``);
@@ -23,8 +24,9 @@ is written in place, because the decode runs as CUDA graphs that hold it
 by address (``core/graphs.py``).  One step (``_step_body``, JAX's
 ``_step_body`` / ``_step_body_paged``) is one batched decode over every
 slot plus one ``sample_slots``; inactive slots ride along masked out
-(their token and position frozen; their dense cache rows restored, their
-paged writes sent to the null page).
+(their token and position frozen; their dense ring rows restored and
+their recurrent states left unwritten, their paged writes sent to the
+null page).
 
 ``step_horizon == 1``: ``step_device`` is one replay of a graph of one
 step, keyed by the statics JAX's step jits on (the enabled solves, the
@@ -554,8 +556,10 @@ class ContinuousScheduler:
                 stash = cache_lanes(self.cache, self.pos)
                 logits, _ = decode_step(
                     self.cfg, self.params, self.token, self.pos, self.cache,
-                    compute_dtype=self.compute_dtype)
-                # inactive lanes keep their pre-step cache state
+                    compute_dtype=self.compute_dtype, active=active)
+                # inactive lanes keep their pre-step cache state: their
+                # recurrent states were never written, their ring rows
+                # are put back
                 freeze_cache_lanes(self.cache, stash, self.pos, active)
             nxt = sample_slots(
                 logits, [None] * self.n_slots, self.knobs,

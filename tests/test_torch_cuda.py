@@ -632,11 +632,12 @@ def test_new_wrappers_count_launches_and_refuse_bad_input(gen):
 
 
 # (B, S, heads, kv heads, head_dim, window): one row, ragged S with GQA,
-# a band, n_rep 4 with a band that skips tiles, the training heads, and
-# the training length
+# a band, n_rep 4 with a band that skips tiles, the training heads, the
+# training length, and hymba's prefill (head_dim 64, n_rep 5, window 1024)
 K7_SHAPES = [(1, 1, 2, 2, 16, 0), (2, 130, 4, 2, 32, 0),
              (1, 1000, 2, 2, 128, 128), (2, 257, 8, 2, 64, 17),
-             (1, 700, 16, 8, 128, 0), (1, 4096, 4, 2, 128, 0)]
+             (1, 700, 16, 8, 128, 0), (1, 4096, 4, 2, 128, 0),
+             (1, 4096, 10, 2, 64, 1024)]
 
 
 def _flash_inputs(gen, B, S, H, Hk, D, dtype):
@@ -1231,3 +1232,132 @@ def test_auto_on_the_card_only_ever_chooses_hopper(gen, tmp_path):
             assert d.backend == "hopper", (key, d)
     finally:
         tuning.set_cache_path(None)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: xlstm (mLSTM / sLSTM) and hymba (attention || SSM)
+# ---------------------------------------------------------------------------
+
+RECURRENT = ["xlstm-1.3b", "hymba-1.5b"]
+
+
+def _tiny_recurrent(gen, arch):
+    from repro_torch.models.testing import reduced_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = reduced_config(arch)
+    return cfg, init_params(cfg, gen, torch.bfloat16)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_graphed_recurrent_decode_step_equals_its_eager_body(gen, arch):
+    """A reduced decode step captured in a CUDA graph and replayed (every
+    mLSTM/sLSTM or SSM state and K/V row written in place; hymba's SWA
+    ring wrapped) equals the same step run eagerly: logits and every
+    cache leaf bit for bit; the replay reads nothing back to the host."""
+    from repro_torch.core.graphs import Graphs
+    from repro_torch.models.decode import decode_step, prefill
+    from repro_torch.tree import leaves
+
+    cfg, params = _tiny_recurrent(gen, arch)
+    prompt = torch.randint(0, cfg.vocab, (4, 10), generator=gen,
+                           device="cuda")
+    _, cache = prefill(cfg, params, prompt, 16)
+    token = torch.randint(0, cfg.vocab, (4,), generator=gen, device="cuda")
+    pos = torch.full((4,), 10, dtype=torch.int64, device="cuda")
+
+    def body():
+        return decode_step(cfg, params, token, pos, cache)[0]
+
+    snapshot = [t.clone() for t in leaves(cache)]
+
+    def restore():
+        for t, s in zip(leaves(cache), snapshot):
+            t.copy_(s)
+
+    want = body()
+    want_cache = [t.clone() for t in leaves(cache)]
+    restore()
+    graphs = Graphs()
+    graphs.run("step", body, device=torch.device("cuda"))
+    restore()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = graphs.run("step", body, device=torch.device("cuda"))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    for t, w in zip(leaves(cache), want_cache):
+        assert torch.equal(t, w)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_graphed_continuous_step_freezes_recurrent_lanes(gen, arch):
+    """Three slots, one live request and a lane left holding a finished
+    request's state: a replayed continuous step leaves both idle lanes'
+    cache leaves (recurrent state and K/V) bit for bit as they were, and
+    moves the live lane's recurrent state."""
+    from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    from repro_torch.tree import leaves_with_path
+
+    cfg, params = _tiny_recurrent(gen, arch)
+    sch = ContinuousScheduler(cfg, params, n_slots=3, context=24,
+                              backend="hopper")
+    sc = SamplerConfig(top_k=12, backend="hopper")
+    assert sch.admit("live", list(range(1, 11)), 8, seed=1, sampler=sc)
+    assert sch.admit("done", list(range(20, 30)), 1, seed=2, sampler=sc)
+    assert [s is not None for s in sch.slots] == [True, False, False]
+    sch.step()                        # the step's graph: warm-up, capture
+    before = [(p, t.clone()) for p, t in leaves_with_path(sch.cache)]
+    sch.step()                        # a replay
+    torch.cuda.synchronize()
+    moved = 0
+    for (path, b), (_, t) in zip(before, leaves_with_path(sch.cache)):
+        assert torch.equal(t[:, 1:], b[:, 1:]), path
+        if "/kv/" not in path:
+            moved += not torch.equal(t[:, 0], b[:, 0])
+    assert moved == sum("/kv/" not in p for p, _ in before)
+    assert len(sch.graphs.keys) == 1
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_graphed_recurrent_serving_equals_the_eager_body(gen, arch):
+    """Reduced xlstm / hymba served continuously on the dense ring (per
+    step and at step_horizon 4, graphs against eager step bodies), bit
+    for bit, the samples through K3-K5."""
+    cfg, params = _tiny_recurrent(gen, arch)
+    want, _ = _streams(cfg, params, eager=True)
+    got, sched = _streams(cfg, params)
+    assert got == want and len(sched.graphs.keys) >= 2
+    fused, sched = _streams(cfg, params, step_horizon=4)
+    assert fused == want and sched.n_horizons >= 1
+
+
+@pytest.mark.parametrize("vocab", [50304, 32001])
+def test_sampler_kernels_at_recurrent_vocabs(gen, vocab):
+    """K3 (bit for bit), K4 and K5 (rtol 1e-5 / atol 1e-6, bit-stable) at
+    B = 4 on xlstm's vocab row and hymba's, padded to 32128 with its 127
+    phantom columns at the row's max - 80, where the sampler's clamp puts
+    them."""
+    V = -(-vocab // 128) * 128
+    x = torch.randn((4, V), generator=gen, device="cuda") * 2.0
+    x[:, vocab:] = x[:, :vocab].amax(-1, keepdim=True) - 80.0
+    kw = dict(k_target=40, rounds=8, spec_k=5)
+    for g, w in zip(rt.runahead_topk_threshold_cuda(x, **kw),
+                    rt.runahead_topk_threshold_plain(x, **kw)):
+        assert torch.equal(g, w)
+    p = torch.softmax(x, dim=-1)
+    taus = torch.rand((4, 31), generator=gen, device="cuda") * p.amax()
+    got = mm.multi_mass_cuda(p, taus)
+    assert torch.equal(got, mm.multi_mass_cuda(p, taus))
+    torch.testing.assert_close(got, mm.multi_mass_plain(p, taus), **TOL)
+    z = x - x.amax(dim=-1, keepdim=True)
+    ts = torch.exp(torch.empty((4, 31), device="cuda").uniform_(
+        -3.0, 3.0, generator=gen))
+    got = me.multi_entropy_moments_cuda(z, ts)
+    for g, a, w in zip(got, me.multi_entropy_moments_cuda(z, ts),
+                       me.multi_entropy_moments_plain(z, ts)):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, **TOL)

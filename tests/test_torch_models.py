@@ -132,11 +132,14 @@ def test_ring_fill_wraps_like_jax():
 
 
 def test_unported_paths_raise():
-    # the dense and MoE families are ported (MoE: tests/test_torch_moe.py);
-    # a hybrid (attention + SSM) stack is not, for init or training
-    hybrid = testing.reduced_config("hymba-1.5b")
+    # the dense, MoE and recurrent families are ported for serving (MoE:
+    # tests/test_torch_moe.py, xlstm and hymba: tests/test_torch_recurrent
+    # .py); an enc-dec stack is not, and training a hybrid (attention +
+    # SSM) stack is not
+    encdec = testing.reduced_config("whisper-tiny")
     with pytest.raises(ValueError, match="not ported"):
-        transformer.init_params(hybrid, torch.Generator(), torch.float32)
+        transformer.init_params(encdec, torch.Generator(), torch.float32)
+    hybrid = testing.reduced_config("hymba-1.5b")
     from repro_torch.train.step import TrainConfig, make_train_step
 
     with pytest.raises(NotImplementedError, match="not ported"):
