@@ -229,6 +229,29 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      ring wrapped), continuous with 1500-token prompts (past the window,
      under FLASH_MIN_SEQ); no token >= 32001 (the phantom columns sit at
      the row's max - 80 after the sampler's clamp).
+ 21. whisper-tiny served at full width and depth (4 encoder + 4 decoder
+     layers, d_model 384, 6 heads of 64, vocab 51865 padded to 51968,
+     encoder_len 1500; ~36M params, no cut): launch.serve one-shot, batch
+     16 x 32 prompt tokens and 128 new with frames drawn from the seed
+     (graphed steps against the eager loop, bit for bit; K3-K5 at
+     (16, 51968)); continuous on the dense ring through the scheduler's
+     admit(encoder_frames=): 16 requests, each with its own frames, 8
+     slots, n_new uniform in [64, 128], two arriving a step, per step
+     (against the eager step body) and at step_horizon 4 (equal streams);
+     admission ms (the eager encoder), graphed steps against their byte
+     bound (decoder weights, the tied unembedding, ring and encoder K/V),
+     idle share, prefill + 8 steps against the f32 forward.
+ 22. qwen3-4b at full width with an int8 K/V cache on the dense ring:
+     launch.serve's continuous runner on a server with cache_dtype int8,
+     8 requests of 4096 prompt tokens (K7 in each admission, 36 launches
+     each), n_new uniform in [16, 32], 4 slots; replays against the eager
+     step body and step_horizon 4 against per step, bit for bit; a
+     decode_verify over L = 4 against serial steps within phase 15's bf16
+     tolerance, and its all-rejected rollback restoring codes and scales
+     bit for bit; one int8 step against the f32 step within INT8_VS_BF16
+     times the bf16 step's distance from it (and its distance from the
+     bf16 step beside JAX's reduced-size 0.02); the graphed int8 step and
+     the bf16 step at the same depth, each beside its byte bound.
 
 Phases 4-17 run the paths as a user runs them: in the tuner's default
 mode (the analytic solver tier and today's kernel geometry), on an empty
@@ -268,7 +291,11 @@ shapes: K3 as the capacity cut of phase 16's bisect prefill
 as phase 17's quantile clip ("moe-train"); and for the recurrent paths,
 K3-K5 at the vocab rows of phases 19 and 20 ("xlstm-serve",
 "hymba-serve": their one-shot serves) and K7 at hymba's prefill shape
-("hymba-prefill": phase 20's one-shot prefill).  A launch count is the wrappers' count of eager launches plus,
+("hymba-prefill": phase 20's one-shot prefill); K3-K5 at whisper's
+vocab row ("whisper-serve": phase 21's one-shot serve); and K3-K5 at the
+served shape and K7 at qwen3-4b's 4096-token admission ("int8-serve":
+phase 22's continuous serve).  A launch count is the wrappers' count of
+eager launches plus,
 for every graph replay, the launches its capture recorded.  Each entry's
 bound_ms is the larger of its bytes and operations bounds; K1's chain of
 dependent steps is bounded by latency instead, which its entry carries
@@ -391,11 +418,41 @@ HYMBA_CONT_ARGV = ["--arch", "hymba-1.5b", "--continuous", "--requests", "8",
 # to the first run of each kind: (prompt, positions compared) an arch (the
 # hymba prompt runs past its window of 1024); its tolerance, a fraction of
 # the logits' largest |value|
-RECURRENT_CHECK = {"xlstm-1.3b": (100, 9), "hymba-1.5b": (1100, 9)}
+RECURRENT_CHECK = {"xlstm-1.3b": (100, 9), "hymba-1.5b": (1100, 9),
+                   "whisper-tiny": (32, 9)}
 RECURRENT_F32_TOL = 1e-3
-# K3-K5 at the recurrent paths' vocab rows (B = 4), K7 at hymba's prefill
-NEW_VOCABS = {"xlstm-serve": 50304, "hymba-serve": 32001}
+# K3-K5 at the later paths' (B, vocab) rows, K7 at hymba's prefill and at
+# the int8 serve's 4096-token admission (qwen3-4b at B = 1)
+NEW_VOCABS = {"xlstm-serve": (PATH_B, 50304), "hymba-serve": (PATH_B, 32001),
+              "whisper-serve": (16, 51865)}
 K7_HYMBA = dict(B=2, S=4096, H=25, Hk=5, D=64, window=1024)
+K7_INT8 = dict(B=1, S=4096, H=32, Hk=8, D=128, window=0)
+# phase 21: whisper-tiny at full width and depth.  One-shot: batch
+# transcription of 30 s segments, 16 x 32-token prompts and 128 new tokens
+# (under the decoder's 448 positions, hf:openai/whisper-tiny
+# max_target_positions); continuous: 16 requests, each with its own
+# frames, over 8 slots of the dense ring, n_new uniform in [64, 128], two
+# arriving a step, at step horizons 1 and 4
+WHISPER_SERVE_ARGV = ["--arch", "whisper-tiny", "--batch", "16",
+                      "--prompt-len", "32", "--new-tokens", "128"
+                      ] + SAMPLER_ARGV
+WHISPER_CONT = dict(requests=16, slots=8, prompt=32, new=128, burst=2)
+WHISPER_WINDOW = 16             # graphed steps profiled, every slot live
+# phase 22: qwen3-4b at full width with an int8 K/V cache on the dense
+# ring: long-context chat, 8 requests of 4096 prompt tokens (K7 in each
+# admission), n_new uniform in [16, 32], 4 slots.  The int8 step is held
+# against the f32 step (f32 compute and cache) within INT8_VS_BF16 times
+# the bf16 step's own distance from it.  JAX's contract, an int8 step
+# within 0.02 of the largest |logit| of the bf16 step's
+# (tests/test_models_smoke.py, held on the CPU at reduced size), cannot
+# hold at this width and depth: the bf16 step alone lies 0.044 of the
+# largest |logit| from the f32 step there (PERF.md, PR 23), and the
+# int8 step's reading against it is printed beside the check
+INT8_CONT_ARGV = ["--arch", "qwen3-4b", "--continuous", "--requests", "8",
+                  "--slots", "4", "--arrival-burst", "2", "--prompt-len",
+                  "4096", "--new-tokens", "32"] + SAMPLER_ARGV
+INT8_VS_BF16 = 2.0
+INT8_JAX_CONTRACT = 0.02
 FAULT_ARGV = ["--arch", "internlm2-1.8b", "--reduced", "--device", "cuda",
               "--steps", "10", "--batch", "4", "--seq", "64", "--clip-mode",
               "quantile", "--ckpt-every", "5", "--log-every", "1"]
@@ -1214,20 +1271,21 @@ def _rows_k7(gen):
 
 
 def _rows_new_paths(gen) -> dict:
-    """Phase 3 at the recurrent paths' shapes: K3-K5 at B=4 on the vocab
-    rows of xlstm-1.3b (50304) and hymba-1.5b (32001, padded to 32128: its
-    127 phantom columns at the row's max - 80, where the sampler's clamp
-    puts the unembedding's -1e30), K3 bit for bit, K4 and K5 within rtol
+    """Phase 3 at the later paths' shapes: K3-K5 at B=4 on the vocab rows
+    of xlstm-1.3b (50304) and hymba-1.5b (32001, padded to 32128: its 127
+    phantom columns at the row's max - 80, where the sampler's clamp puts
+    the unembedding's -1e30) and at B=16 on whisper-tiny's (51865, padded
+    to 51968: 103 phantom columns), K3 bit for bit, K4 and K5 within rtol
     1e-5 / atol 1e-6; K7 at hymba's prefill shape (B=2, S=4096, 25 query
     heads over 5 K/V heads, head_dim 64, bf16) with window 1024 (its 29
-    sliding-window layers) and 0 (its 3 global ones), each by
-    ``flash_fwd.bf16_check`` and bit-stable, timed beside its bound and
-    one SDPA call with a boolean band mask and enable_gqa.  Returns {path:
+    sliding-window layers) and 0 (its 3 global ones), and at the int8
+    serve's admission (qwen3-4b's B=1, S=4096, 32 query heads over 8 K/V
+    heads, head_dim 128, causal), each by ``flash_fwd.bf16_check`` and
+    bit-stable, timed beside its bound and one SDPA call (a boolean band
+    mask for hymba, is_causal for qwen3; enable_gqa).  Returns {path:
     {kernel: row}}."""
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_fwd as ff
     from repro_torch.kernels import multi_entropy as me
     from repro_torch.kernels import multi_mass as mm
     from repro_torch.kernels import ops
@@ -1236,15 +1294,15 @@ def _rows_new_paths(gen) -> dict:
     out = {}
     kw = dict(k_target=40, rounds=8, spec_k=5)
     n_cmp = 2 + 1 + kw["rounds"] * kw["spec_k"]
-    for path, vocab in NEW_VOCABS.items():
+    for path, (PB, vocab) in NEW_VOCABS.items():
         V = -(-vocab // 128) * 128
-        x = torch.randn((PATH_B, V), generator=gen, device="cuda") * 2.0
+        x = torch.randn((PB, V), generator=gen, device="cuda") * 2.0
         x[:, vocab:] = x[:, :vocab].amax(-1, keepdim=True) - 80.0
         got = rt.runahead_topk_threshold_cuda(x, **kw)
         want = rt.runahead_topk_threshold_plain(x, **kw)
         for g, w in zip(got, want):
-            check(torch.equal(g, w), f"K3 differs from plain at {(PATH_B, V)}")
-        clusters, size = rt.cluster_geometry(PATH_B, V)
+            check(torch.equal(g, w), f"K3 differs from plain at {(PB, V)}")
+        clusters, size = rt.cluster_geometry(PB, V)
         k3 = dict(
             source="src/repro_torch/kernels/csrc/runahead_threshold.cu",
             replaces="src/repro/kernels/runahead_threshold.py:123",
@@ -1253,20 +1311,20 @@ def _rows_new_paths(gen) -> dict:
             call_ms=call_ms(lambda: ops.runahead_topk_threshold(x, **kw)),
             plain_ms=device_ms(lambda: rt.runahead_topk_threshold_plain(
                 x, **kw), calls=2),
-            bound=bound_ms(4 * (x.numel() + 2 * PATH_B),
+            bound=bound_ms(4 * (x.numel() + 2 * PB),
                            2 * x.numel() * n_cmp),
             library_ms=device_ms(lambda: torch.topk(x, 40, dim=-1)),
             library="torch.topk",
-            note=f"({PATH_B}, {V}), {V - vocab} phantom columns at max - 80; "
+            note=f"({PB}, {V}), {V - vocab} phantom columns at max - 80; "
                  f"bit for bit; {clusters} CTAs a row of {size} elements")
         p = torch.softmax(x, dim=-1)
         lo, hi = p.amin(-1, keepdim=True), p.amax(-1, keepdim=True)
-        taus = lo + (hi - lo) * torch.rand((PATH_B, PATH_M), generator=gen,
+        taus = lo + (hi - lo) * torch.rand((PB, PATH_M), generator=gen,
                                            device="cuda")
         got, again = mm.multi_mass_cuda(p, taus), mm.multi_mass_cuda(p, taus)
         want = mm.multi_mass_plain(p, taus)
         check(torch.equal(got, again) and torch.allclose(got, want, **TOL),
-              f"K4 differs from plain or is not bit-stable at {(PATH_B, V)}")
+              f"K4 differs from plain or is not bit-stable at {(PB, V)}")
         k4 = dict(
             source="src/repro_torch/kernels/csrc/multi_mass.cu",
             replaces="src/repro/kernels/multi_mass.py:65",
@@ -1277,9 +1335,9 @@ def _rows_new_paths(gen) -> dict:
             bound=bound_ms(4 * (p.numel() + 2 * taus.numel()),
                            3 * p.numel() * PATH_M),
             library_ms=None, library="none",
-            note=f"({PATH_B}, {V}) x M={PATH_M}; bit-stable")
+            note=f"({PB}, {V}) x M={PATH_M}; bit-stable")
         z = x - x.amax(-1, keepdim=True)
-        ts = torch.exp(torch.empty((PATH_B, PATH_M), device="cuda").uniform_(
+        ts = torch.exp(torch.empty((PB, PATH_M), device="cuda").uniform_(
             -3.0, 3.0, generator=gen))
         got = me.multi_entropy_moments_cuda(z, ts)
         again = me.multi_entropy_moments_cuda(z, ts)
@@ -1288,7 +1346,7 @@ def _rows_new_paths(gen) -> dict:
         for g, a, w in zip(got, again, want):
             check(torch.equal(g, a) and torch.allclose(g, w, **TOL),
                   f"K5 differs from plain or is not bit-stable at "
-                  f"{(PATH_B, V)}")
+                  f"{(PB, V)}")
             err = max(err, (g - w).abs().max().item())
         pairs = z.numel() * PATH_M
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1303,60 +1361,19 @@ def _rows_new_paths(gen) -> dict:
             bound=max((sfu_ms, "operations"),
                       bound_ms(4 * (z.numel() + 3 * ts.numel()), 4 * pairs)),
             library_ms=None, library="none",
-            note=f"({PATH_B}, {V}) x M={PATH_M}; bit-stable; the SFU's "
+            note=f"({PB}, {V}) x M={PATH_M}; bit-stable; the SFU's "
                  f"exponentials bound it")
         out[path] = {"runahead_topk_threshold": k3, "multi_mass": k4,
                      "multi_entropy_moments": k5}
 
-    sh = K7_HYMBA
-    B, S, H, Hk, D = sh["B"], sh["S"], sh["H"], sh["Hk"], sh["D"]
-    n_rep = H // Hk
-    q, k, v = _k7_inputs(gen, sh, torch.bfloat16)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pos = torch.arange(S, device="cuda")
-    rows, notes = {}, []
-    for window in (sh["window"], 0):
-        got = ff.flash_fwd_cuda(q, k, v, window=window, n_rep=n_rep)
-        check(torch.equal(got, ff.flash_fwd_cuda(q, k, v, window=window,
-                                                 n_rep=n_rep)),
-              f"K7 not bit-stable at hymba's shape, window {window}")
-        accuracy = ff.bf16_check(got, q, k, v, window=window, n_rep=n_rep)
-        check(accuracy.ok, f"K7 bf16 less accurate than its plain version "
-                           f"at hymba's shape, window {window}: {accuracy}")
-        err = (got.float() - ff.flash_fwd_plain(
-            q, k, v, window=window, n_rep=n_rep).float()).abs().max().item()
-        band = pos[None, :] <= pos[:, None]
-        if window:
-            band &= pos[None, :] > pos[:, None] - window
-        w = window or S
-        # the (query, key) pairs the band holds, 4 flops a pair and dim
-        pairs = w * (w + 1) / 2 + (S - w) * w
-        n_ops = 4 * B * H * D * pairs
-        n_bytes = 2 * (2 * B * S * H * D + 2 * B * S * Hk * D)
-        run = lambda: ops.flash_fwd(q, k, v, window=window,  # noqa: E731
-                                    n_rep=n_rep)
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, attn_mask=band, enable_gqa=True)
-        ms = device_ms(run, calls=5, reps=3)
-        rows[window] = dict(
-            source="src/repro_torch/kernels/csrc/flash_fwd.cu",
-            replaces="src/repro/kernels/flash_fwd.py:82", max_abs_err=err,
-            ms=ms, call_ms=call_ms(run, reps=5),
-            plain_ms=device_ms(lambda: ff.flash_fwd_plain(
-                q, k, v, window=window, n_rep=n_rep), calls=1, reps=3),
-            bound=bound_ms(n_bytes, n_ops, BF16_OPS_PER_S),
-            library_ms=device_ms(sdpa, calls=5, reps=3),
-            library="F.scaled_dot_product_attention(boolean band mask, "
-                    "enable_gqa)",
-            note=f"B={B} S={S} H={H}/{Hk} D={D} bf16, window {window}: "
-                 f"{n_ops / 1e9:.1f} GFLOP, {n_ops / ms / 1e9:.1f} TFLOP/s "
-                 f"achieved; {accuracy}")
+    rows = {window: _k7_row(gen, K7_HYMBA, window, band_mask=True)
+            for window in (K7_HYMBA["window"], 0)}
     for window, r in rows.items():
         say_row(f"phase 3 flash_fwd hymba-prefill window {window}", r)
     # the row of the path: its 29 banded layers' shape; the 3 global
     # layers' reading beside it
     g = rows[0]
-    row = dict(rows[sh["window"]])
+    row = dict(rows[K7_HYMBA["window"]])
     row["note"] += (f" | window 0 (the global layers): {g['ms']:.4f} ms, "
                     f"bound {g['bound'][0]:.6f} ms, SDPA "
                     f"{g['library_ms']:.4f} ms")
@@ -1366,7 +1383,69 @@ def _rows_new_paths(gen) -> dict:
             continue
         for name, r in by_name.items():
             say_row(f"phase 3 {name} {path}", r)
+    # the int8 serve's admissions: qwen3-4b's 4096-token prefill at B = 1
+    int8 = _k7_row(gen, K7_INT8, 0, band_mask=False)
+    say_row("phase 3 flash_fwd int8-serve", int8)
+    out["int8-serve"] = {"flash_fwd": int8}
     return out
+
+
+def _k7_row(gen, sh: dict, window: int, band_mask: bool) -> dict:
+    """K7 at a path's shape ``sh`` in bf16 with ``window``: bit-stable,
+    held by ``flash_fwd.bf16_check``, timed beside its bound and one SDPA
+    call (GQA; the causal band as a boolean mask where ``band_mask``, else
+    is_causal)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_fwd as ff
+    from repro_torch.kernels import ops
+
+    B, S, H, Hk, D = sh["B"], sh["S"], sh["H"], sh["Hk"], sh["D"]
+    n_rep = H // Hk
+    q, k, v = _k7_inputs(gen, sh, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.arange(S, device="cuda")
+    got = ff.flash_fwd_cuda(q, k, v, window=window, n_rep=n_rep)
+    check(torch.equal(got, ff.flash_fwd_cuda(q, k, v, window=window,
+                                             n_rep=n_rep)),
+          f"K7 not bit-stable at {sh}, window {window}")
+    accuracy = ff.bf16_check(got, q, k, v, window=window, n_rep=n_rep)
+    check(accuracy.ok, f"K7 bf16 less accurate than its plain version "
+                       f"at {sh}, window {window}: {accuracy}")
+    err = (got.float() - ff.flash_fwd_plain(
+        q, k, v, window=window, n_rep=n_rep).float()).abs().max().item()
+    w = window or S
+    # the (query, key) pairs the band holds, 4 flops a pair and dim
+    pairs = w * (w + 1) / 2 + (S - w) * w
+    n_ops = 4 * B * H * D * pairs
+    n_bytes = 2 * (2 * B * S * H * D + 2 * B * S * Hk * D)
+    run = lambda: ops.flash_fwd(q, k, v, window=window,  # noqa: E731
+                                n_rep=n_rep)
+    if band_mask:
+        band = pos[None, :] <= pos[:, None]
+        if window:
+            band &= pos[None, :] > pos[:, None] - window
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=band, enable_gqa=True)
+        library = ("F.scaled_dot_product_attention(boolean band mask, "
+                   "enable_gqa)")
+    else:
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        library = "F.scaled_dot_product_attention(is_causal, enable_gqa)"
+    ms = device_ms(run, calls=5, reps=3)
+    return dict(
+        source="src/repro_torch/kernels/csrc/flash_fwd.cu",
+        replaces="src/repro/kernels/flash_fwd.py:82", max_abs_err=err,
+        ms=ms, call_ms=call_ms(run, reps=5),
+        plain_ms=device_ms(lambda: ff.flash_fwd_plain(
+            q, k, v, window=window, n_rep=n_rep), calls=1, reps=3),
+        bound=bound_ms(n_bytes, n_ops, BF16_OPS_PER_S),
+        library_ms=device_ms(sdpa, calls=5, reps=3), library=library,
+        note=f"B={B} S={S} H={H}/{Hk} D={D} bf16, window {window}: "
+             f"{n_ops / 1e9:.1f} GFLOP, {n_ops / ms / 1e9:.1f} TFLOP/s "
+             f"achieved; {accuracy}")
 
 def phase_solves(gen):
     import torch
@@ -1576,7 +1655,7 @@ def say_kernel_times(phase: str, kernels, busy_ms: float,
             f"({n} calls)")
 
 
-def eager_generate(cfg, params, prompt, n_new, gen, sc):
+def eager_generate(cfg, params, prompt, n_new, gen, sc, frames=None):
     """The one-shot decode as an eager loop with a host-integer position
     (no graph): the reference the step graph's replays are held to."""
     import torch
@@ -1585,7 +1664,8 @@ def eager_generate(cfg, params, prompt, n_new, gen, sc):
     from repro_torch.serving.sampler import sample
 
     S = prompt.shape[1]
-    logits, cache = prefill(cfg, params, prompt, S + n_new)
+    logits, cache = prefill(cfg, params, prompt, S + n_new,
+                            encoder_frames=frames)
     toks = [sample(logits, gen, sc)]
     for pos in range(S, S + n_new - 1):
         logits, cache = decode_step(cfg, params, toks[-1], pos, cache)
@@ -3811,7 +3891,8 @@ def _frozen_lanes(server, requests) -> str:
 
 
 def _prefill_reproduces_forward(arch: str, gen) -> str:
-    """At full width in f32, the depth cut to the first run of each kind:
+    """At full width in f32, the depth cut to the first run of each kind
+    (whisper's 4 decoder layers and its whole encoder over f32 frames):
     the prefill's last logits and each decode step's against the
     full-sequence forward's at the same positions, max |diff| within
     RECURRENT_F32_TOL of the logits' largest |value|."""
@@ -3836,9 +3917,13 @@ def _prefill_reproduces_forward(arch: str, gen) -> str:
     S, n = RECURRENT_CHECK[arch]
     tokens = torch.randint(0, cfg.vocab, (1, S + n), generator=gen,
                            device="cuda")
+    frames = (torch.randn((1, cfg.encoder_len, cfg.d_model), generator=gen,
+                          device="cuda") if cfg.is_encdec else None)
     f32 = dict(compute_dtype=torch.float32)
-    want, _ = transformer.forward(cfg, params, tokens, **f32)
-    logits, cache = decode.prefill(cfg, params, tokens[:, :S], S + n, **f32)
+    want, _ = transformer.forward(cfg, params, tokens, encoder_frames=frames,
+                                  **f32)
+    logits, cache = decode.prefill(cfg, params, tokens[:, :S], S + n,
+                                   encoder_frames=frames, **f32)
     got = [logits]
     for pos in range(S, S + n - 1):
         logits, cache = decode.decode_step(cfg, params, tokens[:, pos], pos,
@@ -4012,6 +4097,463 @@ def phase_recurrent(phase: int, arch: str, oneshot_argv, cont_argv, gen,
         f"({label} took {time.perf_counter() - t0:.1f}s)")
     return paths
 
+def _whisper_step_bound(params, cache) -> tuple[float, str]:
+    """A whisper decode step's byte bound (ms): the decoder's weights and
+    final norm, the tied embedding read whole as the unembedding, the
+    self-attention ring read whole (masked) and the encoder K/V read once.
+    The encoder's weights are not read by a step, and of the position
+    table only the B rows it gathers."""
+    from repro_torch.tree import leaves, leaves_with_path
+
+    def nbytes(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+    weights = (nbytes(params["runs"]) + nbytes(params["final_norm"])
+               + nbytes(params["embed"]))
+    kv = enc = 0
+    for path, t in leaves_with_path(cache):
+        if "enc_" in path:
+            enc += t.numel() * t.element_size()
+        else:
+            kv += t.numel() * t.element_size()
+    n = weights + kv + enc
+    return n / HBM_BYTES_PER_S * 1e3, (
+        f"{n / 1e9:.4f} GB: decoder weights and the tied unembedding "
+        f"{weights / 1e9:.4f}, ring K/V {kv / 1e9:.4f}, encoder K/V "
+        f"{enc / 1e9:.4f}")
+
+
+def whisper_requests(cfg, gen) -> list:
+    """Phase 21's continuous workload: WHISPER_CONT's requests, each
+    (rid, prompt, n_new, seed, its frames (1, T_enc, D) in bf16, arrival
+    step), prompts and budgets from a seeded numpy generator, frames
+    drawn on the card from ``gen``."""
+    import numpy as np
+    import torch
+
+    w = WHISPER_CONT
+    rng = np.random.default_rng(21)
+    frames = torch.randn((w["requests"], cfg.encoder_len, cfg.d_model),
+                         generator=gen, device="cuda", dtype=torch.bfloat16)
+    return [(i, rng.integers(0, cfg.vocab, size=w["prompt"]).tolist(),
+             int(rng.integers(w["new"] // 2, w["new"] + 1)), 2100 + i,
+             frames[i:i + 1], i // w["burst"])
+            for i in range(w["requests"])]
+
+
+def serve_with_frames(sched, requests, sc) -> tuple[dict, list[float]]:
+    """Serve ``requests`` (``whisper_requests``'s tuples) through the
+    scheduler, each admitted with its own frames (the server takes none,
+    in either package): at decode step t the requests arrived by t are
+    admitted while a slot is free, then one ``step``.  Returns ({rid:
+    tokens}, each admission's wall ms, the device synced around it)."""
+    import torch
+
+    todo, out, adm, t = list(requests), {}, [], 0
+    while todo or sched.n_active:
+        while todo and todo[0][5] <= t and sched.has_free_slot():
+            rid, prompt, n_new, seed, frames, _ = todo.pop(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(sched.admit(rid, prompt, n_new, seed, sc,
+                              encoder_frames=frames), "admission failed")
+            torch.cuda.synchronize()
+            adm.append((time.perf_counter() - t0) * 1e3)
+        if sched.n_active:
+            sched.step()
+        for fin in sched.pop_finished():
+            out[fin.rid] = list(fin.tokens)
+        t += 1
+    return out, adm
+
+
+def phase_whisper(gen) -> dict:
+    """whisper-tiny served as a user serves it, at full width and depth
+    (random bf16 weights from seed 0): launch.serve one-shot (graph
+    replays against the eager loop), and continuous on the dense ring
+    through the scheduler's admit(encoder_frames=) per step (against the
+    eager step body) and at step_horizon 4; tok/s, idle share, admission
+    ms (the eager encoder), graphed steps against their byte bounds,
+    prefill + steps against the f32 forward, peak memory.  Returns {path:
+    launches}: ``whisper-serve`` (the one-shot run) and
+    ``whisper-continuous``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    label = "phase 21"
+    torch.cuda.empty_cache()
+    session = serve.setup(WHISPER_SERVE_ARGV)
+    cfg, params, args, sc = (session.cfg, session.params, session.args,
+                             session.sampler)
+    torch.cuda.reset_peak_memory_stats()
+    weights_mb = sum(t.numel() * t.element_size()
+                     for t in leaves(params)) / 1e6
+    ops.reset_launches()
+    forget_decisions()
+    served = serve.run(session)
+    launches = dict(ops.LAUNCHES)
+    toks = served.tokens
+    check(tuple(toks.shape) == (args.batch, args.new_tokens),
+          f"tokens {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"a token >= {cfg.vocab} (a phantom column) was sampled")
+    check_solver_launches(launches,
+                          sampler_solves({args.batch: args.new_tokens}),
+                          f"{label} whisper serve")
+    decided = decisions_note()
+    graphs = session.decode.graphs
+    check(len(graphs.keys) == 1, f"decode graphs {graphs.keys}")
+    warm_s = serve.run(session).seconds
+    state = session.gen.get_state()
+    again = serve.run(session)
+    session.gen.set_state(state)
+    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           generator=session.gen, device="cuda")
+    frames = torch.randn((args.batch, cfg.encoder_len, cfg.d_model),
+                         generator=session.gen, device="cuda",
+                         dtype=torch.bfloat16)
+    want = eager_generate(cfg, params, prompt, args.new_tokens, session.gen,
+                          sc, frames)
+    check(torch.equal(again.tokens, want),
+          "the graphed whisper tokens differ from the eager loop's")
+    n_tok = toks.numel()
+    say(f"{label} whisper serve: whisper-tiny full width and depth (4 "
+        f"encoder + 4 decoder layers, d_model 384, 6 heads of 64, vocab "
+        f"51865 padded to 51968, encoder_len 1500; "
+        f"{cfg.param_count() / 1e6:.1f}M params, {weights_mb:.1f} MB of "
+        f"bf16 weights with the 32768-row position table) | one-shot "
+        f"batch {args.batch} x prompt {args.prompt_len} with frames (16, "
+        f"1500, 384), {n_tok} tokens: first {served.seconds:.3f}s (one "
+        f"eager step and the capture, {graphs.capture_s:.3f}s), warm "
+        f"{warm_s:.3f}s = {n_tok / warm_s:.1f} tok/s; tokens == the eager "
+        f"loop's bit for bit, none >= {cfg.vocab} | launches {launches} | "
+        f"decisions: {decided} | row 0: {toks[0, :16].tolist()}")
+    _, busy_ms, wall_ms, kernels, calls = profiled(lambda: serve.run(session))
+    say_profile(f"{label} one-shot", busy_ms, wall_ms, kernels, calls, n_tok,
+                "token", "; warm, the eager prefill and encoder included")
+    if kernels:
+        say_kernel_times(f"{label} one-shot", kernels, busy_ms)
+    key = graphs.keys[0]
+    step_ms = _graph_ms(graphs, key)
+    bound, what = _whisper_step_bound(params,
+                                      session.decode._states[key].cache)
+    say(f"{label} graphed one-shot decode step (B={args.batch}, CUDA events "
+        f"around one replay, median of 9): {step_ms:.3f} ms against its "
+        f"byte bound {bound:.4f} ms ({what}; {bound / step_ms:.3f} of the "
+        f"bound)")
+    paths = {"whisper-serve": launches}
+    del session
+
+    # continuous on the dense ring: the scheduler's admit(encoder_frames=)
+    w = WHISPER_CONT
+    requests = whisper_requests(cfg, gen)
+
+    def scheduler(**kw):
+        return ContinuousScheduler(
+            cfg, params, n_slots=w["slots"], context=w["prompt"] + w["new"],
+            spec_k=sc.spec_k, rounds=sc.rounds, backend=sc.backend, **kw)
+
+    sched = scheduler()
+    ops.reset_launches()
+    forget_decisions()
+    t1 = time.perf_counter()
+    first, _ = serve_with_frames(sched, requests, sc)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    cont = dict(ops.LAUNCHES)
+    steps, n_adm = sched.n_decode_steps, sched.n_admissions
+    check(len(first) == w["requests"], "not every whisper request served")
+    check(all(0 <= t < cfg.vocab for s in first.values() for t in s),
+          f"a token >= {cfg.vocab} was sampled")
+    check_solver_launches(
+        cont, sampler_solves({w["slots"]: steps, 1: n_adm}),
+        f"{label} continuous whisper serve")
+    paths["whisper-continuous"] = cont
+    t1 = time.perf_counter()
+    warm, adm = serve_with_frames(sched, requests, sc)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    check(warm == first, "warm whisper streams differ")
+    eager = scheduler()
+    eager.graphs = EagerGraphs()
+    check(serve_with_frames(eager, requests, sc)[0] == first,
+          "the graphed whisper streams differ from the eager step body's")
+    del eager
+    fused = scheduler(step_horizon=HORIZON)
+    check(serve_with_frames(fused, requests, sc)[0] == first,
+          "the whisper fused streams differ from the per-step streams")
+    t1 = time.perf_counter()
+    check(serve_with_frames(fused, requests, sc)[0] == first,
+          "the warm whisper fused streams differ")
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t1
+    n_tok = sum(len(x) for x in first.values())
+    say(f"{label} whisper continuous (dense ring, {w['requests']} requests "
+        f"of {w['prompt']} + {w['new'] // 2}..{w['new']} tokens, each with "
+        f"its own frames, over {w['slots']} slots, {w['burst']} arriving a "
+        f"step, step_horizon 1): first {first_s:.3f}s, warm {warm_s:.3f}s "
+        f"= {n_tok / warm_s:.1f} tok/s, {steps} steps; streams == the eager "
+        f"step body's bit for bit | step_horizon {HORIZON}: streams == the "
+        f"per-step streams bit for bit, warm {fused_s:.3f}s = "
+        f"{n_tok / fused_s:.1f} tok/s | launches {cont} | decisions: "
+        f"{decisions_note()}")
+    say_graphs(f"{label} whisper continuous", sched)
+    say(f"{label} admissions (the eager encoder over 1500 frames, the "
+        f"32-token prefill and the first sample, synced; the warm serve's): "
+        f"median {statistics.median(adm):.1f} ms, min {min(adm):.1f}, max "
+        f"{max(adm):.1f} over {len(adm)}, {sum(adm) / 1e3:.3f}s in all")
+    # the device while the card decodes: every slot admitted (eagerly,
+    # outside the window), then WHISPER_WINDOW graphed steps profiled (a
+    # whole serve's profile holds ~4e5 kernels and takes a minute to read)
+    for rid, prompt, n_new, seed, fr, _ in requests[:w["slots"]]:
+        check(sched.admit(rid, prompt, n_new, seed, sc, encoder_frames=fr),
+              "admission failed")
+
+    def window():
+        for _ in range(WHISPER_WINDOW):
+            sched.step()
+        return WHISPER_WINDOW
+
+    _, busy_ms, wall_ms, kernels, calls = profiled(window)
+    check(sched.n_active == w["slots"], "a request finished in the window")
+    while sched.n_active:
+        sched.step()
+    sched.pop_finished()
+    say_profile(f"{label} continuous decode", busy_ms, wall_ms, kernels,
+                calls, WHISPER_WINDOW, "decode step",
+                f"; {w['slots']} live slots, {WHISPER_WINDOW} graphed steps "
+                "after their admissions")
+    [key] = [k for k in sched.graphs.keys if k[0] == "step"]
+    step_ms = _graph_ms(sched.graphs, key)
+    bound, what = _whisper_step_bound(params, sched.cache)
+    say(f"{label} graphed continuous decode step ({w['slots']} slots, CUDA "
+        f"events around one replay, median of 9): {step_ms:.3f} ms against "
+        f"its byte bound {bound:.4f} ms ({what}; {bound / step_ms:.3f} of "
+        f"the bound)")
+    del sched, fused
+    say(f"{label} reference: "
+        f"{_prefill_reproduces_forward('whisper-tiny', gen)}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"{label} peak memory {peak:.2f} GB ({label} took "
+        f"{time.perf_counter() - t0:.1f}s)")
+    return paths
+
+
+def _int8_server(session, cache_dtype, **kw):
+    """``serve.server_for``'s server for the session's continuous flags
+    with the K/V cache in ``cache_dtype`` (the launcher has no int8 flag,
+    as the JAX launcher has none)."""
+    from repro_torch.serving.server import RunaheadServer
+
+    cfg, params, args, sc = session[:4]
+    return RunaheadServer(
+        cfg, params, n_slots=args.slots,
+        context=args.prompt_len + args.new_tokens, spec_k=sc.spec_k,
+        rounds=sc.rounds, backend=sc.backend, cache_dtype=cache_dtype, **kw)
+
+
+def _int8_verify_grid(session, server) -> str:
+    """One decode_verify over L = DRAFT_LEN on the int8 ring (4 requests
+    admitted) against L serial decode steps on a copy of it, within phase
+    15's bf16 tolerance; then the all-rejected rollback, which must put
+    every code and scale back bit for bit."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import decode
+    from repro_torch.tree import leaves, tree_map
+
+    cfg, params = session.cfg, session.params
+    sched = server.scheduler
+    check(sched.n_active == 0, "the scheduler still holds requests")
+    for r in serve.continuous_requests(cfg, session.args,
+                                       session.sampler)[:4]:
+        check(sched.admit(r.rid, r.prompt, r.n_new, r.seed, r.sampler),
+              "admission failed")
+    B, L = 4, DRAFT_LEN
+    g = torch.Generator(device="cuda").manual_seed(22)
+    feed = torch.cat([sched.token[:, None], torch.randint(
+        0, cfg.vocab, (B, L - 1), generator=g, device="cuda")], dim=1)
+    pos = sched.pos.clone()
+    before = [t.clone() for t in leaves(sched.cache)]
+    copy = tree_map(torch.clone, sched.cache)
+    grid, _, stash = decode.decode_verify(cfg, params, feed, pos,
+                                          sched.cache)
+    serial = torch.stack([decode.decode_step(
+        cfg, params, feed[:, l], pos + l, copy)[0] for l in range(L)], dim=1)
+    scale = serial.abs().amax(dim=-1)
+    rel = (grid - serial).abs().amax(dim=-1) / scale           # (B, L)
+    check(bool((rel <= VERIFY_REL_TOL).all()),
+          f"int8 verify rows differ from serial steps by {rel.tolist()} of "
+          f"the row's largest |logit| (tolerance {VERIFY_REL_TOL})")
+    decode.rollback_cache_runs(sched.cache, stash, pos,
+                               torch.zeros_like(pos))
+    check(all(torch.equal(a, b) for a, b in zip(leaves(sched.cache),
+                                                before)),
+          "the all-rejected rollback did not restore the int8 codes and "
+          "scales")
+    n_leaves = len(before)
+    del copy
+    return (f"one decode_verify over L={L} on the int8 ring (4 live "
+            f"slots) against {L} serial decode steps: max |dlogit| per row "
+            f"/ the row's largest |logit| = "
+            f"{[[round(x, 5) for x in row] for row in rel.tolist()]} "
+            f"(tolerance {VERIFY_REL_TOL}); the all-rejected rollback "
+            f"restores all {n_leaves} leaves (codes and scales) bit for bit")
+
+
+def _int8_contract(session) -> str:
+    """The int8 step at full width against the f32 step: one 4096-token
+    prompt prefilled with int8 K/V, with bf16 K/V (both in bf16) and in
+    f32 (compute and cache), one decode step each; the int8 step's max
+    |diff| from the f32 step within INT8_VS_BF16 times the bf16 step's.
+    The int8 step's distance from the bf16 step, the reading JAX's
+    contract bounds at reduced size, is reported beside it."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import decode
+
+    cfg, params = session.cfg, session.params
+    r = serve.continuous_requests(cfg, session.args, session.sampler)[0]
+    prompt = torch.tensor([r.prompt], device="cuda")
+    S = prompt.shape[1]
+    out = {}
+    for name, kv, compute in (("int8", torch.int8, torch.bfloat16),
+                              ("bf16", torch.bfloat16, torch.bfloat16),
+                              ("f32", torch.float32, torch.float32)):
+        _, cache = decode.prefill(cfg, params, prompt, S + 1, kv_dtype=kv,
+                                  compute_dtype=compute)
+        out[name], _ = decode.decode_step(cfg, params, prompt[:, -1], S,
+                                          cache, compute_dtype=compute)
+        del cache
+    top = out["f32"].abs().max().item()
+
+    def rel(a, b):
+        return (out[a] - out[b]).abs().max().item() / top
+
+    int8_err, bf16_err = rel("int8", "f32"), rel("bf16", "f32")
+    check(int8_err <= INT8_VS_BF16 * bf16_err,
+          f"the int8 step lies {int8_err:.4f} of the largest |logit| from "
+          f"the f32 step, more than {INT8_VS_BF16} x the bf16 step's "
+          f"{bf16_err:.4f}")
+    return (f"one step after a {S}-token prefill, max |diff| / the f32 "
+            f"step's largest |logit| ({top:.4g}): int8 {int8_err:.4f} from "
+            f"the f32 step, bf16 {bf16_err:.4f} (int8 / bf16 "
+            f"{int8_err / bf16_err:.3f}, limit {INT8_VS_BF16}); int8 from "
+            f"bf16 {rel('int8', 'bf16'):.4f} (JAX's reduced-size contract "
+            f"{INT8_JAX_CONTRACT}: bf16 alone lies {bf16_err:.4f} from f32 "
+            f"at this width and depth)")
+
+
+def phase_int8(gen) -> dict:
+    """qwen3-4b at full width with an int8 K/V cache on the dense ring,
+    served through launch.serve's continuous runner on a server with
+    ``cache_dtype=torch.int8``: 8 requests of 4096-token prompts (K7 in
+    each admission); graphed steps against the eager step body, fused
+    horizons against per-step serving; a verify grid against serial steps
+    and its rollback; the int8 step against the f32 and bf16 steps; the
+    graphed int8 step and the
+    bf16 step at the same depth, each beside its byte bound; admission
+    ms, idle share, peak memory.  Returns {"int8-serve": launches}."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    label = "phase 22"
+    torch.cuda.empty_cache()
+    session = serve.setup(INT8_CONT_ARGV)
+    cfg, params, args = session.cfg, session.params, session.args
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in leaves(params)) / 1e9
+    server = _int8_server(session, torch.int8)
+    sched = server.scheduler
+    check(sched.cache[0]["kv"].quantized, "the ring is not int8")
+    ops.reset_launches()
+    forget_decisions()
+    first = serve.run_continuous(session, server)
+    launches = dict(ops.LAUNCHES)
+    c = first.counts
+    check(len(first.completions) == args.requests,
+          "not every int8 request served")
+    check(all(0 <= t < cfg.vocab for s in streams(first).values()
+              for t in s), f"a token >= {cfg.vocab} was sampled")
+    check_solver_launches(
+        launches, sampler_solves({args.slots: c["decode_steps"],
+                                  1: c["admissions"]}),
+        f"{label} int8 serve")
+    check(launches["flash_fwd"] == cfg.n_layers * c["admissions"],
+          f"K7 launched {launches['flash_fwd']} times for "
+          f"{c['admissions']} admissions of {cfg.n_layers} layers")
+    warm = serve.run_continuous(session, server)
+    check(streams(warm) == streams(first), "warm int8 streams differ")
+    eager_server = _int8_server(session, torch.int8)
+    eager_server.scheduler.graphs = EagerGraphs()
+    adm = timed_admissions(eager_server)
+    check(streams(serve.run_continuous(session, eager_server))
+          == streams(first),
+          "the graphed int8 streams differ from the eager step body's")
+    del eager_server
+    fused_server = _int8_server(session, torch.int8, step_horizon=HORIZON)
+    check(streams(serve.run_continuous(session, fused_server))
+          == streams(first),
+          "the int8 fused streams differ from the per-step streams")
+    del fused_server
+    n_tok = sum(len(x.tokens) for x in warm.completions)
+    steps = warm.counts["decode_steps"]
+    say(f"{label} int8 serve: qwen3-4b full width and depth "
+        f"({weights_gb:.2f} GB of bf16 weights drawn in {init_s:.3f}s), "
+        f"int8 K/V on the dense ring, {args.requests} requests of "
+        f"{args.prompt_len} + 16..32 tokens over {args.slots} slots: first "
+        f"{first.seconds:.3f}s, warm {warm.seconds:.3f}s = "
+        f"{n_tok / warm.seconds:.1f} tok/s, {steps} steps; streams == the "
+        f"eager step body's and the step_horizon {HORIZON} streams bit for "
+        f"bit | launches {launches} | decisions: {decisions_note()}")
+    say_graphs(f"{label} int8", sched)
+    say(f"{label} admissions (a {args.prompt_len}-token prefill through K7, "
+        f"its ring quantized, and the first sample, synced; the eager "
+        f"serve's): median {statistics.median(adm):.1f} ms, min "
+        f"{min(adm):.1f}, max {max(adm):.1f} over {len(adm)}")
+    requests = serve.continuous_requests(cfg, args, session.sampler)
+    _decode_window(label + " int8", server, requests)
+    [key] = [k for k in sched.graphs.keys if k[0] == "step"]
+    step_ms = _graph_ms(sched.graphs, key)
+    bound, what = _step_bound(params, sched.cache)
+    say(f"{label} verify: {_int8_verify_grid(session, server)}")
+    del server
+    bf16_server = _int8_server(session, torch.bfloat16)
+    serve.run_continuous(session, bf16_server)
+    bsched = bf16_server.scheduler
+    [bkey] = [k for k in bsched.graphs.keys if k[0] == "step"]
+    bf16_ms = _graph_ms(bsched.graphs, bkey)
+    bf16_bound, bf16_what = _step_bound(params, bsched.cache)
+    del bf16_server
+    say(f"{label} graphed decode steps at the same depth ({args.slots} slots "
+        f"of {args.prompt_len + args.new_tokens} rows, CUDA events around "
+        f"one replay, median of 9): int8 {step_ms:.3f} ms against its byte "
+        f"bound {bound:.3f} ms ({what}; {bound / step_ms:.3f} of the "
+        f"bound); bf16 {bf16_ms:.3f} ms against {bf16_bound:.3f} ms "
+        f"({bf16_what}; {bf16_bound / bf16_ms:.3f} of the bound); int8 / "
+        f"bf16 {step_ms / bf16_ms:.3f} (the ring is dequantized to bf16 "
+        f"whole, in plain PyTorch, each layer of each step)")
+    say(f"{label} contract: {_int8_contract(session)}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"{label} peak memory {peak:.2f} GB (weights {weights_gb:.2f} GB) "
+        f"({label} took {time.perf_counter() - t0:.1f}s)")
+    return {"int8-serve": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4072,6 +4614,8 @@ def main() -> int:
         launches_by_path["hymba-prefill"] = launches_by_path["hymba-serve"]
         check(launches_by_path["hymba-prefill"]["flash_fwd"] == 32,
               "K7 did not run once a layer in hymba's 4096-token prefill")
+        launches_by_path.update(phase_whisper(gen))
+        launches_by_path.update(phase_int8(gen))
 
     # the path whose run each kernel's launch count is read on: K2 runs
     # where the served requests' top_k differ (phase 13)
@@ -4109,7 +4653,12 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"]))
-    # the recurrent paths: K3-K5 at their vocab rows, K7 at hymba's prefill
+    # the later paths: K3-K5 at their vocab rows, K7 at hymba's prefill and
+    # at the int8 serve's admissions; the int8 serve's K3-K5 run at the
+    # served shape of phase 3's rows
+    path_rows["int8-serve"].update(
+        {name: rows[name] for name in ("runahead_topk_threshold",
+                                       "multi_mass", "multi_entropy_moments")})
     for path, by_name in path_rows.items():
         for name, r in by_name.items():
             launches = launches_by_path[path][name]

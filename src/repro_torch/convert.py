@@ -3,10 +3,12 @@
 ``params_from_jax`` takes the JAX parameter pytree AFTER ``jax.device_get``
 (nested dicts and lists of numpy arrays) and returns the same tree of torch
 tensors, so both packages can run on identical weights;
+whisper's ``pos_embed`` and ``encoder`` ride along as any other entry.
 ``adamw_state_from_jax`` carries a JAX ``AdamWState`` across the same way,
-and ``cache_from_jax`` a decode cache (``KVCache``, ``SSMState``,
-``MLSTMState``, ``SLSTMState`` NamedTuples), each state mapped onto the
-port's own NamedTuple by class and field name.  They take numpy only: this
+and ``cache_from_jax`` a decode cache (``KVCache``, with its int8 codes
+and f16 scales in int8 mode, ``SSMState``, ``MLSTMState``, ``SLSTMState``
+NamedTuples, whisper's encoder K/V), each state mapped onto the port's
+own NamedTuple by class and field name.  They take numpy only: this
 module imports neither JAX nor anything of the JAX package.
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
@@ -42,8 +44,8 @@ def _leaf(a, device, dtype) -> torch.Tensor:
 
 def _named(np_tuple, device, dtype):
     """A JAX NamedTuple -> the port's class of the same name, field by
-    field.  A JAX field the port's class lacks must be None (the int8 K/V
-    scales: the port has no int8 cache)."""
+    field (None stays None: an unquantized cache's scales).  A JAX field
+    the port's class lacks must be None."""
     name = type(np_tuple).__name__
     if name not in _NAMED:
         raise TypeError(f"no port counterpart of the NamedTuple {name}")
@@ -53,7 +55,7 @@ def _named(np_tuple, device, dtype):
              and fields[f] is not None]
     if extra:
         raise ValueError(f"{name} fields {extra} have no place in the "
-                         f"port's {name} (no int8 K/V cache)")
+                         f"port's {name}")
     return cls(**{f: params_from_jax(fields[f], device, dtype)
                   for f in cls._fields})
 
@@ -64,6 +66,8 @@ def params_from_jax(np_tree, device, dtype: torch.dtype | None = None):
 
     ``dtype`` casts every floating leaf (None keeps each leaf's own type).
     """
+    if np_tree is None:
+        return None
     if isinstance(np_tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in np_tree.items()}
     if isinstance(np_tree, tuple) and hasattr(np_tree, "_fields"):
@@ -75,9 +79,10 @@ def params_from_jax(np_tree, device, dtype: torch.dtype | None = None):
 
 def cache_from_jax(np_cache, device) -> list:
     """A JAX decode cache after ``jax.device_get`` (a list of per-run dicts
-    of ``KVCache`` / ``SSMState`` / ``MLSTMState`` / ``SLSTMState``) -> the
-    port's cache on ``device``, each state the port's NamedTuple, every
-    leaf in its own dtype."""
+    of ``KVCache`` / ``SSMState`` / ``MLSTMState`` / ``SLSTMState`` and
+    whisper's ``enc_k`` / ``enc_v``) -> the port's cache on ``device``,
+    each state the port's NamedTuple, every leaf in its own dtype (int8
+    codes and f16 scales included)."""
     return [params_from_jax(entry, device) for entry in np_cache]
 
 

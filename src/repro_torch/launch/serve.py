@@ -75,6 +75,16 @@ fused), their recurrent state carried in the cache; ``--page-size`` and
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch hymba-1.5b --reduced --continuous --requests 6 --slots 2 \
       --prompt-len 12 --new-tokens 6 --step-horizon 4 --device cpu
+
+The enc-dec arch (``--arch whisper-tiny``) serves one-shot: each row's
+encoder frames (batch, encoder_len, d_model) are drawn in bf16 from the
+seed after its prompt (the convolutional front end is a stub, as in the
+JAX package); ``--continuous`` refuses it, as the JAX launcher does (the
+scheduler's ``admit(encoder_frames=...)`` serves it continuously):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch whisper-tiny --reduced --batch 2 --prompt-len 8 \
+      --new-tokens 6 --device cpu
 """
 from __future__ import annotations
 
@@ -151,15 +161,19 @@ def sync(device: torch.device) -> None:
 
 
 def run(session: Session) -> Served:
-    """One batch of prompts from the session's generator, generated through
-    the sampler; ``seconds`` times ``generate`` alone."""
+    """One batch of prompts (and, for an enc-dec arch, their frames) from
+    the session's generator, generated through the sampler; ``seconds``
+    times ``generate`` alone."""
     cfg, params, args, sc, gen, device, decode = session
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=device)
+    frames = (torch.randn((args.batch, cfg.encoder_len, cfg.d_model),
+                          generator=gen, device=device, dtype=torch.bfloat16)
+              if cfg.is_encdec else None)
     sync(device)
     t0 = time.perf_counter()
     toks = generate(cfg, params, prompt, args.new_tokens, gen, sampler=sc,
-                    graphs=decode)
+                    graphs=decode, encoder_frames=frames)
     sync(device)
     dt = time.perf_counter() - t0
     n_tok = args.batch * args.new_tokens
@@ -261,6 +275,8 @@ def run_continuous(session: Session,
     None; a server served before replays the graphs it captured then);
     ``seconds`` times the serve alone, with a device sync at both ends."""
     cfg, _, args, sc, _, device, _ = session
+    if cfg.is_encdec:
+        raise SystemExit("--continuous does not drive enc-dec archs yet")
     server = server or server_for(session)
     s = server.scheduler
     before = counters(s)

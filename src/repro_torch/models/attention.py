@@ -22,8 +22,19 @@ dense ring) and ``paged_decode_attend_multi`` write all L K/V rows in
 place and return a stash of the rows they overwrote, which
 ``models/decode.py``'s ``rollback_*`` put back for rejected drafts.
 
-Not ported yet: int8 KV, cross attention, and the tensor-parallel head
-padding of ``attend``'s flash branch (it waits for the mesh).
+Encoder-decoder (whisper): ``attend(kv_src=...)`` is cross attention,
+K/V projected from ``kv_src`` with no RoPE, no mask and never the flash
+branch; ``decode_cross_attend`` attends one query over the encoder K/V a
+prefill left in the cache.
+
+int8 K/V (the dense ring only): ``KVCache`` then holds int8 codes and an
+f16 scale per (batch, slot, kv head); ``_quantize_kv`` writes a row's
+codes, ``_dequantize_kv`` reads the ring back in the compute dtype before
+the attention (plain PyTorch, as the JAX package's plain XLA does).  The
+paged pool refuses int8, as JAX's does.
+
+Not ported yet: the tensor-parallel head padding of ``attend``'s flash
+branch (it waits for the mesh).
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.solver import true_div
 from repro_torch.kernels import ops
 from repro_torch.kernels.blocks import KV_CHUNK, Q_CHUNK
 from repro_torch.models.config import ModelConfig
@@ -43,7 +55,11 @@ Params = dict
 FLASH_MIN_SEQ = 4096     # full-materialisation attention below this
 
 
-def init_attention(gen, cfg: ModelConfig, dtype, lead: tuple = ()) -> Params:
+def init_attention(gen, cfg: ModelConfig, dtype, lead: tuple = (),
+                   cross: bool = False) -> Params:
+    """Self-attention weights; ``cross`` (whisper's decoder) has the same
+    shapes: callers pass the encoder output as ``attend``'s ``kv_src``."""
+    del cross
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     device = gen.device
@@ -210,27 +226,29 @@ def attend(
     *,
     window: int = 0,
     causal: bool = True,
+    kv_src: torch.Tensor | None = None,
     return_kv: bool = False,
 ):
-    """Full-sequence self-attention (train / prefill).
+    """Full-sequence attention (train / prefill / encoder / cross).
 
-    At ``S >= FLASH_MIN_SEQ`` causal attention runs K7 through
+    At ``S >= FLASH_MIN_SEQ`` causal self-attention runs K7 through
     ``ops.flash_fwd`` with implicit positions 0..S-1, grouped GQA and K/V
     never repeated (the JAX function's single-device branch); below it,
-    the full-materialisation ``_sdpa``.
+    and for cross attention (K/V projected from ``kv_src``, no RoPE, no
+    mask), the full-materialisation ``_sdpa``.
     """
     B, S, _ = x.shape
     q = _project_q(p, cfg, x)
-    k, v = _project_kv(p, cfg, x)
-    if not cfg.learned_pos:
+    k, v = _project_kv(p, cfg, x if kv_src is None else kv_src)
+    if not cfg.learned_pos and kv_src is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    if causal and S >= FLASH_MIN_SEQ:
+    if causal and kv_src is None and S >= FLASH_MIN_SEQ:
         out = ops.flash_fwd(q, k, v, window=window, n_rep=n_rep)
     else:
         mask = None
-        if causal:
+        if causal and kv_src is None:
             qp = positions[:, :, None]
             kp = positions[:, None, :]
             mask = kp <= qp
@@ -268,21 +286,77 @@ class KVCache(NamedTuple):
     """Ring-buffer cache: capacity = full sequence (dense) or window (SWA).
 
     k, v: ``lead + (B, C, n_kv, head_dim)``; a run's cache carries the
-    run's leading layer axis.
+    run's leading layer axis.  int8 mode: k, v hold int8 codes and
+    k_scale, v_scale one f16 scale per ``lead + (B, C, n_kv)`` row; both
+    None otherwise.
     """
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @property
     def capacity(self) -> int:
         return self.k.shape[-3]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
+
 
 def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, device,
                   lead: tuple = ()) -> KVCache:
     shape = lead + (batch, capacity, cfg.n_kv_heads, cfg.head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if dtype == torch.int8:
+        return KVCache(k=zeros(shape, dtype), v=zeros(shape, dtype),
+                       k_scale=zeros(shape[:-1], torch.float16),
+                       v_scale=zeros(shape[:-1], torch.float16))
+    return KVCache(k=zeros(shape, dtype), v=zeros(shape, dtype))
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (..., n_kv, hd) -> int8 codes and one f16 scale a (..., n_kv)
+    row: scale = max(amax, 1e-6) / 127 in f32, codes round(x / scale)
+    (half to even) clipped to +-127, both divisions IEEE as in JAX."""
+    xf = x.float()
+    scale = true_div(torch.clamp_min(xf.abs().amax(dim=-1), 1e-6), 127.0)
+    codes = torch.clamp(torch.round(xf / scale[..., None].expand_as(xf)),
+                        -127, 127).to(torch.int8)
+    return codes, scale.to(torch.float16)
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype
+                   ) -> torch.Tensor:
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
+def _write_kv(cache: KVCache, index, k_new: torch.Tensor,
+              v_new: torch.Tensor, x_dtype) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Write one or more new K/V rows at ``index`` of the ring in place,
+    quantized first in int8 mode, and return the ring's K and V as the
+    attention reads them (dequantized to ``x_dtype`` in int8 mode)."""
+    if not cache.quantized:
+        cache.k[index] = k_new.to(cache.k.dtype)
+        cache.v[index] = v_new.to(cache.v.dtype)
+        return cache.k, cache.v
+    for buf, sbuf, new in ((cache.k, cache.k_scale, k_new),
+                           (cache.v, cache.v_scale, v_new)):
+        codes, scale = _quantize_kv(new)
+        buf[index] = codes
+        sbuf[index] = scale
+    return (_dequantize_kv(cache.k, cache.k_scale, x_dtype),
+            _dequantize_kv(cache.v, cache.v_scale, x_dtype))
+
+
+def _stash_rows(cache: KVCache, index) -> KVCache:
+    """The rows at ``index`` of every field of ``cache`` (codes and scales
+    in int8 mode), before a write overwrites them."""
+    return KVCache(*(None if t is None else t[index] for t in cache))
 
 
 def decode_attend(
@@ -300,8 +374,9 @@ def decode_attend(
     ``generate``) or a (B,) device tensor (continuous batching: each slot
     at its own depth), which writes one ring slot per row at
     ``(arange(B), pos % C)`` and masks per row, without reading ``pos``
-    back to the host.  Unlike the JAX function, the new K/V are written
-    into ``cache`` in place; the same cache is returned.
+    back to the host.  Unlike the JAX function, the new K/V (codes and
+    scales in int8 mode) are written into ``cache`` in place; the same
+    cache is returned.
     """
     B = x.shape[0]
     q = _project_q(p, cfg, x)                                # (B,1,nq,hd)
@@ -317,15 +392,13 @@ def decode_attend(
     slots = torch.arange(C, device=x.device)
     if per_slot:
         slot = pos % C                                       # (B,)
-        rows = torch.arange(B, device=x.device)
-        cache.k[rows, slot] = k_new[:, 0]
-        cache.v[rows, slot] = v_new[:, 0]
+        index = (torch.arange(B, device=x.device), slot)
         pos_c, slot_c = pos[:, None], slot[:, None]          # (B, 1)
     else:
         slot = pos % C
-        cache.k[:, slot] = k_new[:, 0]
-        cache.v[:, slot] = v_new[:, 0]
+        index = (slice(None), slot)
         pos_c, slot_c = pos, slot
+    k, v = _write_kv(cache, index, k_new[:, 0], v_new[:, 0], x.dtype)
 
     # validity: ring slot s holds absolute position p_s; it is attendable iff
     # p_s <= pos and p_s > pos - C (ring eviction) and (SWA) p_s > pos - w.
@@ -338,9 +411,21 @@ def decode_attend(
     # (B, 1, 1, C) per slot, (1, 1, 1, C) shared
     mask = valid[:, None, None, :] if per_slot else valid[None, None, None, :]
 
-    out = _decode_sdpa(q, cache.k, cache.v, mask, cfg.n_heads // cfg.n_kv_heads)
+    out = _decode_sdpa(q, k, v, mask, cfg.n_heads // cfg.n_kv_heads)
     out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
     return out @ p["wo"].to(x.dtype), cache
+
+
+def decode_cross_attend(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                        enc_k: torch.Tensor, enc_v: torch.Tensor
+                        ) -> torch.Tensor:
+    """Cross attention of one decode token over the encoder K/V a prefill
+    left in the cache (B, T_enc, n_kv, hd): no mask, no RoPE."""
+    B = x.shape[0]
+    q = _project_q(p, cfg, x)
+    out = _decode_sdpa(q, enc_k, enc_v, None, cfg.n_heads // cfg.n_kv_heads)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"].to(x.dtype)
 
 
 def _verify_sdpa(q, k, v, mask, n_rep: int):
@@ -375,11 +460,10 @@ def decode_attend_multi(
     as serial decode masks the stale row it overwrote.
 
     Returns (out (B, L, D'), cache, stash): ``stash`` holds the pre-write
-    (B, L, n_kv, hd) rows at the touched slots, which
-    ``models.decode.rollback_cache_runs`` puts back for rejected drafts.
+    (B, L, n_kv, hd) rows at the touched slots (and their (B, L, n_kv)
+    scales in int8 mode), which ``models.decode.rollback_cache_runs``
+    puts back for rejected drafts.
     """
-    if cache.k.dtype == torch.int8:
-        raise NotImplementedError("the port has no int8 K/V cache")
     B, L, _ = x.shape
     C = cache.capacity
     if L > C:
@@ -393,15 +477,12 @@ def decode_attend_multi(
         q = apply_rope(q, pgrid, cfg.rope_theta)
         k_new = apply_rope(k_new, pgrid, cfg.rope_theta)
 
-    slots_w = pgrid % C                                      # (B, L)
-    rows = torch.arange(B, device=x.device)[:, None]
-    stash = KVCache(k=cache.k[rows, slots_w], v=cache.v[rows, slots_w])
-    cache.k[rows, slots_w] = k_new.to(cache.k.dtype)
-    cache.v[rows, slots_w] = v_new.to(cache.v.dtype)
+    index = (torch.arange(B, device=x.device)[:, None], pgrid % C)
+    stash = _stash_rows(cache, index)
+    k, v = _write_kv(cache, index, k_new, v_new, x.dtype)
 
     mask = _paged_slot_mask(pgrid, C)[:, None, None]         # (B,1,1,L,C)
-    out = _verify_sdpa(q, cache.k, cache.v, mask,
-                       cfg.n_heads // cfg.n_kv_heads)
+    out = _verify_sdpa(q, k, v, mask, cfg.n_heads // cfg.n_kv_heads)
     out = out.reshape(B, L, cfg.n_heads * cfg.head_dim)
     return out @ p["wo"].to(x.dtype), cache, stash
 
@@ -467,7 +548,10 @@ def paged_decode_attend_multi(
     (B, L, n_kv, hd) rows at the touched (page, offset) targets, which
     ``models.decode.rollback_paged_runs`` puts back for rejected drafts;
     None with ``stash=False`` (the serial step, which never rolls back).
+    An int8 pool raises, as in JAX.
     """
+    if cache.quantized:
+        raise NotImplementedError("paged cache does not support int8 K/V")
     B, L, _ = x.shape
     C = context
     P = cache.k.shape[1]

@@ -16,7 +16,13 @@ then the batch:
   hymba_global     {"kv", "ssm": SSMState}, C = the context
   hymba_swa        {"kv", "ssm"}, a ring of C = min(window, context)
   mlstm / slstm    {"state": MLSTMState | SLSTMState}, O(1) in the context
-A page pool replaces ``(B, C)`` by ``(n_pages, page_size)``.  A Python
+  whisper_dec      {"kv", "enc_k", "enc_v"}: the self-attention ring and
+                   the encoder's K/V (L, B, T_enc, n_kv, head_dim), which
+                   the prefill writes and the steps only read
+int8 K/V (``dtype=torch.int8``; dense ring only, as in JAX): a
+``KVCache`` of int8 codes with f16 scales; the encoder K/V and the SSM's
+conv tail stay in the compute dtype, as JAX's one-shot prefill keeps
+them.  A page pool replaces ``(B, C)`` by ``(n_pages, page_size)``.  A Python
 loop over the layer axis replaces ``lax.scan``.  Every function here
 writes caches and pools IN PLACE (the JAX functions return new ones); the
 returned cache is the same object, its tensors the same storage, which
@@ -30,8 +36,6 @@ a step rewrites whole, is written as ``where(active, new, old)`` in place
 forward) returns a stash of the rows it overwrote, which
 ``rollback_cache_runs`` / ``rollback_paged_runs`` put back for rejected
 drafts.
-
-Not ported yet: int8 KV and the ``whisper_dec`` kind.
 """
 from __future__ import annotations
 
@@ -47,6 +51,8 @@ from repro_torch.models.transformer import (
     HYMBA_KINDS,
     XLSTM_KINDS,
     apply_ffn,
+    embed_tokens,
+    encoder_output,
     hymba_mix,
     hymba_window,
     layer_plan,
@@ -54,7 +60,7 @@ from repro_torch.models.transformer import (
     ported_plan,
     unembed_table,
 )
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves_with_path, tree_map
 
 Params = dict
 Cache = list
@@ -67,9 +73,15 @@ def _kv_capacity(kind: str, cfg: ModelConfig, context: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, context: int,
-               dtype=torch.bfloat16, *, device="cuda") -> Cache:
-    """Zero cache sized for `context` tokens: K/V and the SSM's conv tail
-    in ``dtype``, recurrent states in f32."""
+               dtype=torch.bfloat16, *, device="cuda",
+               encoder_len: int | None = None,
+               compute_dtype=torch.bfloat16) -> Cache:
+    """Zero cache sized for `context` tokens: K/V, the SSM's conv tail
+    and whisper's encoder K/V (``encoder_len`` rows, by default the
+    config's) in ``dtype``, recurrent states in f32.  With ``dtype``
+    int8 the K/V rings hold codes and scales, and the conv tail and the
+    encoder K/V are in ``compute_dtype``."""
+    other = compute_dtype if dtype == torch.int8 else dtype
     cache: Cache = []
     for kind, count in ported_plan(cfg):
         lead = (count,)
@@ -82,7 +94,12 @@ def init_cache(cfg: ModelConfig, batch: int, context: int,
             lead=lead)}
         if kind in HYMBA_KINDS:
             entry["ssm"] = ssm_lib.init_ssm_state(
-                cfg, batch, cfg.n_heads * cfg.head_dim, dtype, device, lead)
+                cfg, batch, cfg.n_heads * cfg.head_dim, other, device, lead)
+        if kind == "whisper_dec":
+            shape = lead + (batch, encoder_len or cfg.encoder_len,
+                            cfg.n_kv_heads, cfg.head_dim)
+            entry["enc_k"] = torch.zeros(shape, dtype=other, device=device)
+            entry["enc_v"] = torch.zeros(shape, dtype=other, device=device)
         cache.append(entry)
     return cache
 
@@ -106,12 +123,25 @@ def _ring_fill(kv_full: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.roll(kv_full[:, S - cap:], shifts=(S - cap) % cap, dims=1)
 
 
+def _make_kv_entry(k: torch.Tensor, v: torch.Tensor, cap: int, kv_dtype
+                   ) -> KVCache:
+    """The ring-filled K/V of a prefill, quantized in int8 mode."""
+    k, v = _ring_fill(k, cap), _ring_fill(v, cap)
+    if kv_dtype != torch.int8:
+        return KVCache(k=k, v=v)
+    (kq, ks), (vq, vs) = attn_lib._quantize_kv(k), attn_lib._quantize_kv(v)
+    return KVCache(k=kq, v=vq, k_scale=ks, v_scale=vs)
+
+
 def _prefill_block(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
                    positions: torch.Tensor, cap: int, capacity_mode: str,
-                   moe_groups: int):
+                   moe_groups: int, encoder_out: torch.Tensor | None,
+                   kv_dtype):
     """One block forward that also emits its cache entry: the ring-filled
-    K/V (at the kind's capacity ``cap``) and the recurrent state after the
-    prompt's last step.  Returns (x, entry)."""
+    K/V (at the kind's capacity ``cap``; int8 codes and scales when
+    ``kv_dtype`` is int8), the recurrent state after the prompt's last
+    step, and whisper's encoder K/V in the compute dtype.  Returns (x,
+    entry)."""
     eps = cfg.norm_eps
     if kind in XLSTM_KINDS:
         h = apply_norm(cfg.norm, p["ln"], x, eps)
@@ -122,13 +152,19 @@ def _prefill_block(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
     window = hymba_window(kind, cfg) if kind in HYMBA_KINDS else 0
     a, (k, v) = attn_lib.attend(p["attn"], cfg, h, positions, window=window,
                                 return_kv=True)
-    entry = {"kv": KVCache(k=_ring_fill(k, cap), v=_ring_fill(v, cap))}
+    entry = {"kv": _make_kv_entry(k, v, cap, kv_dtype)}
     if kind in HYMBA_KINDS:
         s, entry["ssm"] = ssm_lib.ssm_apply(p["ssm"], cfg, h,
                                             return_state=True)
         return hymba_mix(cfg, p, x, a, s), entry
     x = x + a
     h = apply_norm(cfg.norm, p["ln2"], x, eps)
+    if kind == "whisper_dec":
+        xa, (entry["enc_k"], entry["enc_v"]) = attn_lib.attend(
+            p["xattn"], cfg, h, positions, causal=False, kv_src=encoder_out,
+            return_kv=True)
+        x = x + xa
+        h = apply_norm(cfg.norm, p["ln3"], x, eps)
     out, _ = apply_ffn(cfg, p, h, capacity_mode=capacity_mode,
                        moe_groups=moe_groups)
     return x + out, entry
@@ -145,21 +181,27 @@ def prefill(
     tokens: torch.Tensor,              # (B, S)
     context: int,
     *,
+    encoder_frames: torch.Tensor | None = None,
     compute_dtype=torch.bfloat16,
     capacity_mode: str = "fifo",
     moe_groups: int = 1,
+    kv_dtype=torch.bfloat16,
 ) -> tuple[torch.Tensor, Cache]:
     """Process the prompt; returns (last-position logits (B, V) f32, cache).
 
-    Only the final position's logits are computed.  The cache holds K/V
-    and the SSM's conv tail in ``compute_dtype``, recurrent states in f32,
-    as the JAX prefill does; a ``hymba_swa`` ring is filled at its own
-    capacity, the prompt's last ``min(window, context)`` positions.  A MoE
-    layer routes all B * S prompt tokens as one batch (``moe_groups``
-    GShard groups), so its capacity depends on B and S.
+    Only the final position's logits are computed.  The cache holds K/V,
+    the SSM's conv tail and whisper's encoder K/V in ``compute_dtype``,
+    recurrent states in f32, as the JAX prefill does; with ``kv_dtype``
+    int8 the K/V rings are quantized (codes and f16 scales).  A
+    ``hymba_swa`` ring is filled at its own capacity, the prompt's last
+    ``min(window, context)`` positions.  A MoE layer routes all B * S
+    prompt tokens as one batch (``moe_groups`` GShard groups), so its
+    capacity depends on B and S.  An enc-dec arch (whisper) takes its
+    encoder's input frames (B, T_enc, D) as ``encoder_frames``.
     """
     B, S = tokens.shape
-    x = embed(params["embed"], tokens, compute_dtype)
+    x = embed_tokens(cfg, params, tokens, compute_dtype)
+    encoder_out = encoder_output(cfg, params, encoder_frames, compute_dtype)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     cache: Cache = []
@@ -168,7 +210,8 @@ def prefill(
         entries = []
         for p_l in layer_unbind(run_params, count):
             x, entry = _prefill_block(kind, cfg, p_l, x, positions, cap,
-                                      capacity_mode, moe_groups)
+                                      capacity_mode, moe_groups,
+                                      encoder_out, kv_dtype)
             entries.append(entry)
         cache.append(_stack_layers(entries))
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
@@ -218,6 +261,10 @@ def _step_block(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
         return hymba_mix(cfg, p, x, a, s)
     x = x + a
     h = apply_norm(cfg.norm, p["ln2"], x, eps)
+    if kind == "whisper_dec":
+        x = x + attn_lib.decode_cross_attend(p["xattn"], cfg, h,
+                                             entry["enc_k"], entry["enc_v"])
+        h = apply_norm(cfg.norm, p["ln3"], x, eps)
     out, _ = apply_ffn(cfg, p, h, capacity_mode=capacity_mode)
     return x + out
 
@@ -240,9 +287,13 @@ def decode_step(
     position per slot, never read back to the host).  ``active`` (B,)
     bool, where given, keeps the recurrent state of every inactive lane
     bit for bit (the K/V row a lane writes is put back by
-    ``freeze_cache_lanes``).
+    ``freeze_cache_lanes``).  A learned position (whisper) is added as
+    ``pos_embed[pos]``, a device index for a (B,) ``pos``.
     """
     x = embed(params["embed"], token[:, None], compute_dtype)  # (B, 1, D)
+    if cfg.learned_pos:
+        pe = params["pos_embed"][pos].to(compute_dtype)    # (B, D) or (D,)
+        x = x + (pe[:, None] if isinstance(pos, torch.Tensor) else pe)
     for run_params, entry, (kind, count) in zip(params["runs"], cache,
                                                 ported_plan(cfg)):
         for p_l, e_l in zip(layer_unbind(run_params, count),
@@ -277,18 +328,16 @@ def _verify_forward(cfg, params, tokens, state, attend, compute_dtype):
     stashes = []
     for run_params, entry, (_, count) in zip(params["runs"], state,
                                              layer_plan(cfg)):
-        ks, vs = [], []
+        kept = []
         for p_l, kv_l in zip(layer_unbind(run_params, count),
                              layer_unbind(entry["kv"], count)):
             h = apply_norm(cfg.norm, p_l["ln1"], x, cfg.norm_eps)
             a, st = attend(p_l["attn"], h, kv_l)
-            ks.append(st.k)
-            vs.append(st.v)
+            kept.append({"kv": st})
             x = x + a
             h = apply_norm(cfg.norm, p_l["ln2"], x, cfg.norm_eps)
             x = x + apply_mlp(cfg.act, p_l["mlp"], h)
-        stashes.append({"kv": KVCache(k=torch.stack(ks),
-                                      v=torch.stack(vs))})
+        stashes.append(_stack_layers(kept))
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = unembed(unembed_table(cfg, params), x, cfg.vocab)
     return logits, stashes
@@ -340,7 +389,8 @@ def rollback_cache_runs(cache: Cache, stash: list, pos: torch.Tensor,
     """Put back the ring rows ``decode_verify`` wrote for rejected
     positions, in place.  ``n_keep`` (B,) commits each row's leading
     writes: 1 + accepted drafts for a live slot, 0 for an inactive one
-    (which leaves it bit-identical to its pre-step state)."""
+    (which leaves it bit-identical to its pre-step state).  In int8 mode
+    the scales go back with the codes."""
     for entry, st in zip(cache, stash):
         kv, old = entry["kv"], st["kv"]
         B, L = old.k.shape[1:3]
@@ -348,8 +398,9 @@ def rollback_cache_runs(cache: Cache, stash: list, pos: torch.Tensor,
                  ) % kv.capacity                             # (B, L)
         rows = torch.arange(B, device=pos.device)[:, None]
         keep = _keep_mask(n_keep, L)
-        _restore_rows(kv.k, old.k, (rows, slots), keep)
-        _restore_rows(kv.v, old.v, (rows, slots), keep)
+        for leaf, old_rows in zip(kv, old):
+            if leaf is not None:
+                _restore_rows(leaf, old_rows, (rows, slots), keep)
     return cache
 
 
@@ -360,9 +411,19 @@ def rollback_cache_runs(cache: Cache, stash: list, pos: torch.Tensor,
 def write_cache_slot(cache: Cache, sub: Cache, slot: int) -> Cache:
     """Overwrite batch row ``slot`` of ``cache`` with the B=1 cache ``sub``,
     in place: the admission path of the continuous scheduler.  Every leaf
-    (K/V rings, SSM and xLSTM states) is laid out (layers, batch, ...), so
-    one walk writes them all, each cast to the slotted cache's dtype."""
-    for big, small in zip(leaves(cache), leaves(sub)):
+    (K/V rings and their int8 scales, SSM and xLSTM states, whisper's
+    encoder K/V) is laid out (layers, batch, ...), so one walk writes
+    them all, each cast to the slotted cache's dtype.  An int8 ring takes
+    int8 codes only (prefill with the slotted cache's ``kv_dtype``): a
+    float leaf cast into it would be truncated to integers, as the JAX
+    scheduler truncates it."""
+    big_leaves, small_leaves = leaves_with_path(cache), leaves_with_path(sub)
+    if [p for p, _ in big_leaves] != [p for p, _ in small_leaves] or any(
+            (b.dtype == torch.int8) != (s.dtype == torch.int8)
+            for (_, b), (_, s) in zip(big_leaves, small_leaves)):
+        raise ValueError("the admitted cache's K/V mode differs from the "
+                         "slotted cache's (prefill with its kv_dtype)")
+    for (_, big), (_, small) in zip(big_leaves, small_leaves):
         big[:, slot] = small[:, 0]
     return cache
 
@@ -375,37 +436,45 @@ def prefill_into_slot(
     cache: Cache,
     slot: int,
     *,
+    encoder_frames: torch.Tensor | None = None,
     compute_dtype=torch.bfloat16,
     capacity_mode: str = "fifo",
+    kv_dtype=torch.bfloat16,
 ) -> tuple[torch.Tensor, Cache]:
     """Prefill ONE request and land its state in batch row ``slot``.
 
     The prefill math is the ordinary ``prefill`` at B=1, so a request's
     state is the same whether it was admitted into a slot or served
-    one-shot; ``context`` must match the slotted cache's capacity.
-    Returns (last-position logits (1, V) f32, cache).
+    one-shot; ``context`` (and whisper's frame count) must match the
+    slotted cache's capacity, ``kv_dtype`` its K/V dtype.  Returns
+    (last-position logits (1, V) f32, cache).
     """
     logits, sub = prefill(cfg, params, tokens, context,
+                          encoder_frames=encoder_frames,
                           compute_dtype=compute_dtype,
-                          capacity_mode=capacity_mode)
+                          capacity_mode=capacity_mode, kv_dtype=kv_dtype)
     return logits, write_cache_slot(cache, sub, slot)
+
+
+def _lane_index(kv: KVCache, pos: torch.Tensor) -> tuple:
+    """The (layers, B) index of ring slot ``pos % C`` of every batch row."""
+    rows = torch.arange(kv.k.shape[1], device=pos.device)
+    return slice(None), rows, pos % kv.capacity
 
 
 def cache_lanes(cache: Cache, pos: torch.Tensor) -> list:
     """The ring rows a per-slot ``decode_step`` at ``pos`` will overwrite:
-    for each run, ``(k, v)`` at ring slot ``pos % C`` of every batch row,
-    (layers, B, n_kv, hd) each; None for a run without K/V.  Recurrent
+    for each run, a ``KVCache`` of the rows at ring slot ``pos % C`` of
+    every batch row, (layers, B, n_kv, hd) each (and the (layers, B,
+    n_kv) scales in int8 mode); None for a run without K/V.  Recurrent
     states are not stashed: ``decode_step(active=...)`` writes only the
-    active lanes'."""
+    active lanes', and whisper's encoder K/V is never written by a
+    step."""
     out = []
     for entry in cache:
         kv = entry.get("kv")
-        if kv is None:
-            out.append(None)
-            continue
-        rows = torch.arange(kv.k.shape[1], device=pos.device)
-        slot = pos % kv.capacity
-        out.append((kv.k[:, rows, slot], kv.v[:, rows, slot]))
+        out.append(None if kv is None else
+                   attn_lib._stash_rows(kv, _lane_index(kv, pos)))
     return out
 
 
@@ -422,13 +491,13 @@ def freeze_cache_lanes(cache: Cache, stash: list, pos: torch.Tensor,
     for entry, rows_old in zip(cache, stash):
         if rows_old is None:
             continue
-        k_old, v_old = rows_old
         kv = entry["kv"]
-        rows = torch.arange(kv.k.shape[1], device=pos.device)
-        slot = pos % kv.capacity
-        keep = active[None, :, None, None]
-        kv.k[:, rows, slot] = torch.where(keep, kv.k[:, rows, slot], k_old)
-        kv.v[:, rows, slot] = torch.where(keep, kv.v[:, rows, slot], v_old)
+        index = _lane_index(kv, pos)
+        for leaf, old in zip(kv, rows_old):
+            if leaf is None:
+                continue
+            keep = active.reshape((1, -1) + (1,) * (old.ndim - 2))
+            leaf[index] = torch.where(keep, leaf[index], old)
     return cache
 
 

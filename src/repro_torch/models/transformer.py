@@ -5,8 +5,8 @@ The layer stack is described by a LAYER PLAN: an ordered list of
 leading layer axis as in the JAX package.  A Python loop over that axis
 replaces ``lax.scan``.  ``layer_plan`` covers every family (it is data);
 ``init_params`` and ``forward`` build and run the kinds of
-``PORTED_KINDS`` (``ported_plan``) and raise ``ValueError`` for the
-others (``whisper_dec``).  Block kinds:
+``PORTED_KINDS`` (``ported_plan``) and raise ``ValueError`` for any
+other.  Block kinds:
 
   dense          GQA attention + MLP
   moe            GQA attention + MoE FFN (``models/moe.py::moe_apply``);
@@ -15,6 +15,13 @@ others (``whisper_dec``).  Block kinds:
   hymba_global   (full attention || SSM) + SwiGLU      (hymba, 3 layers)
   hymba_swa      (sliding-window attention || SSM) + SwiGLU  (the rest)
   mlstm / slstm  xLSTM mixers, no FFN                  (xlstm)
+  whisper_dec    self-attention + cross-attention over the encoder
+                 output + GELU MLP                     (whisper decoder)
+
+whisper's encoder is ``params["encoder"]``: a stack of ``whisper_enc``
+blocks (non-causal self-attention + GELU MLP) over the frames plus its
+own learned positions, run by ``encode``; the decoder adds its learned
+``pos_embed`` to the token embeddings (``cfg.learned_pos``: no RoPE).
 
 A hymba block adds ``0.5 * (norm(attention) + norm(ssm))`` of the same
 normed input (``models/ssm.py``); the xLSTM mixers are
@@ -91,7 +98,7 @@ def layer_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
 
 
 PORTED_KINDS = ("dense", "moe", "hymba_global", "hymba_swa", "mlstm",
-                "slstm")
+                "slstm", "whisper_dec")
 HYMBA_KINDS = ("hymba_global", "hymba_swa")
 XLSTM_KINDS = tuple(xlstm_lib.MIXERS)
 
@@ -111,7 +118,10 @@ def layer_unbind(tree, count: int) -> list:
     """Every layer of a run's stacked parameter (or cache) tree at once, as
     views: one ``unbind`` per leaf, so backward stacks the layers'
     gradients once instead of scattering each into a zeroed copy of the
-    whole stack.  Dicts and (named) tuples keep their type per layer."""
+    whole stack.  Dicts and (named) tuples keep their type per layer; a
+    None field (an unquantized cache's scales) stays None."""
+    if tree is None:
+        return [None] * count
     if isinstance(tree, dict):
         per_key = {k: layer_unbind(v, count) for k, v in tree.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(count)]
@@ -142,6 +152,10 @@ def _init_run(kind: str, cfg: ModelConfig, gen, dtype, count: int
         p["attn_norm"] = init_norm(cfg.norm, d, dtype, dev, lead)
         p["ssm_norm"] = init_norm(cfg.norm, d, dtype, dev, lead)
     p["ln2"] = init_norm(cfg.norm, d, dtype, dev, lead)
+    if kind == "whisper_dec":
+        p["xattn"] = attn_lib.init_attention(gen, cfg, dtype, lead,
+                                             cross=True)
+        p["ln3"] = init_norm(cfg.norm, d, dtype, dev, lead)
     if kind == "moe":
         p["moe"] = moe_lib.init_moe(gen, cfg, dtype, lead)
     else:
@@ -166,6 +180,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(generator, cfg.d_model, cfg.vocab_padded,
                                   param_dtype)
+    if cfg.learned_pos:
+        p["pos_embed"] = init_embedding(generator, 32_768, cfg.d_model,
+                                        param_dtype)
+    if cfg.is_encdec:
+        p["encoder"] = {
+            "blocks": _init_run("whisper_enc", cfg, generator, param_dtype,
+                                cfg.n_encoder_layers),
+            "final_norm": init_norm(cfg.norm, cfg.d_model, param_dtype,
+                                    generator.device),
+            "pos_embed": init_embedding(generator, cfg.encoder_len,
+                                        cfg.d_model, param_dtype),
+        }
     return p
 
 
@@ -205,10 +231,12 @@ def hymba_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def _apply_block(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
-                 positions: torch.Tensor, capacity_mode: str,
-                 moe_groups: int):
+                 positions: torch.Tensor, capacity_mode: str = "fifo",
+                 moe_groups: int = 1,
+                 encoder_out: torch.Tensor | None = None):
     """One block of ``kind`` over the full sequence: (x, the MoE layer's
-    aux loss, a 0-d f32 tensor; None for any other block)."""
+    aux loss, a 0-d f32 tensor; None for any other block).
+    ``encoder_out`` is what a ``whisper_dec`` block cross-attends to."""
     eps = cfg.norm_eps
     if kind in XLSTM_KINDS:
         h = apply_norm(cfg.norm, p["ln"], x, eps)
@@ -219,11 +247,53 @@ def _apply_block(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
                             window=hymba_window(kind, cfg))
         s = ssm_lib.ssm_apply(p["ssm"], cfg, h)
         return hymba_mix(cfg, p, x, a, s), None
-    x = x + attn_lib.attend(p["attn"], cfg, h, positions)
+    x = x + attn_lib.attend(p["attn"], cfg, h, positions,
+                            causal=kind != "whisper_enc")
     h = apply_norm(cfg.norm, p["ln2"], x, eps)
+    if kind == "whisper_dec":
+        x = x + attn_lib.attend(p["xattn"], cfg, h, positions, causal=False,
+                                kv_src=encoder_out)
+        h = apply_norm(cfg.norm, p["ln3"], x, eps)
     out, stats = apply_ffn(cfg, p, h, capacity_mode=capacity_mode,
                            moe_groups=moe_groups)
     return x + out, None if stats is None else stats.aux_loss
+
+
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """whisper's encoder over precomputed frame embeddings (B, T_enc, D)
+    (the convolutional front end is a stub, as in the JAX package), in
+    the frames' dtype."""
+    enc = params["encoder"]
+    T = frames.shape[1]
+    x = frames + enc["pos_embed"][:T].to(frames.dtype)[None]
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=frames.device).expand(frames.shape[:2])
+    for p_l in layer_unbind(enc["blocks"], cfg.n_encoder_layers):
+        x, _ = _apply_block("whisper_enc", cfg, p_l, x, positions)
+    return apply_norm(cfg.norm, enc["final_norm"], x, cfg.norm_eps)
+
+
+def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                 compute_dtype, start: int = 0) -> torch.Tensor:
+    """The token embeddings of positions ``start..start + S`` (B, S, D),
+    plus the learned positions where ``cfg.learned_pos``."""
+    x = embed(params["embed"], tokens, compute_dtype)
+    if cfg.learned_pos:
+        S = tokens.shape[1]
+        x = x + params["pos_embed"][start:start + S].to(compute_dtype)[None]
+    return x
+
+
+def encoder_output(cfg: ModelConfig, params: Params, encoder_frames,
+                   compute_dtype) -> torch.Tensor | None:
+    """``encode`` of the frames in the compute dtype for an enc-dec arch
+    (which must be given them), None for any other."""
+    if not cfg.is_encdec:
+        return None
+    if encoder_frames is None:
+        raise ValueError(f"enc-dec arch {cfg.name!r} needs encoder_frames")
+    return encode(cfg, params, encoder_frames.to(compute_dtype))
 
 
 def forward(
@@ -231,6 +301,7 @@ def forward(
     params: Params,
     tokens: torch.Tensor,                 # (B, S) integer
     *,
+    encoder_frames: torch.Tensor | None = None,
     capacity_mode: str = "fifo",
     moe_groups: int = 1,
     remat: bool = True,
@@ -243,10 +314,12 @@ def forward(
     without gradients it changes nothing.  A checkpointed MoE layer routes
     again in its recompute (the same assignments: routing is
     deterministic), so a ``"bisect"`` layer solves its capacity twice a
-    training step.
+    training step.  An enc-dec arch (whisper) takes its encoder's input
+    frames (B, T_enc, D) as ``encoder_frames``.
     """
     B, S = tokens.shape
-    x = embed(params["embed"], tokens, compute_dtype)
+    x = embed_tokens(cfg, params, tokens, compute_dtype)
+    encoder_out = encoder_output(cfg, params, encoder_frames, compute_dtype)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     remat = remat and torch.is_grad_enabled()
@@ -254,7 +327,8 @@ def forward(
     for run_params, (kind, count) in zip(params["runs"], ported_plan(cfg)):
         aux_run = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for p_l in layer_unbind(run_params, count):
-            args = (kind, cfg, p_l, x, positions, capacity_mode, moe_groups)
+            args = (kind, cfg, p_l, x, positions, capacity_mode, moe_groups,
+                    encoder_out)
             if remat:
                 x, aux = checkpoint(_apply_block, *args, use_reentrant=False)
             else:

@@ -11,8 +11,9 @@ position, bit for bit.  The graph and its static state (KV cache, token,
 position, the step's noise draw) are kept in a ``DecodeGraphs`` the
 caller owns, per (params, config, sampler, compute dtype, batch,
 context, device), so a later call with the same model and shapes replays
-it at once; the prefill's cache (K/V rings and recurrent states alike) is
-copied into the static one, which every step writes in place.  Nothing
+it at once; the prefill's cache (K/V rings, recurrent states and
+whisper's encoder K/V alike) is copied into the static one once a call,
+and every step writes it in place (the encoder K/V it only reads).  Nothing
 is read back to the host until the caller does.
 """
 from __future__ import annotations
@@ -101,6 +102,7 @@ def generate(
     sampler: SamplerConfig = SamplerConfig(),
     compute_dtype=torch.bfloat16,
     graphs: DecodeGraphs | None = None,
+    encoder_frames: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Returns generated tokens (B, n_new) int64.
 
@@ -109,17 +111,21 @@ def generate(
     ``n_new - 1`` decode steps.  Each step draws its (B, V) noise from
     ``generator`` before the step runs, the draw ``sample`` makes.
     ``graphs`` keeps the step's graph for later calls (without it, this
-    call captures its own).
+    call captures its own).  An enc-dec arch (whisper) takes its
+    encoder's input frames (B, T_enc, D) as ``encoder_frames``.
     """
     B, S = prompt.shape
     context = context or (S + n_new)
     logits, cache = prefill(cfg, params, prompt, context,
+                            encoder_frames=encoder_frames,
                             compute_dtype=compute_dtype)
     toks = [sample(logits, generator, sampler)]
     if n_new > 1:
         graphs = graphs or DecodeGraphs()
         dev = prompt.device
-        key = (id(params), cfg, sampler, compute_dtype, B, context, dev)
+        t_enc = None if encoder_frames is None else encoder_frames.shape[1]
+        key = (id(params), cfg, sampler, compute_dtype, B, context, dev,
+               t_enc)
         st = graphs.state(key, params, cache, B,
                           unembed_table(cfg, params).shape[-1], dev)
         st.token.copy_(toks[0])

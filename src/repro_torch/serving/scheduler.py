@@ -7,8 +7,10 @@ drain (the one-shot ``serving.engine.generate`` shape).  Device state is
 slot-major and fixed-shape:
 
   * either one slotted dense cache (``models.decode.init_cache`` at
-    batch = n_slots: K/V rings and, for the recurrent families, SSM and
-    xLSTM states), recycled in place by per-slot prefill, or a page
+    batch = n_slots: K/V rings, int8 codes and scales with
+    ``cache_dtype=torch.int8``, and, for the recurrent families, SSM and
+    xLSTM states, for whisper its encoder K/V), recycled in place by
+    per-slot prefill (whisper's with the request's frames), or a page
     pool plus an ``(n_slots, max_chain)`` page table (``page_size``), with
     pages allocated, shared copy-on-write and freed on the host
     (``serving.paged``);
@@ -271,6 +273,7 @@ class ContinuousScheduler:
         self.context = context
         self.spec_k, self.rounds, self.backend = spec_k, rounds, backend
         self.compute_dtype = compute_dtype
+        self.cache_dtype = cache_dtype
         self.device = params["embed"].device
         dev = self.device
 
@@ -303,7 +306,7 @@ class ContinuousScheduler:
             if cache_pages is not None:
                 raise ValueError("cache_pages requires page_size")
             self.cache = init_cache(cfg, n_slots, context, cache_dtype,
-                                    device=dev)
+                                    device=dev, compute_dtype=compute_dtype)
             self.table = None
 
         def zeros(dtype, *shape):
@@ -429,13 +432,17 @@ class ContinuousScheduler:
 
     def admit(self, rid: Any, prompt, n_new: int, seed: int,
               sampler: SamplerConfig = SamplerConfig(), *,
+              encoder_frames: torch.Tensor | None = None,
               eos_id: int | None = None) -> bool:
         """Prefill one request into a free slot; False when none is free
         or the page pool cannot hold it yet.
 
         Replays the one-shot engine's opening moves for this request at
         B=1, eagerly: prefill, then the first token from the prefill
-        logits with the request's own config and generator.
+        logits with the request's own config and generator.  An enc-dec
+        arch (whisper) takes the request's own frames (1, T_enc, D), which
+        its prefill encodes into the slot's encoder K/V; the paged cache
+        does not serve it.
         """
         ptoks = [int(t) for t in prompt]
         self.validate_request(n_new, sampler, prompt_len=len(ptoks))
@@ -447,6 +454,8 @@ class ContinuousScheduler:
                                 device=self.device)
         chain = None
         if self.paged:
+            if encoder_frames is not None:
+                raise ValueError("paged cache does not serve enc-dec archs")
             admitted = self._admit_paged(prompt_t, ptoks, n_new)
             if admitted is None:
                 return False
@@ -454,7 +463,8 @@ class ContinuousScheduler:
         else:
             logits, self.cache = prefill_into_slot(
                 self.cfg, self.params, prompt_t, self.context, self.cache, i,
-                compute_dtype=self.compute_dtype)
+                encoder_frames=encoder_frames,
+                compute_dtype=self.compute_dtype, kv_dtype=self.cache_dtype)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         first = int(sample_slots(
             logits, [None if sampler.greedy else gen],

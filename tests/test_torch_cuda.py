@@ -37,7 +37,13 @@ serving; speculative serving's verify steps (draft_len 3, dense and
 paged) against their eager bodies and a speculative horizon against
 per-step serving; K6 at L = 2, 4 and 8 verify queries and K3 at a verify
 grid's 16 rows of the served vocab; and the warm-up that keeps
-K2/K4/K5's cached scratch out of a capture.
+K2/K4/K5's cached scratch out of a capture.  whisper (reduced) and the
+int8 K/V ring: a graphed decode step against its eager body (logits and
+every cache leaf, codes and scales included), an int8 continuous step's
+idle lanes bit for bit after a replay, and continuous serving (per step
+and fused horizons of 4, whisper's requests each with its own frames)
+against eager step bodies; K3-K5 at whisper's vocab row and K7 at
+qwen3-4b's 4096-token admission (B = 1, 32 / 8 heads, head_dim 128).
 """
 import pytest
 import torch
@@ -637,7 +643,7 @@ def test_new_wrappers_count_launches_and_refuse_bad_input(gen):
 K7_SHAPES = [(1, 1, 2, 2, 16, 0), (2, 130, 4, 2, 32, 0),
              (1, 1000, 2, 2, 128, 128), (2, 257, 8, 2, 64, 17),
              (1, 700, 16, 8, 128, 0), (1, 4096, 4, 2, 128, 0),
-             (1, 4096, 10, 2, 64, 1024)]
+             (1, 4096, 10, 2, 64, 1024), (1, 4096, 32, 8, 128, 0)]
 
 
 def _flash_inputs(gen, B, S, H, Hk, D, dtype):
@@ -1335,12 +1341,12 @@ def test_graphed_recurrent_serving_equals_the_eager_body(gen, arch):
     assert fused == want and sched.n_horizons >= 1
 
 
-@pytest.mark.parametrize("vocab", [50304, 32001])
+@pytest.mark.parametrize("vocab", [50304, 32001, 51865])
 def test_sampler_kernels_at_recurrent_vocabs(gen, vocab):
     """K3 (bit for bit), K4 and K5 (rtol 1e-5 / atol 1e-6, bit-stable) at
-    B = 4 on xlstm's vocab row and hymba's, padded to 32128 with its 127
+    B = 4 on xlstm's vocab row, hymba's (padded to 32128 with its 127
     phantom columns at the row's max - 80, where the sampler's clamp puts
-    them."""
+    them) and whisper's (51865 padded to 51968: 103 phantom columns)."""
     V = -(-vocab // 128) * 128
     x = torch.randn((4, V), generator=gen, device="cuda") * 2.0
     x[:, vocab:] = x[:, :vocab].amax(-1, keepdim=True) - 80.0
@@ -1361,3 +1367,147 @@ def test_sampler_kernels_at_recurrent_vocabs(gen, vocab):
                        me.multi_entropy_moments_plain(z, ts)):
         assert torch.equal(g, a)
         torch.testing.assert_close(g, w, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# whisper (enc-dec) and the int8 K/V cache
+# ---------------------------------------------------------------------------
+
+STEP_CASES = [("whisper-tiny", torch.bfloat16), ("whisper-tiny", torch.int8),
+              ("qwen3-4b", torch.int8)]
+
+
+def _frames(cfg, gen, B):
+    """B requests' encoder frames (B, T_enc, D) for an enc-dec arch, else
+    None."""
+    if not cfg.is_encdec:
+        return None
+    return torch.randn((B, cfg.encoder_len, cfg.d_model), generator=gen,
+                       device="cuda")
+
+
+@pytest.mark.parametrize("arch,cache_dtype", STEP_CASES)
+def test_graphed_whisper_and_int8_decode_step_equals_its_eager_body(
+        gen, arch, cache_dtype):
+    """A reduced decode step captured in a CUDA graph and replayed
+    (whisper's learned position gathered at a device position, its cross
+    attention over the encoder K/V; int8 codes and scales written in
+    place, the ring dequantized) equals the same step run eagerly: logits
+    and every cache leaf bit for bit; the replay reads nothing back."""
+    from repro_torch.core.graphs import Graphs
+    from repro_torch.models.decode import decode_step, prefill
+    from repro_torch.tree import leaves
+
+    cfg, params = _tiny_recurrent(gen, arch)
+    prompt = torch.randint(0, cfg.vocab, (4, 10), generator=gen,
+                           device="cuda")
+    _, cache = prefill(cfg, params, prompt, 16,
+                       encoder_frames=_frames(cfg, gen, 4),
+                       kv_dtype=cache_dtype)
+    assert cache[0]["kv"].quantized == (cache_dtype == torch.int8)
+    token = torch.randint(0, cfg.vocab, (4,), generator=gen, device="cuda")
+    pos = torch.tensor([10, 11, 12, 13], device="cuda")
+
+    def body():
+        return decode_step(cfg, params, token, pos, cache)[0]
+
+    snapshot = [t.clone() for t in leaves(cache)]
+
+    def restore():
+        for t, s in zip(leaves(cache), snapshot):
+            t.copy_(s)
+
+    want = body()
+    want_cache = [t.clone() for t in leaves(cache)]
+    restore()
+    graphs = Graphs()
+    graphs.run("step", body, device=torch.device("cuda"))
+    restore()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = graphs.run("step", body, device=torch.device("cuda"))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    for t, w in zip(leaves(cache), want_cache):
+        assert torch.equal(t, w)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "whisper-tiny"])
+def test_graphed_continuous_step_freezes_int8_lanes(gen, arch):
+    """Three int8 slots, one live request and a lane left holding a
+    finished request's state: a replayed continuous step leaves both idle
+    lanes' codes, scales (and whisper's encoder K/V) bit for bit, and
+    writes the live lane's codes and scales."""
+    from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    from repro_torch.tree import leaves_with_path
+
+    cfg, params = _tiny_recurrent(gen, arch)
+    sch = ContinuousScheduler(cfg, params, n_slots=3, context=24,
+                              backend="hopper", cache_dtype=torch.int8)
+    sc = SamplerConfig(top_k=12, backend="hopper")
+    frames = _frames(cfg, gen, 2)
+    kw = [dict(encoder_frames=None if frames is None else frames[i:i + 1])
+          for i in range(2)]
+    assert sch.admit("live", list(range(1, 11)), 8, seed=1, sampler=sc,
+                     **kw[0])
+    assert sch.admit("done", list(range(20, 30)), 1, seed=2, sampler=sc,
+                     **kw[1])
+    assert [s is not None for s in sch.slots] == [True, False, False]
+    sch.step()                        # the step's graph: warm-up, capture
+    before = [(p, t.clone()) for p, t in leaves_with_path(sch.cache)]
+    sch.step()                        # a replay
+    torch.cuda.synchronize()
+    for path, b in before:
+        t = dict(leaves_with_path(sch.cache))[path]
+        assert torch.equal(t[:, 1:], b[:, 1:]), path
+        if "/kv/" in path:
+            assert not torch.equal(t[:, 0], b[:, 0]), path
+    assert len(sch.graphs.keys) == 1
+
+
+def _serve_with_frames(sched, gen, cfg):
+    """``_stream_requests`` through ``sched`` at their arrival steps,
+    each admitted with its own frames where the arch takes them (the
+    server takes none)."""
+    frames = _frames(cfg, gen, 5)
+    todo = [(r.rid, r.prompt, r.n_new, r.seed, r.sampler, r.arrival,
+             None if frames is None else frames[i:i + 1])
+            for i, r in enumerate(_stream_requests())]
+    out, t = {}, 0
+    while todo or sched.n_active:
+        while todo and todo[0][5] <= t and sched.has_free_slot():
+            rid, prompt, n_new, seed, sc, _, fr = todo.pop(0)
+            assert sched.admit(rid, prompt, n_new, seed, sc,
+                               encoder_frames=fr)
+        if sched.n_active:
+            sched.step()
+        out.update({f.rid: f.tokens for f in sched.pop_finished()})
+        t += 1
+    return out
+
+
+@pytest.mark.parametrize("arch,cache_dtype", STEP_CASES)
+def test_graphed_whisper_and_int8_serving_equals_the_eager_body(
+        gen, arch, cache_dtype):
+    """Reduced whisper (each request with its own frames) and the int8
+    ring served continuously on the card: graphed per-step serving and
+    fused horizons of 4 against eager step bodies, bit for bit, the
+    samples through K3-K5."""
+    from repro_torch.serving.scheduler import ContinuousScheduler
+
+    cfg, params = _tiny_recurrent(gen, arch)
+    state = gen.get_state()
+    out = []
+    for eager, horizon in ((True, 1), (False, 1), (False, 4)):
+        gen.set_state(state)
+        sch = ContinuousScheduler(cfg, params, n_slots=2, context=24,
+                                  backend="hopper", cache_dtype=cache_dtype,
+                                  step_horizon=horizon)
+        if eager:
+            sch.graphs = _Eager()
+        out.append(_serve_with_frames(sch, gen, cfg))
+        assert eager or len(sch.graphs.keys) >= 1
+    assert out[0] == out[1] == out[2]

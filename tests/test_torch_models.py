@@ -132,15 +132,13 @@ def test_ring_fill_wraps_like_jax():
 
 
 def test_unported_paths_raise():
-    # the dense, MoE and recurrent families are ported for serving (MoE:
-    # tests/test_torch_moe.py, xlstm and hymba: tests/test_torch_recurrent
-    # .py); an enc-dec stack is not, and training a hybrid (attention +
-    # SSM) stack is not
-    encdec = testing.reduced_config("whisper-tiny")
-    with pytest.raises(ValueError, match="not ported"):
-        transformer.init_params(encdec, torch.Generator(), torch.float32)
-    hybrid = testing.reduced_config("hymba-1.5b")
+    # every family is ported for serving (MoE: tests/test_torch_moe.py,
+    # xlstm and hymba: tests/test_torch_recurrent.py, whisper:
+    # tests/test_torch_whisper.py); training a hybrid (attention + SSM)
+    # or an enc-dec stack is not
     from repro_torch.train.step import TrainConfig, make_train_step
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_train_step(hybrid, TrainConfig(), lambda step: step)
+    for arch in ("hymba-1.5b", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            make_train_step(testing.reduced_config(arch), TrainConfig(),
+                            lambda step: step)

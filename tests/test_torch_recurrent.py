@@ -308,8 +308,10 @@ def test_prefill_and_decode_match_jax(arch):
 
 def test_cache_from_jax_maps_states_onto_the_port():
     """``cache_from_jax`` (and ``params_from_jax`` on a NamedTuple) gives
-    the port's classes, never the JAX package's; an int8 cache's scales
-    have no place in the port and raise."""
+    the port's classes, never the JAX package's; an int8 cache crosses
+    with its codes and f16 scales, and equals the port's own int8
+    ``init_cache`` (the conv tail in the compute dtype, as JAX's
+    prefill keeps it)."""
     jcfg = _model(HYMBA)[0]
     jc = jax.device_get(jdecode.init_cache(jcfg, 2, CONTEXT))
     cache = cache_from_jax(jc, "cpu")
@@ -324,10 +326,16 @@ def test_cache_from_jax_maps_states_onto_the_port():
     for a, b in zip(leaves(own), leaves(cache)):
         assert a.shape == b.shape and a.dtype == b.dtype
         assert torch.equal(a, b)
-    q8 = jax.device_get(jdecode.init_cache(jcfg, 2, CONTEXT,
-                                           dtype=jnp.int8))
-    with pytest.raises(ValueError, match="int8"):
-        cache_from_jax(q8, "cpu")
+    q8 = cache_from_jax(jax.device_get(jdecode.init_cache(
+        jcfg, 2, CONTEXT, dtype=jnp.int8)), "cpu")
+    own8 = decode.init_cache(testing.reduced_config(HYMBA), 2, CONTEXT,
+                             torch.int8, device="cpu")
+    for e, o in zip(q8, own8):
+        assert e["kv"].quantized and o["kv"].quantized
+        for a, b in zip(e["kv"], o["kv"]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert e["kv"].k_scale.dtype == torch.float16
+        assert o["ssm"].conv_buf.dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------------------

@@ -260,16 +260,23 @@ def test_verify_and_rollback_match_jax(sharp, paged):
 
 
 def test_paged_stash_off_and_int8_refused(sharp):
-    """The serial paged step asks for no stash; a quantized ring is
-    refused, as the JAX paged path refuses it."""
+    """The serial paged step asks for no stash; a quantized page pool is
+    refused, as the JAX paged path refuses it (the dense ring's int8
+    verify: tests/test_torch_int8kv.py)."""
     _, _, cfg, params = sharp
     p = params["runs"][0]["attn"]
     p0 = {k: v[0] for k, v in p.items()}
     x = torch.zeros((1, 2, cfg.d_model))
-    ring = decode.KVCache(k=torch.zeros((1, 8, 2, 16), dtype=torch.int8),
-                          v=torch.zeros((1, 8, 2, 16), dtype=torch.int8))
+    pool8 = decode.KVCache(k=torch.zeros((3, 4, 2, 16), dtype=torch.int8),
+                           v=torch.zeros((3, 4, 2, 16), dtype=torch.int8),
+                           k_scale=torch.zeros((3, 4, 2),
+                                               dtype=torch.float16),
+                           v_scale=torch.zeros((3, 4, 2),
+                                               dtype=torch.float16))
     with pytest.raises(NotImplementedError, match="int8"):
-        attention.decode_attend_multi(p0, cfg, x, torch.tensor([0]), ring)
+        attention.paged_decode_attend_multi(
+            p0, cfg, x, torch.tensor([0]), pool8,
+            torch.tensor([[1, 2]], dtype=torch.int32), context=8)
     pool = decode.KVCache(k=torch.zeros((3, 4, 2, 16)),
                           v=torch.zeros((3, 4, 2, 16)))
     out = attention.paged_decode_attend_multi(
