@@ -252,6 +252,36 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      times the bf16 step's distance from it (and its distance from the
      bf16 step beside JAX's reduced-size 0.02); the graphed int8 step and
      the bf16 step at the same depth, each beside its byte bound.
+ 23. the hybrid family trained: launch.train for hymba-1.5b at its
+     published width, phase 11's batch 2 x 4096, remat, the quantile
+     clip, AdamW, 4 steps (step 0 warms up, steps 1-2 are timed, step 3
+     is profiled), the depth cut only as far as a byte reckoning against
+     70 GB forces (printed beside the measured peak).  Every loss finite;
+     per step K7 twice a layer (forward and remat recompute, banded on
+     the sliding-window layers) and K2 once a round of the clip's
+     decision, and the clip's bracket at the last step's per-leaf norms
+     equal to the "torch" backend's bit for bit; ms a step, tok/s, peak
+     memory, device busy, idle share, kernels a step and K7's share of
+     the busy time; K2 at the clip's (1, leaves) shape against its plain
+     version; at full width cut to layers 0-2 (one global, two
+     sliding-window), f32 params, batch 1 x 4096, the loss and per-leaf
+     gradients with K7 against those with its plain version (loss rtol
+     1e-4, each gradient l2 rel 2e-2).
+ 24. the SSM family trained as phase 23: xlstm-1.3b at its width and
+     depth, batch 2 x 1024 (a sequence cut that the run's time limit
+     forces: the sLSTM loops over time); no attention, no K7; the card's
+     loss and gradients in f32 at phase 19's reference depth (an sLSTM
+     and 7 mLSTM layers), batch 2 x 200, against the CPU port's on the
+     same weights within CARD_VS_CPU.
+ 25. the enc-dec family trained as phase 23: whisper-tiny at full width
+     and depth through train.step.make_train_step (the launcher refuses
+     enc-dec, as JAX's), 16 x 448 decoder tokens with (16, 1500, 384)
+     bf16 frames, two microbatches; no K7 (448 and 1500 lie under
+     FLASH_MIN_SEQ); the card against the CPU port in f32 at batch 2.
+
+Whole-path profiles record device activity only and read its raw events
+(``_profile_records``): a training step's ~10**5 kernels read back in
+seconds, where key_averages' per-op tree took most of a minute.
 
 Phases 4-17 run the paths as a user runs them: in the tuner's default
 mode (the analytic solver tier and today's kernel geometry), on an empty
@@ -294,7 +324,11 @@ K3-K5 at the vocab rows of phases 19 and 20 ("xlstm-serve",
 ("hymba-prefill": phase 20's one-shot prefill); K3-K5 at whisper's
 vocab row ("whisper-serve": phase 21's one-shot serve); and K3-K5 at the
 served shape and K7 at qwen3-4b's 4096-token admission ("int8-serve":
-phase 22's continuous serve).  A launch count is the wrappers' count of
+phase 22's continuous serve); and for the families' training, K2 at
+each quantile clip's (1, leaves) shape ("hymba-train", "xlstm-train",
+"whisper-train": phases 23-25) and K7 at hymba's training shape
+("hymba-train": its row is phase 3's at the same shape, hymba's
+prefill).  A launch count is the wrappers' count of
 eager launches plus,
 for every graph replay, the launches its capture recorded.  Each entry's
 bound_ms is the larger of its bytes and operations bounds; K1's chain of
@@ -453,6 +487,42 @@ INT8_CONT_ARGV = ["--arch", "qwen3-4b", "--continuous", "--requests", "8",
                   "4096", "--new-tokens", "32"] + SAMPLER_ARGV
 INT8_VS_BF16 = 2.0
 INT8_JAX_CONTRACT = 0.02
+# phases 23-25: the hybrid, SSM and enc-dec families trained at full width
+# as JAX's make_train_step trains them (remat, the quantile clip through
+# K2, AdamW; random bf16 weights from seed 0); step 0 warms up, steps 1-2
+# are timed, step 3 is profiled.  hymba at phase 11's batch 2 x 4096 (K7
+# banded on its sliding-window layers), its depth cut only as far as the
+# byte reckoning against MOE_TRAIN_BUDGET forces; xlstm at batch 2 x 1024,
+# a sequence cut from train_4k's 4096 that the run's time limit forces
+# (the sLSTM is a loop over time, run twice forward under remat and once
+# backward); whisper through train.step.make_train_step (the launcher
+# refuses enc-dec, as JAX's: its batches carry no frames) at 16 x 448
+# decoder tokens (the decoder's 448 positions, hf:openai/whisper-tiny)
+# with (16, 1500, 384) bf16 frames, in two microbatches
+FAMILY_TRAIN_STEPS = 4
+_FAMILY_TRAIN_ARGV = ["--steps", str(FAMILY_TRAIN_STEPS), "--batch", "2",
+                      "--clip-mode", "quantile", "--log-every", "1",
+                      "--seed", "0"]
+HYMBA_TRAIN_ARGV = ["--arch", "hymba-1.5b", "--seq", "4096"
+                    ] + _FAMILY_TRAIN_ARGV
+XLSTM_TRAIN_ARGV = ["--arch", "xlstm-1.3b", "--seq", "1024"
+                    ] + _FAMILY_TRAIN_ARGV
+WHISPER_TRAIN = dict(batch=16, seq=448, microbatches=2)
+# the references: hymba at full width cut to its layers 0-2 (one global,
+# two sliding-window), f32 params, batch 1 x 4096, the loss and gradients
+# with K7 against those with its plain version (the forward in bf16, as
+# trained); xlstm at phase 19's reference depth (an sLSTM and 7 mLSTM
+# layers), batch 2 x 200 (past three mLSTM chunks), and whisper at full
+# depth, batch 2 x 448 with frames, f32 params and forward (TF32 off): the
+# card against the CPU port on the same weights and batch, within
+# CARD_VS_CPU of the CPU's loss (rtol) and of each gradient's l2 norm.  On
+# an H100 80GB HBM3 at 700 W the card read xlstm's loss 4.25e-7 and its
+# worst gradient 1.7e-4 from the CPU's, whisper's 0 and 1.63e-6 (float
+# sums in another order, carried through the recurrences)
+HYMBA_REF = dict(layers=3, batch=1, seq=4096, loss_rtol=1e-4, grad_rel=2e-2)
+XLSTM_REF = dict(layers=8, batch=2, seq=200)
+WHISPER_REF = dict(batch=2, seq=448)
+CARD_VS_CPU = dict(loss_rtol=1e-5, grad_rel=1e-3)
 FAULT_ARGV = ["--arch", "internlm2-1.8b", "--reduced", "--device", "cuda",
               "--steps", "10", "--batch", "4", "--seq", "64", "--clip-mode",
               "quantile", "--ckpt-every", "5", "--log-every", "1"]
@@ -465,6 +535,18 @@ def check(cond, msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def free_memory() -> None:
+    """Collects the garbage earlier phases left (reference cycles that
+    still hold device tensors) and returns the allocator's cached blocks,
+    so that a phase's peak memory counts its own tensors."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _event_ms(run) -> float:
@@ -1583,34 +1665,44 @@ def phase_reference(gen):
         f"streams equal")
 
 
-def launch_calls(events) -> dict:
-    """The host's kernel and graph launch calls among a profile's key
-    averages, by API."""
+def _profile_records(prof) -> tuple[list, dict]:
+    """A finished device-activity profile read from its raw events, not
+    from key_averages' per-op tree (a training step's ~10**5 kernels read
+    back in seconds): the device's kernels, copies and sets by name as
+    records with key_averages' fields (key, count, self_device_time_total
+    in us), and the host's kernel and graph launch calls by API."""
+    import types
+
     import torch
 
-    return {e.key: e.count for e in events
-            if e.device_type == torch.autograd.DeviceType.CPU
-            and e.key.startswith(("cudaLaunch", "cuLaunch",
-                                  "cudaGraphLaunch"))}
+    by_name, calls = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            rec = by_name.setdefault(name, [0, 0])
+            rec[0] += 1
+            rec[1] += e.duration_ns()
+        elif name.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch")):
+            calls[name] = calls.get(name, 0) + 1
+    kernels = [types.SimpleNamespace(key=name, count=n,
+                                     self_device_time_total=ns / 1e3)
+               for name, (n, ns) in by_name.items()]
+    return kernels, calls
 
 
 def profiled(run):
-    """run() under torch.profiler: (its result, device busy ms, wall ms
-    traced, the device kernels' key averages, the host's launch calls by
-    API: kernel launches and graph launches)."""
+    """run() under torch.profiler, device activity only: (its result,
+    device busy ms, wall ms traced, the device's kernels by name, the
+    host's launch calls by API: kernel launches and graph launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    calls = launch_calls(events)
+    kernels, calls = _profile_records(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     return out, busy_ms, wall_ms, kernels, calls
 
@@ -2010,8 +2102,7 @@ def phase_train():
         # launches of this step; the profiler brackets TRAIN_PROFILED_STEP
         per_step.append(dict(ops.LAUNCHES))
         if step == TRAIN_PROFILED_STEP - 1:
-            prof["p"] = profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA])
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
             prof["p"].__enter__()
             prof["t0"] = time.perf_counter()
         elif step == TRAIN_PROFILED_STEP:
@@ -2019,7 +2110,7 @@ def phase_train():
             prof["wall_ms"] = (time.perf_counter() - prof["t0"]) * 1e3
             prof["p"].__exit__(None, None, None)
 
-    torch.cuda.empty_cache()
+    free_memory()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -2056,10 +2147,7 @@ def phase_train():
         f"{n_tok / ms * 1e3:.0f} tok/s | peak memory {peak_gb:.2f} GB | "
         f"K7 {2 * n_layers} and K2 {per_step[0]['multi_count']} launches per "
         f"step (the clip: {decisions_note()}) | launches {launches}")
-    events = prof["p"].key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    calls = launch_calls(events)
+    kernels, calls = _profile_records(prof["p"])
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     say_profile("phase 11", busy_ms, prof["wall_ms"], kernels, calls, 1,
                 "step", f"; one step (step {TRAIN_PROFILED_STEP})")
@@ -2824,7 +2912,7 @@ def phase_speculative() -> dict:
     from repro_torch.launch import serve
 
     t0 = time.perf_counter()
-    torch.cuda.empty_cache()
+    free_memory()
     torch.cuda.reset_peak_memory_stats()
     session = serve.setup(CONT_ARGV + ["--draft-len", str(DRAFT_LEN)])
     _spec_verify_grid(session)
@@ -2971,7 +3059,7 @@ def phase_moe_serve(gen):
     from repro_torch.tree import leaves
 
     t0 = time.perf_counter()
-    torch.cuda.empty_cache()
+    free_memory()
     session = serve.setup(MOE_SERVE_ARGV)
     cfg, params, args = session.cfg, session.params, session.args
     torch.cuda.synchronize()
@@ -3161,7 +3249,6 @@ def phase_moe_train(gen):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import multi_count as mc
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
@@ -3180,8 +3267,7 @@ def phase_moe_train(gen):
     def on_step(step, metrics):
         per_step.append(dict(ops.LAUNCHES))
         if step == MOE_TRAIN_STEPS - 2:
-            prof["p"] = profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA])
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
             prof["p"].__enter__()
             prof["t0"] = time.perf_counter()
         elif step == MOE_TRAIN_STEPS - 1:
@@ -3197,7 +3283,7 @@ def phase_moe_train(gen):
     from repro_torch.train import step as train_step
     clip = train_step.clip_by_quantile
     train_step.clip_by_quantile = recorded_clip
-    torch.cuda.empty_cache()
+    free_memory()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -3249,13 +3335,10 @@ def phase_moe_train(gen):
         f"(the clip), K7 {2 * L} ({decisions_note()}) | dropped "
         f"fraction {rec.dropped_frac():.6f} over {len(rec.dropped)} MoE "
         f"calls | launches {launches}")
-    events = prof["p"].key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels, calls = _profile_records(prof["p"])
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    say_profile("phase 17", busy_ms, prof["wall_ms"], kernels,
-                launch_calls(events), 1, "step",
-                f"; one step (step {MOE_TRAIN_STEPS - 1})")
+    say_profile("phase 17", busy_ms, prof["wall_ms"], kernels, calls, 1,
+                "step", f"; one step (step {MOE_TRAIN_STEPS - 1})")
     if kernels:
         say_kernel_times("phase 17", kernels, busy_ms,
                          (("K3", "runahead_topk"), ("K2", "multi_count"),
@@ -3274,24 +3357,8 @@ def phase_moe_train(gen):
     k3_row = _capacity_row(
         [rec.last], cut, f"phase 17's training shape (batch {batch} x "
         f"{seq} tokens, top-{cfg.moe_top_k}), the run's last routing")
-    x = norms["last"][None, :].float()
-    M = 2 ** clip_d.spec_k - 1
-    taus = x.amin() + (x.amax() - x.amin()) * torch.rand(
-        (1, M), generator=gen, device="cuda")
-    got = ops.multi_count(x, taus, below=True)
-    want = mc.multi_count_plain(x, taus, True)
-    check(torch.equal(got, want), "K2 differs from plain at the clip's shape")
-    run = lambda: ops.multi_count(x, taus, below=True)
-    k2_row = dict(
-        source="src/repro_torch/kernels/csrc/multi_count.cu",
-        replaces="src/repro/kernels/multi_count.py:69", max_abs_err=0.0,
-        ms=device_ms(run), call_ms=call_ms(run),
-        plain_ms=device_ms(lambda: mc.multi_count_plain(x, taus, True)),
-        bound=bound_ms(4 * (x.numel() + 2 * M), 2 * x.numel() * M),
-        library_ms=None, library="none",
-        note=f"the quantile clip's (1, {x.shape[1]}) per-leaf norms of this "
-             f"run's last step, {M} candidates (spec_k {clip_d.spec_k} x "
-             f"{clip_d.rounds} rounds), counting below")
+    k2_row = _k2_clip_row(gen, norms["last"], clip_d,
+                          "this run's last step (granite-moe-3b-a800m)")
     say_row("phase 17 K3 moe-train", k3_row)
     say_row("phase 17 K2 moe-train", k2_row)
     say(f"phase 17 took {time.perf_counter() - t0:.1f}s")
@@ -3964,7 +4031,7 @@ def phase_recurrent(phase: int, arch: str, oneshot_argv, cont_argv, gen,
     t0 = time.perf_counter()
     label = f"phase {phase}"
     family = arch.split("-")[0]
-    torch.cuda.empty_cache()
+    free_memory()
     session = serve.setup(oneshot_argv)
     cfg, params, args = session.cfg, session.params, session.args
     torch.cuda.synchronize()
@@ -4186,7 +4253,7 @@ def phase_whisper(gen) -> dict:
 
     t0 = time.perf_counter()
     label = "phase 21"
-    torch.cuda.empty_cache()
+    free_memory()
     session = serve.setup(WHISPER_SERVE_ARGV)
     cfg, params, args, sc = (session.cfg, session.params, session.args,
                              session.sampler)
@@ -4469,7 +4536,7 @@ def phase_int8(gen) -> dict:
 
     t0 = time.perf_counter()
     label = "phase 22"
-    torch.cuda.empty_cache()
+    free_memory()
     session = serve.setup(INT8_CONT_ARGV)
     cfg, params, args = session.cfg, session.params, session.args
     torch.cuda.synchronize()
@@ -4554,6 +4621,492 @@ def phase_int8(gen) -> dict:
     return {"int8-serve": launches}
 
 
+# ---------------------------------------------------------------------------
+# phases 23-25: the hybrid, SSM and enc-dec families trained
+# ---------------------------------------------------------------------------
+
+def _k2_clip_row(gen, norms, decision, note: str) -> dict:
+    """K2 at the quantile clip's (1, leaves) shape: the per-leaf norms of
+    a training step against the 2**spec_k - 1 candidates a round of the
+    clip's decision, counting below, bit for bit against its plain
+    version; timed beside its bound."""
+    import torch
+
+    from repro_torch.kernels import multi_count as mc
+    from repro_torch.kernels import ops
+
+    x = norms[None, :].float()
+    M = 2 ** decision.spec_k - 1
+    taus = x.amin() + (x.amax() - x.amin()) * torch.rand(
+        (1, M), generator=gen, device="cuda")
+    got = ops.multi_count(x, taus, below=True)
+    want = mc.multi_count_plain(x, taus, True)
+    check(torch.equal(got, want),
+          f"K2 differs from plain at the clip's shape {tuple(x.shape)}")
+    run = lambda: ops.multi_count(x, taus, below=True)  # noqa: E731
+    return dict(
+        source="src/repro_torch/kernels/csrc/multi_count.cu",
+        replaces="src/repro/kernels/multi_count.py:69", max_abs_err=0.0,
+        ms=device_ms(run), call_ms=call_ms(run),
+        plain_ms=device_ms(lambda: mc.multi_count_plain(x, taus, True)),
+        bound=bound_ms(4 * (x.numel() + 2 * M), 2 * x.numel() * M),
+        library_ms=None, library="none",
+        note=f"the quantile clip's (1, {x.shape[1]}) per-leaf norms of "
+             f"{note}, {M} candidates (spec_k {decision.spec_k} x "
+             f"{decision.rounds} rounds), counting below")
+
+
+def _family_train(label: str, run, tokens: int, k7_per_step: int) -> dict:
+    """Drives ``run(on_step)``, a training loop of FAMILY_TRAIN_STEPS
+    steps that calls ``on_step(step, metrics)`` after each, on launch
+    counters at 0 and an empty record of the tuner's decisions, the
+    clip's per-leaf norms recorded and the last step profiled (device
+    activity).  Checks: every loss finite; per step K7 ``k7_per_step``
+    times and K2 once a round of the clip's decision; the clip's bracket
+    at the last step's norms equal to the "torch" backend's bit for bit.
+    Returns the run's readings."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import solver
+    from repro_torch.kernels import ops
+    from repro_torch.train import step as train_step
+
+    n = FAMILY_TRAIN_STEPS
+    per_step, prof, norms = [], {}, {}
+
+    def on_step(step, metrics):
+        per_step.append(dict(ops.LAUNCHES))
+        if step == n - 2:
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            prof["t0"] = time.perf_counter()
+        elif step == n - 1:
+            torch.cuda.synchronize()
+            prof["wall_ms"] = (time.perf_counter() - prof["t0"]) * 1e3
+            prof["p"].__exit__(None, None, None)
+
+    clip = train_step.clip_by_quantile
+
+    def recorded_clip(grads, *a, **kw):
+        out = clip(grads, *a, **kw)
+        norms["last"] = out[1].detach()
+        return out
+
+    train_step.clip_by_quantile = recorded_clip
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    forget_decisions()
+    try:
+        out = run(on_step)
+    finally:
+        train_step.clip_by_quantile = clip
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["losses"]
+    check(len(losses) == n and all(map(math.isfinite, losses)),
+          f"{label}: training losses not all finite: {losses}")
+    want = solver_launches({("count_below", 1, False): 1})
+    (clip_d, _) = decisions()[("count_below", 1, False)]
+    note = decisions_note()
+    prev = dict.fromkeys(launches, 0)
+    for i, snap in enumerate(per_step):
+        moved = {k: snap[k] - prev[k] for k in snap}
+        check(moved["flash_fwd"] == k7_per_step,
+              f"{label} step {i}: K7 launched {moved['flash_fwd']} times, "
+              f"expected {k7_per_step}")
+        check({k: moved[k] for k in SOLVER_KERNELS} == want,
+              f"{label} step {i}: the quantile clip launched {moved}, where "
+              f"the tuner's decision ({decisions_note()}) gives {want}")
+        prev = snap
+    x = norms["last"].float()[None, :]
+    brackets = [solver.solve_kind("count_below", x, q=0.95, backend=b,
+                                  rounds=8, spec_k=4)
+                for b in ("hopper", "torch")]
+    check(all(torch.equal(a, b) for a, b in zip(*brackets)),
+          f"{label}: the clip's bracket differs from the torch backend's")
+    t_read = time.perf_counter()
+    kernels, calls = _profile_records(prof["p"])
+    read_s = time.perf_counter() - t_read
+    timed = out["step_seconds"][1:n - 1]
+    ms = statistics.median(timed) * 1e3
+    return dict(
+        losses=losses, launches=launches, peak_gb=peak_gb, ms=ms,
+        tok_s=tokens / ms * 1e3, warmup_ms=out["step_seconds"][0] * 1e3,
+        timed_ms=[round(t * 1e3, 1) for t in timed], k2=want["multi_count"],
+        clip=clip_d, decisions=note, norms=norms["last"], kernels=kernels, calls=calls,
+        busy_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+        wall_ms=prof["wall_ms"], read_s=read_s)
+
+
+def say_family_train(label: str, what: str, r: dict,
+                     which=(("K2", "multi_count"),)) -> None:
+    """A family's training readings, its profiled step and its kernels'
+    shares of the device's busy time."""
+    say(f"{label}: {what} | losses {[round(x, 4) for x in r['losses']]} | "
+        f"warm-up step {r['warmup_ms']:.0f} ms, steps 1-"
+        f"{FAMILY_TRAIN_STEPS - 2} {r['timed_ms']} ms, median "
+        f"{r['ms']:.1f} ms = {r['tok_s']:.0f} tok/s | peak memory "
+        f"{r['peak_gb']:.2f} GB | per step: K2 {r['k2']} (the clip: "
+        f"{r['decisions']}); the clip's bracket == the torch backend's "
+        f"bit for bit | launches {r['launches']}")
+    say_profile(label, r["busy_ms"], r["wall_ms"], r["kernels"], r["calls"],
+                1, "step", f"; one step (step {FAMILY_TRAIN_STEPS - 1}), "
+                           f"device activity read back in {r['read_s']:.1f}s")
+    if r["kernels"]:
+        say_kernel_times(label, r["kernels"], r["busy_ms"], which)
+        say(f"{label} profile by group: " + ", ".join(
+            f"{g} {ms_:.1f} ms ({n_} launches)"
+            for g, (ms_, n_) in _kernel_groups(r["kernels"]).items()))
+
+
+def _loss_and_grads(cfg, params, batch, tc) -> tuple[float, list]:
+    """The training loss of ``batch`` and its gradient per leaf, as the
+    train step's ``grads_of`` takes them."""
+    import torch
+
+    from repro_torch.train import step as train_step
+    from repro_torch.tree import leaves, unflatten
+
+    inputs = [p.detach().requires_grad_(True) for p in leaves(params)]
+    loss, _ = train_step.loss_fn(cfg, unflatten(params, inputs), batch, tc)
+    return float(loss.detach()), list(torch.autograd.grad(loss, inputs))
+
+
+def _grad_rel(got, want) -> tuple[float, int]:
+    """The largest over the leaves of |got - want| / |want| in the l2
+    norm (f32, on the CPU), and the index of its leaf."""
+    import torch
+
+    rels = []
+    for g, w in zip(got, want):
+        g, w = g.float().cpu(), w.float().cpu()
+        den = max(float(torch.linalg.vector_norm(w)), 1e-30)
+        rels.append(float(torch.linalg.vector_norm(g - w)) / den)
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    return rels[worst], worst
+
+
+def _card_vs_cpu(cfg, batch: dict) -> str:
+    """The loss and per-leaf gradients of ``batch`` on the card against
+    the CPU port's on the same weights (f32, drawn on the card from seed
+    0) with the forward in f32, checked within CARD_VS_CPU; says how
+    close they came."""
+    import contextlib
+    import functools
+
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import step as train_step
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         torch.float32)
+    tc = train_step.TrainConfig(param_dtype="float32")
+    keep = train_step.forward
+    train_step.forward = functools.partial(transformer.forward,
+                                           compute_dtype=torch.float32)
+    with contextlib.ExitStack() as stack:
+        stack.callback(setattr, train_step, "forward", keep)
+        card = _loss_and_grads(cfg, params, batch, tc)
+        cpu = _loss_and_grads(cfg, tree_map(lambda t: t.cpu(), params),
+                              {k: v.cpu() for k, v in batch.items()}, tc)
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    grad_rel, worst = _grad_rel(card[1], cpu[1])
+    path = leaves_with_path(params)[worst][0]
+    check(loss_rel <= CARD_VS_CPU["loss_rtol"]
+          and grad_rel <= CARD_VS_CPU["grad_rel"],
+          f"{cfg.name}: the card's loss {card[0]} and gradients (worst leaf "
+          f"{path} at {grad_rel:.3g}) differ from the CPU port's "
+          f"({cpu[0]}) past {CARD_VS_CPU}")
+    return (f"the card's loss within {loss_rel:.3g} of the CPU port's, the "
+            f"worst of {len(cpu[1])} gradients ({path}) at l2 rel "
+            f"{grad_rel:.3g} (limits {CARD_VS_CPU})")
+
+
+def hymba_train_depth(cfg, batch: int, seq: int) -> tuple[int, dict]:
+    """The deepest cut of hymba's ``cfg`` (widths unchanged) whose
+    reckoned peak fits MOE_TRAIN_BUDGET bytes, and the reckoning at full
+    depth and at the cut: 18 B a parameter (bf16 params and gradients,
+    f32 master, mu and nu, the clip's bf16 copy of the gradients), 16 B
+    an element of the largest leaf (a run's stacked MLP weight: AdamW's
+    and the clip's f32 temporaries), the f32 logits three times over,
+    remat's saved layer inputs, and one layer's recompute: the SSM's
+    chunked scan keeps, for every chunk of the sequence, its decay and
+    increment, the log2(CHUNK) levels of the Hillis-Steele scan's pair
+    and about 4 more (B, CHUNK, d_in, N) f32 tensors, beside the bf16
+    activations of the attention and the MLP."""
+    import dataclasses
+
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import layer_plan
+
+    d, f = cfg.d_model, cfg.d_ff
+    d_in = cfg.n_heads * cfg.head_dim
+    tokens = batch * seq
+    levels = math.ceil(math.log2(ssm.CHUNK))
+
+    def need(L: int) -> dict:
+        c = dataclasses.replace(cfg, n_layers=L)
+        P = c.param_count()
+        parts = {
+            "params": P,
+            "state": 18 * P,
+            "largest leaf": 16 * max(n for _, n in layer_plan(c)) * d * f,
+            "logits": 12 * tokens * cfg.vocab_padded,
+            "remat inputs": 2 * L * tokens * d,
+            "layer recompute": (4 * (2 * (levels + 1) + 4) * tokens * d_in
+                                * cfg.ssm_state
+                                + 2 * tokens * (3 * f + 6 * d_in + 4 * d)),
+        }
+        parts["total"] = sum(v for k, v in parts.items() if k != "params")
+        return parts
+
+    L = cfg.n_layers
+    while L > 1 and need(L)["total"] > MOE_TRAIN_BUDGET:
+        L -= 1
+    return L, {"full": need(cfg.n_layers), "cut": need(L)}
+
+
+def _hymba_k7_reference() -> str:
+    """hymba at full width cut to layers 0-2 (one global, two
+    sliding-window), f32 params, batch 1 x 4096, the forward in bf16 as
+    trained: the loss and per-leaf gradients with K7 (twice a layer:
+    forward and remat recompute) against those with its plain version
+    swapped in for that run only, within HYMBA_REF's tolerances."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import flash_fwd as ff
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params, layer_plan
+    from repro_torch.train import step as train_step
+    from repro_torch.tree import leaves_with_path
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"),
+                              n_layers=HYMBA_REF["layers"])
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         torch.float32)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=HYMBA_REF["seq"],
+                           global_batch=HYMBA_REF["batch"], seed=0)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch_at(0).items()}
+    tc = train_step.TrainConfig(param_dtype="float32")
+    ops.reset_launches()
+    loss_k, grads_k = _loss_and_grads(cfg, params, batch, tc)
+    k7 = ops.LAUNCHES["flash_fwd"]
+    check(k7 == 2 * cfg.n_layers,
+          f"the reference's step launched K7 {k7} times")
+    kernel = ff.flash_fwd_cuda
+    ff.flash_fwd_cuda = (lambda q, k, v, *, window=0, n_rep=1:
+                         ff.flash_fwd_plain(q, k, v, window=window,
+                                            n_rep=n_rep))
+    try:
+        loss_p, grads_p = _loss_and_grads(cfg, params, batch, tc)
+    finally:
+        ff.flash_fwd_cuda = kernel
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel, worst = _grad_rel(grads_k, grads_p)
+    path = leaves_with_path(params)[worst][0]
+    check(loss_rel <= HYMBA_REF["loss_rtol"]
+          and grad_rel <= HYMBA_REF["grad_rel"],
+          f"hymba's loss and gradients with K7 ({loss_k}, worst leaf {path} "
+          f"at {grad_rel:.3g}) differ from its plain version's ({loss_p}) "
+          f"past {HYMBA_REF}")
+    return (f"full width, depth cut to layers 0-2 ({layer_plan(cfg)}), f32 "
+            f"params, batch {HYMBA_REF['batch']} x {HYMBA_REF['seq']}: loss "
+            f"with K7 ({k7} launches) {loss_k:.6f} against {loss_p:.6f} with "
+            f"its plain version (rel {loss_rel:.3g}, limit "
+            f"{HYMBA_REF['loss_rtol']}); worst of {len(grads_k)} gradients "
+            f"({path}) at l2 rel {grad_rel:.3g} (limit "
+            f"{HYMBA_REF['grad_rel']})")
+
+
+def phase_hymba_train(gen) -> tuple[dict, dict]:
+    """launch.train's main in-process for hymba-1.5b at its published
+    width, phase 11's batch 2 x 4096, the quantile clip, cut in depth
+    only as far as the byte reckoning forces: losses, K7 twice a layer a
+    step (banded on the sliding-window layers), K2 as the clip's
+    decision gives, ms a step, tok/s, peak memory, the last step
+    profiled; K2 at the clip's shape; the K7 reference.  Returns
+    (launches, {kernel: row})."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import layer_plan
+
+    t0 = time.perf_counter()
+    label = "phase 23"
+    cfg = get_config("hymba-1.5b")
+    batch, seq = 2, 4096
+    L, reckoned = hymba_train_depth(cfg, batch, seq)
+    gb = lambda parts: ", ".join(  # noqa: E731
+        f"{k} {v / 1e9:.2f} G" + ("" if k == "params" else "B")
+        for k, v in parts.items())
+    say(f"{label} depth reckoning (budget {MOE_TRAIN_BUDGET / 1e9:.0f} GB "
+        f"of the card's 80): full depth {cfg.n_layers} layers: "
+        f"{gb(reckoned['full'])} | cut to {L} layers: {gb(reckoned['cut'])}")
+    argv = HYMBA_TRAIN_ARGV + (["--layers", str(L)] if L < cfg.n_layers
+                               else [])
+    r = _family_train(label, lambda on_step: train.main(argv,
+                                                        on_step=on_step),
+                      batch * seq, 2 * L)
+    plan = layer_plan(dataclasses.replace(cfg, n_layers=L))
+    say_family_train(
+        label, f"hymba-1.5b full width (d_model 1600, 25/5 heads of 64, SSM "
+               f"state 16, d_ff 5504, vocab 32001 padded to 32128), depth "
+               f"{L} of {cfg.n_layers} ({plan}), batch {batch} x {seq}, "
+               f"remat, quantile clip, AdamW; K7 {2 * L} a step (forward and "
+               f"remat recompute; banded (window {cfg.sliding_window}) but "
+               f"on the global layers {cfg.global_layers}); peak reckoned "
+               f"{reckoned['cut']['total'] / 1e9:.2f} GB", r,
+        (("K7", "flash_fwd_"), ("K2", "multi_count")))
+    k2 = _k2_clip_row(gen, r["norms"], r["clip"],
+                      f"this run's last step (hymba-1.5b, {L} layers)")
+    say_row(f"{label} K2 hymba-train", k2)
+    say(f"{label} reference: {_hymba_k7_reference()}")
+    say(f"{label} took {time.perf_counter() - t0:.1f}s")
+    return r["launches"], {"multi_count": k2}
+
+
+def phase_xlstm_train(gen) -> tuple[dict, dict]:
+    """launch.train's main in-process for xlstm-1.3b at its published
+    width and depth, batch 2 x 1024 (the sequence cut), the quantile
+    clip: losses, no K7 (no attention), K2 as the clip's decision gives,
+    ms a step, tok/s, peak memory, the last step profiled; K2 at the
+    clip's shape; the card against the CPU port at phase 19's reference
+    depth.  Returns (launches, {kernel: row})."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import layer_plan
+
+    t0 = time.perf_counter()
+    label = "phase 24"
+    r = _family_train(label, lambda on_step: train.main(
+        XLSTM_TRAIN_ARGV, on_step=on_step), 2 * 1024, 0)
+    say_family_train(
+        label, "xlstm-1.3b full width and depth (48 layers: 42 mLSTM, 6 "
+               "sLSTM, d_model 2048, 4 heads of 512, vocab 50304), batch 2 x "
+               "1024 (a sequence cut from train_4k's 4096: the sLSTM's loop "
+               "over time), remat, quantile clip, AdamW; no attention, no "
+               "K7", r)
+    k2 = _k2_clip_row(gen, r["norms"], r["clip"],
+                      "this run's last step (xlstm-1.3b)")
+    say_row(f"{label} K2 xlstm-train", k2)
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"),
+                              n_layers=XLSTM_REF["layers"])
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=XLSTM_REF["seq"],
+                           global_batch=XLSTM_REF["batch"], seed=0)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch_at(0).items()}
+    say(f"{label} reference: f32, depth cut to {cfg.n_layers} layers "
+        f"({layer_plan(cfg)}), batch {XLSTM_REF['batch']} x "
+        f"{XLSTM_REF['seq']}: {_card_vs_cpu(cfg, batch)}")
+    say(f"{label} took {time.perf_counter() - t0:.1f}s")
+    return r["launches"], {"multi_count": k2}
+
+
+def _whisper_train_loop(on_step, cfg, batch: int, seq: int,
+                        microbatches: int) -> dict:
+    """whisper-tiny trained as launch.train's main trains a decoder-only
+    arch (its TrainConfig and schedule for FAMILY_TRAIN_STEPS steps,
+    SyntheticTokens from seed 0, random bf16 weights from seed 0), each
+    batch with (batch, encoder_len, d_model) bf16 frames drawn from the
+    weights' generator: {losses, step_seconds}."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.schedule import linear_warmup_cosine
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    n = FAMILY_TRAIN_STEPS
+    tc = TrainConfig(lr=3e-4, warmup_steps=min(100, n // 10 + 1),
+                     total_steps=n, n_microbatches=microbatches,
+                     clip_mode="quantile")
+    step_fn = make_train_step(cfg, tc, linear_warmup_cosine(
+        tc.lr, tc.warmup_steps, tc.total_steps))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, getattr(torch, tc.param_dtype))
+    opt = adamw_init(params)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                           seed=0)
+    losses, seconds = [], []
+    for step in range(n):
+        b = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch_at(step).items()}
+        b["frames"] = torch.randn((batch, cfg.encoder_len, cfg.d_model),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.bfloat16)
+        t = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, b)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        on_step(step, metrics)
+    return {"losses": losses, "step_seconds": seconds}
+
+
+def phase_whisper_train(gen) -> tuple[dict, dict]:
+    """whisper-tiny trained at full width and depth through
+    train.step.make_train_step: 16 x 448 decoder tokens with (16, 1500,
+    384) bf16 frames, two microbatches (the frames split with the
+    tokens), the quantile clip: losses, no K7 (448 and 1500 lie under
+    FLASH_MIN_SEQ), K2 as the clip's decision gives, ms a step, tok/s,
+    peak memory, the last step profiled; K2 at the clip's shape; the card
+    against the CPU port at batch 2.  Returns (launches, {kernel:
+    row})."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+
+    t0 = time.perf_counter()
+    label = "phase 25"
+    cfg = get_config("whisper-tiny")
+    wt = WHISPER_TRAIN
+    r = _family_train(label, lambda on_step: _whisper_train_loop(
+        on_step, cfg, wt["batch"], wt["seq"], wt["microbatches"]),
+        wt["batch"] * wt["seq"], 0)
+    say_family_train(
+        label, f"whisper-tiny full width and depth (4 encoder + 4 decoder "
+               f"layers, d_model 384, 6 heads of 64, vocab 51865 padded to "
+               f"51968, no cut) through train.step.make_train_step (the "
+               f"launcher refuses enc-dec, as JAX's), batch {wt['batch']} x "
+               f"{wt['seq']} decoder tokens with ({wt['batch']}, "
+               f"{cfg.encoder_len}, {cfg.d_model}) bf16 frames, "
+               f"{wt['microbatches']} microbatches, remat, quantile clip, "
+               f"AdamW; no K7", r)
+    k2 = _k2_clip_row(gen, r["norms"], r["clip"],
+                      "this run's last step (whisper-tiny)")
+    say_row(f"{label} K2 whisper-train", k2)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=WHISPER_REF["seq"],
+                           global_batch=WHISPER_REF["batch"], seed=0)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch_at(0).items()}
+    batch["frames"] = torch.randn(
+        (WHISPER_REF["batch"], cfg.encoder_len, cfg.d_model), generator=gen,
+        device="cuda")
+    say(f"{label} reference: f32, full depth, batch {WHISPER_REF['batch']} "
+        f"x {WHISPER_REF['seq']} with frames: {_card_vs_cpu(cfg, batch)}")
+    say(f"{label} took {time.perf_counter() - t0:.1f}s")
+    return r["launches"], {"multi_count": k2}
+
+
 def main() -> int:
     import torch
 
@@ -4616,6 +5169,10 @@ def main() -> int:
               "K7 did not run once a layer in hymba's 4096-token prefill")
         launches_by_path.update(phase_whisper(gen))
         launches_by_path.update(phase_int8(gen))
+        for path, phase in (("hymba-train", phase_hymba_train),
+                            ("xlstm-train", phase_xlstm_train),
+                            ("whisper-train", phase_whisper_train)):
+            launches_by_path[path], path_rows[path] = phase(gen)
 
     # the path whose run each kernel's launch count is read on: K2 runs
     # where the served requests' top_k differ (phase 13)
@@ -4655,10 +5212,13 @@ def main() -> int:
             library_ms=r["library_ms"]))
     # the later paths: K3-K5 at their vocab rows, K7 at hymba's prefill and
     # at the int8 serve's admissions; the int8 serve's K3-K5 run at the
-    # served shape of phase 3's rows
+    # served shape of phase 3's rows; the families' training: K2 at each
+    # clip's shape, and K7 at hymba's, which its prefill's row holds
     path_rows["int8-serve"].update(
         {name: rows[name] for name in ("runahead_topk_threshold",
                                        "multi_mass", "multi_entropy_moments")})
+    path_rows["hymba-train"]["flash_fwd"] = (
+        path_rows["hymba-prefill"]["flash_fwd"])
     for path, by_name in path_rows.items():
         for name, r in by_name.items():
             launches = launches_by_path[path][name]

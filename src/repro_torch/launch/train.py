@@ -6,7 +6,9 @@ saves, EWMA straggler detection, and ``--die-at-step`` fault injection
 (drain the async writer, then exit 42).  Runs on the card unless
 ``--device cpu`` is given; weights are random bf16, drawn from ``--seed``
 by a ``torch.Generator`` on the device.  One device (the JAX driver's
-``--mesh`` waits for the port's multi-GPU layer).
+``--mesh`` waits for the port's multi-GPU layer).  Every decoder-only
+family trains (dense, MoE, hymba, xlstm); an enc-dec arch (whisper)
+raises, as JAX's launcher fails on it: its batches carry no frames.
 
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch internlm2-1.8b --steps 5 --batch 2 --seq 4096 \\
@@ -16,6 +18,8 @@ by a ``torch.Generator`` on the device.  One device (the JAX driver's
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch granite-moe-3b-a800m --reduced --capacity-mode bisect \\
       --steps 4 --batch 2 --seq 32 --clip-mode quantile
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch xlstm-1.3b --steps 4 --batch 2 --seq 1024 --clip-mode quantile
 """
 from __future__ import annotations
 
@@ -45,6 +49,13 @@ def build(args):
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if cfg.is_encdec:
+        # SyntheticTokens has no frames: JAX's launcher fails the same way
+        # (its forward asserts); train an enc-dec model through
+        # train.step.make_train_step with batch["frames"]
+        raise ValueError(
+            f"{args.arch} is an encoder-decoder model: the launcher's "
+            f"token stream carries no encoder frames")
     tc = TrainConfig(
         lr=args.lr,
         warmup_steps=min(100, args.steps // 10 + 1),

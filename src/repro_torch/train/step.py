@@ -7,13 +7,18 @@ the global norm or by the quantile clip (whose solve runs K2 on the
 card), and AdamW updates the master weights, moments and compute params
 in place (``optim/adamw.py``).  Remat is one checkpoint per layer
 (``models/transformer.py::forward``); at ``S >= 4096`` each layer's
-attention forward is K7 (``kernels/ops.py::flash_fwd``).
+causal self-attention forward is K7 (``kernels/ops.py::flash_fwd``),
+banded on hymba's sliding-window layers.
 
-Dense and MoE families: a MoE model routes with ``capacity_mode``
-(``"bisect"``: each layer's capacity cut is one K3 launch on the card,
-twice a step under remat) in ``moe_groups`` GShard groups, and its
-load-balance loss enters the loss as JAX's ``aux_weight * aux /
-n_layers``.  The other families raise until their mixers are ported.
+Every family trains, as in JAX.  A MoE model routes with
+``capacity_mode`` (``"bisect"``: each layer's capacity cut is one K3
+launch on the card, twice a step under remat) in ``moe_groups`` GShard
+groups, and its load-balance loss enters the loss as JAX's ``aux_weight
+* aux / n_layers``.  The recurrent mixers (hymba's SSM, xlstm's mLSTM and
+sLSTM) get their gradients from autograd through their full-sequence
+forwards.  An enc-dec model (whisper) takes its encoder's input frames
+as ``batch["frames"]`` (B, T_enc, D), which the microbatch split divides
+along the batch as it does the tokens.
 """
 from __future__ import annotations
 
@@ -28,8 +33,6 @@ from repro_torch.models.transformer import forward
 from repro_torch.optim.adamw import AdamWState, adamw_update
 from repro_torch.optim.clip import clip_by_global_norm, clip_by_quantile
 from repro_torch.tree import leaves, tree_map, unflatten
-
-PORTED_FAMILIES = ("dense", "vlm", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,13 +57,15 @@ class TrainConfig:
 
 def loss_fn(cfg: ModelConfig, params, batch: dict, tc: TrainConfig
             ) -> tuple[torch.Tensor, dict]:
-    """CE + z-loss + the MoE aux term (0 for dense) over f32 logits.
+    """CE + z-loss + the MoE aux term (0 for dense) over f32 logits; an
+    enc-dec model reads its encoder's frames from ``batch["frames"]``.
 
     The target logit is a gather: the JAX function's masked sum
     (``step.py:69-76``) adds only zeros beside it, so the value is the
     same, without a second (B, S, V) buffer.
     """
     logits, aux = forward(cfg, params, batch["tokens"],
+                          encoder_frames=batch.get("frames"),
                           capacity_mode=tc.capacity_mode,
                           moe_groups=tc.moe_groups, remat=tc.remat)
     targets = batch["targets"].long()
@@ -78,11 +83,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     """Returns train_step(params, opt_state, batch) -> (params, state,
     metrics).  ``params`` and the state are updated in place and returned;
     ``batch`` is {"tokens", "targets"}: (B, S) integer tensors on the
-    params' device.  Metrics are 0-d tensors (no host read)."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"training family {cfg.family!r} is not ported yet (ported: "
-            f"{', '.join(PORTED_FAMILIES)})")
+    params' device, and for an enc-dec model "frames" (B, T_enc, D).
+    Metrics are 0-d tensors (no host read)."""
 
     def grads_of(params, batch):
         inputs = [p.detach().requires_grad_(True) for p in leaves(params)]

@@ -1511,3 +1511,83 @@ def test_graphed_whisper_and_int8_serving_equals_the_eager_body(
         out.append(_serve_with_frames(sch, gen, cfg))
         assert eager or len(sch.graphs.keys) >= 1
     assert out[0] == out[1] == out[2]
+
+
+# ---------------------------------------------------------------------------
+# training the hybrid, SSM and enc-dec families
+# ---------------------------------------------------------------------------
+
+TRAIN_FAMILIES = {"hymba-1.5b": {}, "xlstm-1.3b": {},
+                  "whisper-tiny": dict(n_microbatches=2)}
+
+
+@pytest.mark.parametrize("arch", list(TRAIN_FAMILIES))
+def test_family_train_steps_on_the_card_match_the_cpu_port(
+        gen, arch, monkeypatch):
+    """Two train steps of the reduced family (f32 params, the forward in
+    f32 with TF32 off, remat, the quantile clip: K2 on the card, its
+    plain version on the CPU; whisper in two microbatches with its
+    frames) on the card and on the CPU from the same weights and
+    batches: each step's loss within rtol 1e-5 and the params' change
+    per leaf within l2 rel 1e-3 of the CPU's (float sums in another
+    order)."""
+    import functools
+
+    from repro_torch.models.testing import reduced_config
+    from repro_torch.models.transformer import forward, init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.schedule import linear_warmup_cosine
+    from repro_torch.train import step
+    from repro_torch.tree import leaves, tree_map
+
+    monkeypatch.setattr(step, "forward", functools.partial(
+        forward, compute_dtype=torch.float32))
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = reduced_config(arch)
+    tc = step.TrainConfig(lr=1e-3, warmup_steps=5, total_steps=50,
+                          clip_mode="quantile", param_dtype="float32",
+                          **TRAIN_FAMILIES[arch])
+    params0 = init_params(cfg, gen, torch.float32)
+    batches = []
+    for _ in range(2):
+        b = {k: torch.randint(0, cfg.vocab, (2, 160), generator=gen,
+                              device="cuda") for k in ("tokens", "targets")}
+        if cfg.is_encdec:
+            b["frames"] = _frames(cfg, gen, 2)
+        batches.append(b)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        fn = step.make_train_step(cfg, tc, linear_warmup_cosine(1e-3, 5, 50))
+        params = tree_map(lambda t: t.to(device, copy=True), params0)
+        opt = adamw_init(params)
+        losses = []
+        for b in batches:
+            params, opt, m = fn(params, opt,
+                                {k: v.to(device) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        runs[device] = (losses, params)
+    torch.testing.assert_close(runs["cuda"][0], runs["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for p, c, p0 in zip(leaves(runs["cuda"][1]), leaves(runs["cpu"][1]),
+                        leaves(params0)):
+        dc = c - p0.cpu()
+        assert (torch.linalg.vector_norm(p.cpu() - c)
+                <= 1e-3 * torch.linalg.vector_norm(dc))
+
+
+def test_flash_fwd_gradient_at_hymba_training_shape(gen):
+    """K7 at hymba's training shape (B = 2, S = 4096, 25 query heads over
+    5 K/V heads, head_dim 64, window 1024), f32: the gradients of the
+    wrapper (K7 forward, the chunked flash_attend's vjp backward) within
+    1e-4 of autograd through its plain version's on the card."""
+    q, k, v = (t.requires_grad_(True)
+               for t in _flash_inputs(gen, 2, 4096, 25, 5, 64,
+                                      torch.float32))
+    kw = dict(window=1024, n_rep=5)
+    out = ops.flash_fwd(q, k, v, **kw)
+    ct = torch.randn(out.shape, generator=gen, device="cuda")
+    got = torch.autograd.grad(out, (q, k, v), ct)
+    want = torch.autograd.grad(ff.flash_fwd_plain(q, k, v, **kw), (q, k, v),
+                               ct)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)

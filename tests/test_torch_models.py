@@ -134,11 +134,21 @@ def test_ring_fill_wraps_like_jax():
 def test_unported_paths_raise():
     # every family is ported for serving (MoE: tests/test_torch_moe.py,
     # xlstm and hymba: tests/test_torch_recurrent.py, whisper:
-    # tests/test_torch_whisper.py); training a hybrid (attention + SSM)
-    # or an enc-dec stack is not
+    # tests/test_torch_whisper.py) and for training (hymba, xlstm and
+    # whisper: tests/test_torch_train_families.py): a step builds.  What
+    # still raises is mesh-native serving, which waits for the port's
+    # multi-GPU layer, and an enc-dec forward without its frames, as
+    # JAX's asserts
+    from repro_torch.serving.scheduler import ContinuousScheduler
     from repro_torch.train.step import TrainConfig, make_train_step
 
     for arch in ("hymba-1.5b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_train_step(testing.reduced_config(arch), TrainConfig(),
-                            lambda step: step)
+        assert callable(make_train_step(testing.reduced_config(arch),
+                                        TrainConfig(), lambda step: step))
+    cfg = testing.reduced_config("whisper-tiny")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     torch.float32)
+    with pytest.raises(ValueError, match="encoder_frames"):
+        transformer.forward(cfg, params, torch.zeros((1, 4), dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ContinuousScheduler(cfg, params, n_slots=2, context=8, mesh=object())
