@@ -278,6 +278,45 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      enc-dec, as JAX's), 16 x 448 decoder tokens with (16, 1500, 384)
      bf16 frames, two microbatches; no K7 (448 and 1500 lie under
      FLASH_MIN_SEQ); the card against the CPU port in f32 at batch 2.
+ 26. the chip-level runahead (the paper's Fig. 6): 2 and then 4 ranks on
+     the card (launch/mesh.py::spawn_local; gloo over CUDA tensors, since
+     the ranks share one GPU), find_root_runahead_sharded with the
+     paper's f through K1 on each rank's chunk of the 2**k - 1 points, N
+     = 6, k = 2 at terms 10, 100, 1000 and 5000, k = 3 and 4 at 1000:
+     every rank's root equal to the single-device serial root bit for
+     bit, K1 launched 1 + ceil(N/k) times a solve on each rank; ms per
+     solve (the slowest rank), of it in joins, beside the serial and the
+     lane-level runahead solves (this process, graphed), and their
+     ratios (Fig. 6's crossover); the join term (an f32 all-reduce of 4
+     B to 1 MB) on each world, fitted to alpha * log2(ranks) + bytes /
+     link_bw (core/tuning.py's PROFILES["cuda"] join constants).
+ 27. mesh-native continuous serving: qwen3-4b at full width and depth
+     on four ranks sharing the card (each draws the weights from the
+     seed, ~8 GB of bf16, and the checksums agree), phase 9's traffic
+     paged (K6) under the 2x2, 4x1 and 1x4 meshes, and under 2x2 also on
+     the dense ring and at step_horizon 4; the vocab meshes under the
+     tuner's fixed decisions (vocab-sharded solves: K2, K4 and K5 on
+     each rank's shard, one join a round), 4x1 under its "data"
+     placement (K3 on each rank's one row), and one 2x2 serve in the
+     default mode.  Every
+     rank's launches equal what the decisions give for its steps and its
+     own admissions; every rank's streams agree; the 1x4 paged streams
+     equal phase 9's and the horizon-4 streams the per-step ones; the
+     others are counted against phase 9's (a bf16 forward over 2 or 1
+     rows rounds apart from one over 4).  The data splits are held on a
+     screened workload: eight greedy and top-k requests on prompts whose
+     greedy streams keep a top-1/top-2 gap above 1e-2, served in f32
+     under 2x2 (paged and dense) and 4x1 (paged), their streams equal
+     to rank 0's single-rank serve; the witness: one prefill and decode
+     step of 4 rows against the same over 2 and 1 rows, bf16 within
+     VERIFY_REL_TOL of the row's largest |logit|, f32 beside it.  tok/s
+     beside phase 9's warm rate, ms a step and the share of the serve
+     in joins.  The steps run eagerly: a collective does not go into a
+     CUDA graph under gloo.
+     The line's kernels carry the mesh paths ("mesh-runahead": phase 26,
+     K1; "mesh-serve": phase 27, K2-K6), each measured at its shape: the
+     2x2 mesh's vocab shard (2, 75968), 4x1's row, 2 slots of K6, K1 on
+     two points; launches summed over the ranks.
 
 Whole-path profiles record device activity only and read its raw events
 (``_profile_records``): a training step's ~10**5 kernels read back in
@@ -693,7 +732,8 @@ def solver_launches(solves: dict) -> dict:
               f"no decision for {kind} at B={B} (fused {fused}): "
               f"{sorted(table)}")
         d, budget = table[(kind, B, fused)]
-        if fused and d.rounds * d.spec_k == budget:
+        # K3's whole solve needs whole rows: never under a vocab split
+        if fused and d.rounds * d.spec_k == budget and d.placement != "vocab":
             out["runahead_topk_threshold"] += n
             continue
         probe = kind != "count_below" and not (kind == "count_above"
@@ -1775,7 +1815,7 @@ def phase_warm(session):
 
     from repro_torch.launch import serve
 
-    cfg, params, args, sc, gen, dev, _ = session
+    cfg, params, args, sc, gen, dev = session[:6]
     warm_s = serve.run(session).seconds
     state = gen.get_state()
     served = serve.run(session)
@@ -2006,7 +2046,7 @@ def phase_continuous():
                                   session.sampler)[:4])
     say(f"{note} | peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB (phase 9 took {time.perf_counter() - t0:.1f}s)")
-    return launches, streams(served)
+    return launches, streams(served), n_tok / warm.seconds
 
 
 def _screened_prompts(cfg, params, n: int, S: int, n_new: int, gen,
@@ -5107,6 +5147,583 @@ def phase_whisper_train(gen) -> tuple[dict, dict]:
     return r["launches"], {"multi_count": k2}
 
 
+# ---------------------------------------------------------------------------
+# phases 26-27: the mesh, SPMD over torch.distributed ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# phase 26: the Fig. 6 chip-level runahead; N = 6 steps at k = 2 over the
+# term counts, then k = 3 and 4 at 1000 terms; payloads (bytes) of the
+# join term's readings
+MESH_N = 6
+MESH_TERMS = (10, 100, 1000, 5000)
+MESH_CASES = tuple((t, 2) for t in MESH_TERMS) + ((1000, 3), (1000, 4))
+MESH_REPS = 9
+JOIN_PAYLOADS = (4, 256, 16384, 1 << 20)
+# phase 27: the meshes of four ranks on the one card, and the serves each
+# runs: (mesh, paged, step horizon), phase 9's traffic
+MESH_SPECS = ("2x2", "4x1", "1x4")
+MESH_SERVES = tuple((m, True, 1) for m in MESH_SPECS) + (
+    ("2x2", False, 1), ("2x2", True, HORIZON), ("2x2", False, HORIZON))
+
+
+# phase 27's screened workload: the prompt length, each request's new
+# tokens (greedy and top-k 40 in turn, two arriving a step), its context,
+# and the serves, in f32 under tuning.disabled(): (mesh, paged)
+SCREENED_S = 16
+SCREENED_NEW = (6, 4, 8, 5, 7, 3, 6, 4)
+SCREENED_CONTEXT = 32
+SCREENED_SERVES = (("2x2", True), ("2x2", False), ("4x1", True))
+
+
+def _mesh_argv(base: list[str], paged: bool, horizon: int) -> list[str]:
+    """``base`` (phase 9's flags), on the dense ring where not ``paged``,
+    at ``horizon``."""
+    argv = list(base)
+    if not paged:
+        i = argv.index("--page-size")
+        del argv[i:i + 4]                  # --page-size 16 --page-impl hopper
+    return argv + ["--step-horizon", str(horizon)]
+
+
+def _rank_runahead(cases, n: int, reps: int, payloads, cache: str) -> dict:
+    """One rank of phase 26 (every rank of a 1 x world mesh): each case's
+    chip-level root, its K1 launches a solve, its host ms (the median of
+    ``reps``, a device sync at both ends) and the host ms of its joins;
+    then the join term at each payload and the Fig. 6 join itself (an
+    all-gather of one chunk of values)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import find_root_runahead_sharded, find_root_serial
+    from repro_torch.core import tuning
+    from repro_torch.kernels import ops
+    from repro_torch.launch import paper
+    from repro_torch.launch.mesh import Mesh
+
+    tuning.set_cache_path(cache)
+    mesh = Mesh((1, dist.get_world_size()), ("data", "model"))
+    dev = mesh.device
+    a, b = paper.interval(dev)
+    rows = []
+    for terms, k in cases:
+        f = paper.evaluator(terms)
+        serial = find_root_serial(f, a, b, n, "signbit")
+        solve = lambda: find_root_runahead_sharded(f, a, b, n, k, mesh)
+        solve()
+        ops.reset_launches()
+        root = solve()
+        launches = dict(ops.LAUNCHES)
+        mesh.stats.reset()
+        host_ms, _, again = paper._timed(solve, dev, reps)
+        rows.append(dict(
+            terms=terms, k=k, root=root.item(), again=again.item(),
+            serial=serial.item(), launches=launches, ms=host_ms,
+            join_ms=mesh.stats.seconds / (reps + 1) * 1e3,
+            joins=mesh.stats.count / (reps + 1)))
+    joins = {p: tuning.join_term_measured(mesh, "model", p)["seconds"]
+             for p in payloads}
+    chunk = torch.zeros(-(-3 // mesh.axis_size("model")), device=dev)
+    gather_ms = tuning.time_eager(lambda: mesh.all_gather(chunk, "model"),
+                                  dev, reps) * 1e3
+    # the same all-reduce of 4 B on a host tensor: gloo's transport alone
+    host = torch.zeros(1)
+    host_ms = tuning.time_eager(lambda: mesh.all_reduce(host, "model"),
+                                host.device, reps) * 1e3
+    return dict(rows=rows, joins=joins, gather_ms=gather_ms, host_ms=host_ms,
+                device=(torch.cuda.get_device_name(dev)
+                        if dev.type == "cuda" else "cpu"))
+
+
+def phase_mesh_runahead() -> dict:
+    """Phase 26: find_root_runahead_sharded over 2 and 4 ranks sharing
+    the card (gloo over CUDA tensors), K1 on each rank's chunk of the
+    2**k - 1 points: every root equal to this process's single-device
+    serial root, K1 launched 1 + ceil(N/k) times a solve on each rank;
+    ms per solve beside the serial solve's and the lane-level runahead's
+    (graphed, single device) and their ratio (Fig. 6's crossover); the
+    join term at each payload, fitted to alpha * log2(ranks) + bytes /
+    bandwidth.  Returns the K1 launches of one solve of each case, summed
+    over the ranks of both worlds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import find_root_runahead, find_root_serial, tuning
+    from repro_torch.launch import paper
+    from repro_torch.launch.mesh import spawn_local
+
+    free_memory()
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    a, b = paper.interval(dev)
+    single = {}
+    for terms, k in MESH_CASES:
+        f = paper.evaluator(terms)
+        s_ms, _, s_root = paper._timed(
+            lambda: find_root_serial(f, a, b, MESH_N, "signbit"), dev,
+            MESH_REPS)
+        r_ms, _, r_root = paper._timed(
+            lambda: find_root_runahead(f, a, b, MESH_N, k), dev, MESH_REPS)
+        check(torch.equal(s_root, r_root), f"lane-level root differs at "
+                                           f"{(terms, k)}")
+        single[(terms, k)] = (s_ms, r_ms, s_root.item())
+    launches = 0
+    alphas, slopes = [], []
+    for world in (2, 4):
+        outs = spawn_local(_rank_runahead, world, device="cuda",
+                           args=(MESH_CASES, MESH_N, MESH_REPS,
+                                 JOIN_PAYLOADS, tuning.cache_path()))
+        say(f"phase 26 chip-level runahead, {world} ranks on "
+            f"{outs[0]['device']} (gloo over CUDA tensors, one card), N = "
+            f"{MESH_N}: terms, k, rounds, K1 launches a solve a rank, "
+            f"sharded ms (slowest rank), of it in joins, serial ms and "
+            f"lane-level runahead ms (one process, graphed), serial / "
+            f"sharded, lane-level / sharded")
+        for i, (terms, k) in enumerate(MESH_CASES):
+            s_ms, r_ms, s_root = single[(terms, k)]
+            rounds = -(-MESH_N // k)
+            for rank, out in enumerate(outs):
+                r = out["rows"][i]
+                check(r["root"] == s_root and r["again"] == s_root
+                      and r["serial"] == s_root,
+                      f"rank {rank} of {world}: chip-level root "
+                      f"{r['root']!r} differs from the serial root "
+                      f"{s_root!r} at terms {terms}, k {k}")
+                check(r["launches"]["taylor_sincos_eval"] == 1 + rounds
+                      and sum(r["launches"].values()) == 1 + rounds,
+                      f"rank {rank}: a solve launched {r['launches']}, not "
+                      f"K1 {1 + rounds} times")
+                launches += r["launches"]["taylor_sincos_eval"]
+            slow = max(outs, key=lambda out: out["rows"][i]["ms"])
+            ms, join_ms = slow["rows"][i]["ms"], slow["rows"][i]["join_ms"]
+            say(f"  {terms:5d} {k} {rounds} {1 + rounds} {ms:9.4f} "
+                f"{join_ms:8.4f} ({outs[0]['rows'][i]['joins']:.0f} joins) "
+                f"{s_ms:8.4f} {r_ms:8.4f} {s_ms / ms:6.3f}x "
+                f"{r_ms / ms:6.3f}x")
+        joins = {p: max(out["joins"][p] for out in outs)
+                 for p in JOIN_PAYLOADS}
+        lo, hi = min(JOIN_PAYLOADS), max(JOIN_PAYLOADS)
+        alphas.append(joins[lo] / np.log2(world))
+        slopes.append((joins[hi] - joins[lo]) / (hi - lo))
+        say(f"phase 26 join term, {world} ranks (gloo over CUDA tensors, "
+            f"one card; an f32 all-reduce, the median of 9, slowest rank): "
+            + ", ".join(f"{p} B {sec * 1e3:.4f} ms"
+                        for p, sec in joins.items())
+            + f" | the Fig. 6 join (all-gather of one chunk) "
+              f"{max(out['gather_ms'] for out in outs):.4f} ms | 4 B on "
+              f"host tensors (gloo's transport alone) "
+              f"{max(out['host_ms'] for out in outs):.4f} ms")
+    # alpha * log2(ranks) from the smallest payload, bytes / link_bw from
+    # the slope to the largest; the median over the worlds (a joint least-
+    # squares fit goes negative on the readings' spread)
+    alpha = float(np.median(alphas))
+    link_bw = 1.0 / max(float(np.median(slopes)), 1e-12)
+    say(f"phase 26 join fit (gloo over CUDA tensors on one card, NCCL "
+        f"across GPUs not measured): join_alpha {alpha * 1e6:.2f} us per "
+        f"log2(ranks), link_bw {link_bw:.4g} B/s "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return {"taylor_sincos_eval": launches}
+
+
+def _rank_serve(base: list[str], plan, cache: str) -> list:
+    """One rank of phase 27: qwen3-4b's weights drawn from the seed on
+    this rank (its checksum held against every rank's), then each serve
+    of ``plan`` (mesh, paged, horizon, mode) with phase 9's traffic:
+    streams, counters, launches held against the tuner's decisions (K2,
+    K4 and K5 on the local shards, K3 where the rows are whole, K6 36
+    times a decode step on the paged pool), joins.  Rank 0's serve of
+    the first mesh is also timed per step."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import tuning
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import parse_mesh
+
+    rank = dist.get_rank()
+    tuning.set_cache_path(cache)
+    session = serve.setup(base)
+    torch.cuda.empty_cache()           # the weights' draw leaves blocks
+    meshes = {}
+    out = []
+    for spec, paged, horizon, mode in plan:
+        if spec not in meshes:
+            meshes[spec] = parse_mesh(spec)
+            serve.check_same_weights(meshes[spec], session.params)
+        mesh = meshes[spec]
+        s = session._replace(mesh=mesh, args=serve.parse_args(
+            _mesh_argv(base, paged, horizon)))
+        server = serve.server_for(s)
+        serve.sync(session.device)
+        ops.reset_launches()
+        forget_decisions()
+        mesh.stats.reset()
+        ctx = tuning.disabled() if mode == "fixed" else (
+            contextlib.nullcontext())
+        with ctx:
+            served = serve.run_continuous(s, server)
+        launches = dict(ops.LAUNCHES)
+        sched, c = served.scheduler, served.counts
+        steps = c["decode_steps"]
+        want = solver_launches(sampler_solves(
+            {PATH_B: steps, 1: sched.n_prefills}))
+        got = {name: launches[name] for name in SOLVER_KERNELS}
+        on_card = session.device.type == "cuda"  # the CPU runs plain ones
+        check(got == want or not on_card,
+              f"rank {rank} {spec} paged={paged} h={horizon} {mode}: K2-K5 "
+              f"launches {got}, where the decisions ({decisions_note()}) "
+              f"give {want}")
+        if paged and on_card:
+            check(launches["paged_attend"] == session.cfg.n_layers * steps,
+                  f"rank {rank}: K6 launched {launches['paged_attend']} "
+                  f"times for {steps} steps")
+        out.append(dict(
+            spec=spec, paged=paged, horizon=horizon, mode=mode,
+            streams=streams(served), seconds=served.seconds, steps=steps,
+            tokens=sum(len(x.tokens) for x in served.completions),
+            prefills=sched.n_prefills, local=sched.n_local,
+            launches=launches, join_s=mesh.stats.seconds,
+            joins=mesh.stats.count,
+            decisions=sorted({f"{k.split('|')[0]} B={k.split('|')[1][2:]}: "
+                              f"{d.placement} k{d.spec_k}x{d.rounds}"
+                              for k, d in tuning.explain()})))
+    return dict(plan=out, screened=_rank_screened(session, meshes))
+
+
+def _rows_witness(cfg, params, prompts) -> dict:
+    """One prefill and one decode step of ``prompts``' first 4 rows
+    against the same forward over their first 2 and 1 rows (the rows of
+    a 2x2 and a 4x1 mesh's data group), in bf16 (phase 9's serve) and in
+    f32: for each dtype and row count, the largest |diff| of a shared
+    row over that row's largest |logit|, and the rows whose greedy token
+    differs."""
+    import torch
+
+    from repro_torch.models.decode import decode_step, prefill
+
+    tokens = torch.tensor(prompts[:4], device="cuda")
+    S = tokens.shape[1]
+    out = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        full = None
+        for n in (4, 2, 1):
+            lg0, cache = prefill(cfg, params, tokens[:n], S + 1,
+                                 compute_dtype=dt)
+            nxt = (lg0 if full is None else full[0][:n]).argmax(-1)
+            lg1, _ = decode_step(cfg, params, nxt, S, cache,
+                                 compute_dtype=dt)
+            if full is None:
+                full = (lg0, lg1)
+                continue
+            rel, flips = 0.0, 0
+            for got, want in zip((lg0, lg1), full):
+                want = want[:n]
+                rel = max(rel, ((got - want).abs().amax(-1)
+                                / want.abs().amax(-1)).max().item())
+                flips += int((got.argmax(-1) != want.argmax(-1)).sum())
+            out[(name, n)] = (rel, flips)
+    return out
+
+
+def _rank_screened(session, meshes: dict) -> dict:
+    """Phase 27's screened serves on one rank: eight requests (greedy
+    and top-k 40 in turn) on prompts whose greedy f32 streams keep a
+    top-1 / top-2 gap above 1e-2 (``_screened_prompts``, drawn on rank 0
+    and broadcast), served in f32 (forward and cache) under
+    ``tuning.disabled()`` (vocab-sharded solves under 2x2, "data" under
+    4x1) by each mesh of ``SCREENED_SERVES``.  Rank 0 also serves them
+    on its own, paged and dense (the reference), and reads
+    ``_rows_witness``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import tuning
+    from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.serving.server import Request, RunaheadServer
+
+    cfg, params = session.cfg, session.params
+    world = meshes[SCREENED_SERVES[0][0]]
+    prompts = None
+    if world.rank == 0:
+        g = torch.Generator(device=session.device).manual_seed(27)
+        prompts = _screened_prompts(cfg, params, len(SCREENED_NEW),
+                                    SCREENED_S, max(SCREENED_NEW), g)
+    prompts = world.broadcast_object(prompts, world.axis_names, 0)
+    reqs = [Request(i, p, n, seed=i, arrival=i // 2,
+                    sampler=SamplerConfig(backend="hopper",
+                                          greedy=i % 2 == 0, top_k=40))
+            for i, (p, n) in enumerate(zip(prompts, SCREENED_NEW))]
+
+    def serve(mesh, paged: bool) -> dict:
+        pages = dict(page_size=16, page_impl="hopper") if paged else {}
+        srv = RunaheadServer(cfg, params, n_slots=4,
+                             context=SCREENED_CONTEXT, mesh=mesh,
+                             backend="hopper", cache_dtype=torch.float32,
+                             compute_dtype=torch.float32, **pages)
+        with tuning.disabled():
+            done = srv.run([dataclasses.replace(r) for r in reqs])
+        return {c.rid: c.tokens for c in done}
+
+    out = {"meshed": {(spec, paged): serve(meshes[spec], paged)
+                      for spec, paged in SCREENED_SERVES}}
+    if world.rank == 0:
+        out["single"] = {paged: serve(None, paged) for paged in (True, False)}
+        out["witness"] = _rows_witness(cfg, params, prompts)
+    return out
+
+
+def phase_mesh_serve(per_step_streams: dict, single_tok_s: float) -> dict:
+    """Phase 27: phase 9's serve of qwen3-4b at full width and depth on
+    four ranks sharing the card (about 8 GB of bf16 weights each): paged
+    (K6) under the 2x2, 4x1 and 1x4 meshes, and 2x2 on the dense ring and
+    at horizon 4.  The vocab meshes' serves run the tuner's fixed
+    decisions (vocab-sharded solves: K2, K4, K5 on the local shards), 4x1
+    its "data" placement (K3 on each rank's one row); one more 2x2 serve
+    in the default mode.  The streams: 1x4 paged == phase 9's (the same
+    rows in each forward); horizon 4 == per step; the others counted
+    against phase 9's (a forward over 2 or 1 rows rounds apart from one
+    over 4 in bf16; ``_rank_screened`` holds the data splits in f32 on
+    screened prompts).  tok/s beside phase 9's warm figure, and the share
+    of the serve spent in joins.  Returns the launches of the drive,
+    summed over ranks."""
+    import torch
+
+    from repro_torch.core import tuning
+    from repro_torch.launch.mesh import spawn_local
+
+    free_memory()
+    say(f"phase 27: this process holds "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB of the card before "
+        f"the ranks start")
+    t0 = time.perf_counter()
+    plan = [(spec, paged, horizon, "fixed")
+            for spec, paged, horizon in MESH_SERVES]
+    plan.append(("2x2", True, 1, "default"))
+    outs = spawn_local(_rank_serve, 4, device="cuda",
+                       args=(CONT_ARGV, plan, tuning.cache_path()))
+    launches = {}
+    for out in outs:
+        for r in out["plan"]:
+            for name, n in r["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+    by = {}
+    for i, (spec, paged, horizon, mode) in enumerate(plan):
+        rs = [out["plan"][i] for out in outs]
+        for r in rs[1:]:
+            check(r["streams"] == rs[0]["streams"],
+                  f"{spec}: the ranks' streams differ")
+        r = rs[0]
+        by[(spec, paged, horizon, mode)] = r
+        same = sum(r["streams"][rid] == toks
+                   for rid, toks in per_step_streams.items())
+        wall = max(x["seconds"] for x in rs)
+        share = max(x["join_s"] for x in rs) / wall
+        say(f"phase 27 mesh {spec} {'paged' if paged else 'dense'} "
+            f"h={horizon} [{mode}]: {r['tokens']} tokens in {wall:.3f}s = "
+            f"{r['tokens'] / wall:.1f} tok/s (phase 9 single rank, graphed "
+            f"warm: {single_tok_s:.1f}) | {r['steps']} steps, "
+            f"{wall / r['steps'] * 1e3:.1f} ms a step, joins "
+            f"{share:.3f} of the serve ({max(x['joins'] for x in rs)} "
+            f"collectives a rank) | {r['local']} slots a rank, prefills "
+            f"by rank {[x['prefills'] for x in rs]} | streams equal to phase "
+            f"9's: {same} of {len(per_step_streams)} | decisions: "
+            f"{'; '.join(r['decisions'])}")
+    check(by[("1x4", True, 1, "fixed")]["streams"] == per_step_streams,
+          "the 1x4 mesh's paged streams differ from phase 9's")
+    for spec, paged, horizon, mode in plan:
+        if horizon > 1:
+            check(by[(spec, paged, horizon, mode)]["streams"]
+                  == by[(spec, paged, 1, mode)]["streams"],
+                  f"{spec} paged={paged}: horizon {horizon} streams differ "
+                  f"from per-step")
+    check(by[("4x1", True, 1, "fixed")]["launches"][
+        "runahead_topk_threshold"] > 0, "K3 did not run under 4x1's data "
+                                        "placement")
+    screened = outs[0]["screened"]
+    for spec, paged in SCREENED_SERVES:
+        got = screened["meshed"][(spec, paged)]
+        for rank, out in enumerate(outs):
+            check(out["screened"]["meshed"][(spec, paged)] == got,
+                  f"screened {spec}: rank {rank}'s streams differ")
+        check(got == screened["single"][paged],
+              f"screened f32 serve under {spec} "
+              f"{'paged' if paged else 'dense'}: streams {got} differ from "
+              f"the single-rank serve's {screened['single'][paged]}")
+    n_tok = sum(len(t) for t in screened["single"][True].values())
+    say(f"phase 27 screened: {len(SCREENED_NEW)} requests (greedy and "
+        f"top-k 40 in turn, {n_tok} tokens) on prompts screened for a "
+        f"top-1/top-2 gap > 1e-2, f32 forward and cache, "
+        f"tuning.disabled(): streams under "
+        f"{', '.join(f'{m} ' + ('paged' if p else 'dense') for m, p in SCREENED_SERVES)}"
+        f" == the single-rank serve's, on every rank")
+    w = screened["witness"]
+    say("phase 27 row-count witness (qwen3-4b full width, one prefill + "
+        "one decode step of 4 rows vs the same forward over the first 2 "
+        "and 1 rows; max |diff| / the row's max |logit|, greedy flips): "
+        + "; ".join(f"{dt} {n} rows {w[(dt, n)][0]:.3g} "
+                    f"({w[(dt, n)][1]} flips)"
+                    for dt in ("bf16", "f32") for n in (2, 1)))
+    for n in (2, 1):
+        check(w[("bf16", n)][0] <= VERIFY_REL_TOL,
+              f"a bf16 forward over {n} rows lies {w[('bf16', n)][0]:.3g} "
+              f"of the row's largest |logit| from the 4-row forward")
+    say(f"phase 27: every rank's streams agree; 1x4 paged == phase 9's; "
+        f"horizon 4 == per step; screened 2x2 and 4x1 == single rank | "
+        f"launches (all ranks) {launches} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return launches
+
+
+# the file of each kernel's port and of the TPU kernel it replaces
+KERNEL_FILES = {
+    "multi_count": ("multi_count.cu", "multi_count.py:69"),
+    "runahead_topk_threshold": ("runahead_threshold.cu",
+                                "runahead_threshold.py:123"),
+    "multi_mass": ("multi_mass.cu", "multi_mass.py:65"),
+    "multi_entropy_moments": ("multi_entropy.cu", "multi_entropy.py:84"),
+    "taylor_sincos_eval": ("taylor_eval.cu", "taylor_eval.py:61"),
+    "paged_attend": ("paged_attend.cu", "paged_attend.py:131"),
+}
+
+
+def _shard_row(name: str, run, plain, exact: bool, bound, note: str,
+               library=None, library_name: str = "none",
+               plain_calls: int = 5, tol: dict = TOL) -> dict:
+    """A kernel at a mesh path's shape: its output against its plain
+    version (bit for bit where ``exact``, else within ``tol``, compared
+    in f32), bit-stable run to run, timed (graph replay, eager call,
+    plain, library)."""
+    import torch
+
+    outs = [o if isinstance(o, tuple) else (o,)
+            for o in (run(), run(), plain())]
+    err = 0.0
+    for g, a, w in zip(*outs):
+        check(torch.equal(g, a), f"{name} not bit-stable at {note}")
+        ok = (torch.equal(g, w) if exact
+              else torch.allclose(g.float(), w.float(), **tol))
+        check(ok, f"{name} differs from its plain version at {note}")
+        err = max(err, (g.float() - w.float()).abs().max().item())
+    src, ref = KERNEL_FILES[name]
+    return dict(source=f"src/repro_torch/kernels/csrc/{src}",
+                replaces=f"src/repro/kernels/{ref}", max_abs_err=err,
+                ms=device_ms(run), call_ms=call_ms(run),
+                plain_ms=device_ms(plain, calls=plain_calls),
+                bound=bound,
+                library_ms=device_ms(library) if library else None,
+                library=library_name, note=note)
+
+
+def _mesh_rows(gen) -> dict:
+    """The kernels at the mesh paths' shapes, each against its plain
+    version: K2, K4, K5 on the 2x2 mesh's vocab shard (B = 2 slots a
+    rank, V / 2 = 75968 columns, M = 31); K3 on the 4x1 mesh's one row a
+    rank (1, 151936; "data"); K6 on 2 slots a rank (the 2x2 paged pool);
+    K1 on phase 26's chunk at k = 2 over 2 ranks (2 points, 1000 terms).
+    Returns {path: {kernel: row}}."""
+    import torch
+
+    from repro_torch.kernels import multi_count as mc
+    from repro_torch.kernels import multi_entropy as me
+    from repro_torch.kernels import multi_mass as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attend as pa
+    from repro_torch.kernels import runahead_threshold as rt
+    from repro_torch.kernels import taylor_eval as te
+
+    B, V, M = 2, PATH_V // 2, PATH_M
+    x = torch.randn((B, V), generator=gen, device="cuda") * 2.0
+    lo, hi = x.amin(-1, keepdim=True), x.amax(-1, keepdim=True)
+    taus = lo + (hi - lo) * torch.rand((B, M), generator=gen, device="cuda")
+    shard = f"({B}, {V}) x M={M}, the 2x2 mesh's vocab shard"
+    rows = {"multi_count": _shard_row(
+        "multi_count", lambda: ops.multi_count(x, taus),
+        lambda: mc.multi_count_plain(x, taus), True,
+        bound_ms(4 * (x.numel() + 2 * taus.numel()), 2 * x.numel() * M),
+        shard)}
+    p = torch.softmax(x, dim=-1)
+    pt = p.amin(-1, keepdim=True) + (p.amax(-1, keepdim=True) - p.amin(
+        -1, keepdim=True)) * torch.rand((B, M), generator=gen, device="cuda")
+    rows["multi_mass"] = _shard_row(
+        "multi_mass", lambda: ops.multi_mass(p, pt),
+        lambda: mm.multi_mass_plain(p, pt), False,
+        bound_ms(4 * (p.numel() + 2 * pt.numel()), 3 * p.numel() * M),
+        shard)
+    z = x - x.amax(-1, keepdim=True)
+    ts = torch.exp(torch.empty((B, M), device="cuda").uniform_(
+        -3.0, 3.0, generator=gen))
+    pairs = z.numel() * M
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_ms = pairs / (sms * SFU_PER_CLOCK * max_sm_clock_hz()) * 1e3
+    rows["multi_entropy_moments"] = _shard_row(
+        "multi_entropy_moments", lambda: ops.multi_entropy_moments(z, ts),
+        lambda: me.multi_entropy_moments_plain(z, ts), False,
+        max((sfu_ms, "operations"),
+            bound_ms(4 * (z.numel() + 3 * ts.numel()), 4 * pairs)), shard)
+    x1 = torch.randn((1, PATH_V), generator=gen, device="cuda") * 2.0
+    kw = dict(k_target=40, rounds=8, spec_k=5)
+    n_cmp = 2 + 1 + kw["rounds"] * kw["spec_k"]
+    rows["runahead_topk_threshold"] = _shard_row(
+        "runahead_topk_threshold",
+        lambda: ops.runahead_topk_threshold(x1, **kw),
+        lambda: rt.runahead_topk_threshold_plain(x1, **kw), True,
+        bound_ms(4 * (x1.numel() + 2), 2 * x1.numel() * n_cmp),
+        f"(1, {PATH_V}), the 4x1 mesh's row a rank (\"data\")",
+        library=lambda: torch.topk(x1, 40, dim=-1),
+        library_name="torch.topk", plain_calls=2)
+    sh = dict(K6_PATH, B=2, pos=K6_PATH["pos"][:2])
+    args = _k6_inputs(gen, sh, torch.bfloat16)
+    C, P = sh["C"], sh["P"]
+    pages = sum(min(args[2].shape[1], -(-(q + 1) // P)) for q in sh["pos"])
+    n_bytes = 2 * args[4].numel() * 2 + pages * P * sh["nkv"] * sh["hd"] * 4
+    n_ops = 4 * sh["nq"] * sh["hd"] * sum(min(C, q + 1) for q in sh["pos"])
+    rows["paged_attend"] = dict(_shard_row(
+        "paged_attend", lambda: ops.paged_attend(*args, context=C),
+        lambda: pa.paged_attend_plain(*args, context=C), False,
+        bound_ms(n_bytes, n_ops),
+        "B=2 slots a rank (the 2x2 paged pool), bf16 within 1e-2 (phase "
+        "3's bf16 tolerance)", plain_calls=2,
+        tol=dict(rtol=1e-2, atol=1e-2)))
+    pts = torch.rand((2,), generator=gen, device="cuda") + 1.0
+    steps = 2 * (1000 - 1)
+    lat_ms = steps * K1_CHAIN_DEPTH * FMA_LATENCY / max_sm_clock_hz() * 1e3
+    k1 = _shard_row(
+        "taylor_sincos_eval",
+        lambda: ops.taylor_sincos_eval(pts, terms=1000),
+        lambda: te.taylor_sincos_plain(pts, terms=1000), True,
+        bound_ms(8 * pts.numel(), 5 * steps * pts.numel()),
+        "2 points, 1000 terms: phase 26's chunk at k = 2 on 2 ranks",
+        plain_calls=1)
+    k1["latency_bound"] = (lat_ms, "latency")
+    for name, r in list(rows.items()) + [("taylor_sincos_eval", k1)]:
+        say_row(f"phase 27 {name} (mesh shape)", r)
+    return {"mesh-serve": rows, "mesh-runahead": {"taylor_sincos_eval": k1}}
+
+
+def _path_kernels(path_rows: dict, launches_by_path: dict) -> list:
+    """The JSON line's entries of ``path_rows`` ({path: {kernel: row}}),
+    each with its launch count on its path."""
+    kernels = []
+    for path, by_name in path_rows.items():
+        for name, r in by_name.items():
+            launches = launches_by_path[path][name]
+            check(launches > 0, f"{name} was not launched on its path {path}")
+            kernels.append(dict(
+                name=name, route="cuda", source=r["source"],
+                replaces=r["replaces"], path=path, launches=launches,
+                launches_counted="eager launches and, per graph replay, the "
+                                 "launches its capture recorded",
+                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                bound_by=r["bound"][1], library_ms=r["library_ms"]))
+            if "latency_bound" in r:
+                kernels[-1]["latency_bound_ms"] = r["latency_bound"][0]
+    return kernels
+
+
 def main() -> int:
     import torch
 
@@ -5143,7 +5760,8 @@ def main() -> int:
         del session
         launches_by_path = {"solves": solve_launches, "serve": serve_launches,
                             "paper": phase_paper()}
-        launches_by_path["continuous"], per_step_streams = phase_continuous()
+        (launches_by_path["continuous"], per_step_streams,
+         single_tok_s) = phase_continuous()
         phase_continuous_reference(gen)
         launches_by_path["train"] = phase_train()
         phase_fault(Path(d) / "none.json")
@@ -5173,6 +5791,11 @@ def main() -> int:
                             ("xlstm-train", phase_xlstm_train),
                             ("whisper-train", phase_whisper_train)):
             launches_by_path[path], path_rows[path] = phase(gen)
+        with tuning.disabled():
+            path_rows.update(_mesh_rows(gen))
+        launches_by_path["mesh-runahead"] = phase_mesh_runahead()
+        launches_by_path["mesh-serve"] = phase_mesh_serve(per_step_streams,
+                                                          single_tok_s)
 
     # the path whose run each kernel's launch count is read on: K2 runs
     # where the served requests' top_k differ (phase 13)
@@ -5219,18 +5842,7 @@ def main() -> int:
                                        "multi_mass", "multi_entropy_moments")})
     path_rows["hymba-train"]["flash_fwd"] = (
         path_rows["hymba-prefill"]["flash_fwd"])
-    for path, by_name in path_rows.items():
-        for name, r in by_name.items():
-            launches = launches_by_path[path][name]
-            check(launches > 0, f"{name} was not launched on its path {path}")
-            kernels.append(dict(
-                name=name, route="cuda", source=r["source"],
-                replaces=r["replaces"], path=path, launches=launches,
-                launches_counted="eager launches and, per graph replay, the "
-                                 "launches its capture recorded",
-                max_abs_err=r["max_abs_err"], ms=r["ms"],
-                plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-                bound_by=r["bound"][1], library_ms=r["library_ms"]))
+    kernels += _path_kernels(path_rows, launches_by_path)
     say(f"total {time.perf_counter() - t0:.1f}s")
     say(smi)
     say(json.dumps({"kernels": kernels}))

@@ -4,15 +4,13 @@ of ``repro.core``).
 Public API, as the JAX package's:
   find_root_serial            Algorithm 1 baseline (paper §III.B)
   find_root_runahead          lane-level runahead bisection (paper §IV)
+  find_root_runahead_sharded  chip-level (mesh axis) runahead bisection
   runahead_solve              generic scalar interval solve (B=1 engine view)
   solver                      the batched runahead solve engine + backends
   applications                LM-stack monotone solves built on the engine
   tuning                      the solver and kernel tuner (analytic and
                               measured tiers)
-
-Not ported yet, and so not exported: the mesh half of the engine
-(``MeshPolicy``, ``mesh_policy``) and the chip-level sharded solve
-(``find_root_runahead_sharded``).
+  MeshPolicy, mesh_policy     the engine's SPMD form over a mesh of ranks
 """
 from repro_torch.core.bisect import (
     find_root_serial,
@@ -25,6 +23,7 @@ from repro_torch.core.runahead import (
     runahead_solve,
     serial_equivalent_iterations,
 )
+from repro_torch.core.sharded import find_root_runahead_sharded
 from repro_torch.core.paper_functions import (
     make_paper_f,
     taylor_sin,
@@ -34,9 +33,11 @@ from repro_torch.core.paper_functions import (
     PAPER_EPS_CPU,
 )
 from repro_torch.core import applications, solver, tuning
-from repro_torch.core.solver import MonotoneProblem
+from repro_torch.core.solver import MeshPolicy, MonotoneProblem, mesh_policy
 
 __all__ = [
+    "MeshPolicy",
+    "mesh_policy",
     "tuning",
     "MonotoneProblem",
     "solver",
@@ -47,6 +48,7 @@ __all__ = [
     "find_root_runahead_batched",
     "runahead_solve",
     "serial_equivalent_iterations",
+    "find_root_runahead_sharded",
     "make_paper_f",
     "taylor_sin",
     "taylor_cos",

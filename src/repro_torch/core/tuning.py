@@ -38,12 +38,20 @@ that CPU decisions equal JAX's.  ``PROFILES["cuda"]`` is the H100's, with
 each constant measured by ``chip_smoke.py`` phase 18 (its note gives the
 card and the run).
 
-Not ported: placements other than ``"single"`` (the mesh half of the
-engine) and ``join_term_from_hlo``, which prices a collective from XLA's
-HLO.  Unlike the JAX package, the port never swallows a failure in the
-measured tier: candidates are filtered for legality before they are
-timed, and a legal candidate that fails raises.  A measurement callback
-that reports NaN for a candidate still drops it, as in JAX.
+Placements, under a mesh policy (``core/solver.py``): ``"single"``,
+``"data"`` (rows over the data axes) and ``"vocab"`` (the reduction dim
+over the vocab axis as well, one join a round), priced with the
+(vocab_ways, data_ways) model of ``predict_cost``.  Where the JAX package
+prices a sharded candidate's join from XLA's HLO (``join_term_from_hlo``),
+the port times the collective itself on the live group
+(:func:`join_term_measured`), and the measured tier times sharded
+candidates on every rank of the group together (``core/solver.py``
+decides on the group's first rank and broadcasts, so every rank takes
+the same decision).  Unlike the JAX package, the port never swallows a
+failure in the measured tier: candidates are filtered for legality
+before they are timed, and a legal candidate that fails raises.  A
+measurement callback that reports NaN for a candidate still drops it, as
+in JAX.
 
 Forcing and clearing decisions:
 
@@ -89,7 +97,7 @@ AUTOTUNE_ENV = "REPRO_AUTOTUNE"
 DEFAULT_CACHE = (Path(__file__).resolve().parents[3] / "build"
                  / "repro_torch" / "solver_tuning.json")
 
-PLACEMENTS = ("single",)
+PLACEMENTS = ("single", "data", "vocab")
 
 # Fixed host and sync cost of one decode step in units of one step's
 # device time, as the JAX constant is; the JAX package's 4.3 was
@@ -280,8 +288,15 @@ PROFILES: dict[str, HardwareProfile] = {
     # solve at the budget's divisors.  The "torch" oracle is never a
     # candidate on the card, and its cost there is not measured: a caller
     # that pins it gets its compare grid's spill (1.0, as on the CPU).
+    # The join (the vocab placement's all-reduce a round) is phase 26's
+    # fit of alpha * log2(ranks) + bytes / link_bw to f32 all-reduces of
+    # 4 B to 1 MB over 2 and 4 ranks sharing one card through gloo over
+    # CUDA tensors (each staged through the host), on an NVIDIA H100 80GB
+    # HBM3 at a 700 W power limit (PERF.md, PR 25).  NCCL between GPUs is
+    # not measured: these price the one-card mesh, where a join's
+    # milliseconds keep every solve off the vocab placement.
     "cuda": HardwareProfile(
-        flops=67e12, mem_bw=3.35e12, join_alpha=0.0, link_bw=1.0,
+        flops=67e12, mem_bw=3.35e12, join_alpha=2050.25e-6, link_bw=1.828e8,
         dispatch=14.00e-6, broadcast_spill=0.0,
         backend_overhead={"hopper": 6.00e-6},
         vmem_bytes=227 * 1024,
@@ -329,7 +344,8 @@ def predict_cost(
     bloc = -(-key.batch // dw)
     vloc = -(-key.vocab // vw)
     fused = profile.fused.get(decision.backend)
-    if (key.fused and fused is not None
+    # K3's whole solve needs whole rows: never under a vocab split
+    if (key.fused and fused is not None and vw == 1
             and decision.rounds * decision.spec_k == key.iterations):
         # the whole solve in one launch: a fixed cost, and a cost a round
         # that grows with the 2**spec_k bins its CTAs count and exchange
@@ -686,6 +702,47 @@ def time_call(fn: Callable[[], object], device: torch.device,
         return statistics.median(times)
 
 
+def time_eager(fn: Callable[[], object], device: torch.device,
+               reps: int = 5) -> float:
+    """Seconds of one eager ``fn()`` call, a device sync at both ends: a
+    warm-up call, then the median of ``reps``.  For calls that issue
+    collectives, which a CUDA graph cannot hold under gloo."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def join_term_measured(mesh, axis, payload_bytes: int, reps: int = 9
+                       ) -> dict:
+    """The join of a sharded solve round, timed on the live group: one
+    f32 all-reduce of ``payload_bytes`` over ``axis``'s group, the
+    median of ``reps`` after a warm-up, the group's slowest rank (every
+    rank of the group must call).  The port's counterpart of JAX's
+    ``join_term_from_hlo``, which reads the joins out of compiled HLO and
+    prices them with the profile.  Leaves ``mesh.stats`` as it found it."""
+    stats = dataclasses.replace(mesh.stats)
+    n = max(1, int(payload_bytes) // 4)
+    t = torch.zeros(n, dtype=torch.float32, device=mesh.device)
+    seconds = time_eager(lambda: mesh.all_reduce(t, axis), mesh.device,
+                         reps)
+    seconds = float(mesh.all_reduce(
+        torch.tensor([seconds], dtype=torch.float64, device=mesh.device),
+        axis, "max").item())
+    mesh.stats = stats
+    return {"count": 1, "bytes": 4 * n, "seconds": seconds,
+            "ranks": mesh.axis_size(axis)}
+
+
 # ---------------------------------------------------------------------------
 # state: thread-local modes + the persistent cache
 # ---------------------------------------------------------------------------
@@ -760,6 +817,16 @@ def _active_override() -> dict | None:
     return st[-1] if st else None
 
 
+def mode_key(tune: bool | None = None) -> tuple:
+    """What a decision depends on besides its key and the caller's sets:
+    the modes in force and the store's generation (bumped when the cache
+    is cleared or moved)."""
+    ov = _active_override()
+    return (_is_disabled(), _autotune_active(tune),
+            None if ov is None else tuple(sorted(ov.items())),
+            _TUNER.generation)
+
+
 def _finite_positive(t) -> bool:
     return t == t and t > 0           # drops NaN (a dropped candidate)
 
@@ -775,6 +842,7 @@ class Tuner:
         self._loaded = False
         self.recent: dict[str, Decision] = {}   # last decisions, for logs
         self.recent_kernels: dict[str, KernelDecision] = {}
+        self.generation = 0                     # bumped on clear / move
 
     # -- persistence --------------------------------------------------------
 
@@ -785,6 +853,7 @@ class Tuner:
 
     def set_cache_path(self, path: str | None):
         with self._lock:
+            self.generation += 1
             self._path = path
             self._entries = {}
             self._kernels = {}
@@ -827,6 +896,7 @@ class Tuner:
         """Drop every winner, in memory and on disk.  A CUDA graph
         captured before keeps the decisions it was captured with."""
         with self._lock:
+            self.generation += 1
             self._entries = {}
             self._kernels = {}
             self._loaded = True
@@ -870,10 +940,15 @@ class Tuner:
                 fields["rounds"] = -(-key.iterations // fields["spec_k"])
             decision = dataclasses.replace(
                 decision, source="override", **fields)
+        self.remember(key, decision)
+        return decision
+
+    def remember(self, key: ConfigKey, decision: Decision) -> None:
+        """Record a decision for ``explain`` (also one another rank of a
+        mesh group took and broadcast)."""
         self.recent[key.cache_key()] = decision
         if len(self.recent) > 256:
             self.recent.pop(next(iter(self.recent)))
-        return decision
 
     def _decide_inner(self, key, options, backends, fixed, measure, tune):
         with self._lock:
@@ -899,9 +974,14 @@ class Tuner:
 
         if measure is not None and _autotune_active(tune):
             cand = [d for _, d in ranked[:3]]
-            if fixed.placement in options and fixed.backend in backends \
-                    and fixed not in cand:
-                cand.append(fixed)
+            for extra in (
+                # never-worse-than-single-device baseline + the fixed one
+                dataclasses.replace(fixed, placement="single"),
+                fixed,
+            ):
+                if extra.placement in options and extra.backend in backends \
+                        and extra not in cand:
+                    cand.append(extra)
             reports = list(measure(cand))
             if len(reports) != len(cand):
                 raise RuntimeError(f"measured {len(reports)} reports for "
@@ -911,14 +991,19 @@ class Tuner:
             if pairs:
                 _, d_best = min(pairs, key=lambda p: p[0])
                 d_best = dataclasses.replace(d_best, source="measured")
+                def label(d):
+                    return f"{d.placement}/{d.backend}/k{d.spec_k}"
+
                 entry = {
                     "decision": d_best.to_json(),
-                    "measured_us": {
-                        f"{d.placement}/{d.backend}/k{d.spec_k}":
-                            round(r["seconds"] * 1e6, 1)
-                        for r, d in zip(reports, cand)
-                    },
+                    "measured_us": {label(d): round(r["seconds"] * 1e6, 1)
+                                    for r, d in zip(reports, cand)},
                 }
+                joins = {label(d): r["join"] for r, d in zip(reports, cand)
+                         if r.get("join")}
+                if joins:
+                    # sharded candidates' join, timed on the live group
+                    entry["join_measured"] = joins
                 with self._lock:
                     self._entries[key.cache_key()] = entry
                     self._save_locked()

@@ -52,7 +52,21 @@ kept in the port's cache (``REPRO_TORCH_TUNING_CACHE``, by default
 solve decompositions, and kernel geometries that change K4, K5 and K6's
 output bits within their tolerances); ``REPRO_DISABLE_TUNING=1`` pins the
 fixed decomposition and today's geometries.
-Weights are random, drawn from ``--seed``.  Meshes are not ported yet.
+Weights are random, drawn from ``--seed``.
+
+``--mesh DxM`` (with ``--continuous``, as in JAX) serves SPMD over a
+``data x model`` mesh of ranks: D-way slot data parallelism, M-way
+vocab-sharded sampler solves (``serving/scheduler.py``).  Outside
+``torchrun`` the launcher starts the D*M ranks itself
+(``launch/mesh.py::spawn_local``): on the card they share its GPUs (gloo
+over CUDA tensors when there are fewer GPUs than ranks, NCCL when each
+has its own); ``--host-devices N`` runs N gloo ranks on the CPU, the
+counterpart of JAX's forced host devices.  Every rank draws the same
+weights from ``--seed``; only rank 0 logs:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-4b --reduced --continuous --mesh 2x2 --host-devices 4 \
+      --requests 6 --slots 4 --prompt-len 8 --new-tokens 6
 
 The MoE archs (``--arch qwen2-moe-a2.7b``, ``granite-moe-3b-a800m``)
 serve one-shot and on the dense ring (per step or fused), routing with
@@ -91,15 +105,19 @@ from __future__ import annotations
 import argparse
 import contextlib
 import logging
+import sys
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import tree
 from repro_torch.configs.registry import get_config
 from repro_torch.core import tuning
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode import verify_supported
 from repro_torch.models.testing import reduced_config
@@ -121,7 +139,8 @@ class Served(NamedTuple):
 class ServedContinuous(NamedTuple):
     completions: list[Completion]   # one per request, in completion order
     seconds: float                  # wall time of the serve, device included
-    scheduler: ContinuousScheduler  # its counters and page allocator
+    scheduler: ContinuousScheduler | None   # its counters and page
+    # allocator (None in the result spawned ranks hand back)
     counts: dict[str, int]          # this serve's share of its counters
 
 
@@ -145,6 +164,7 @@ class Session(NamedTuple):
     gen: torch.Generator
     device: torch.device
     decode: DecodeGraphs
+    mesh: mesh_lib.Mesh | None = None     # --mesh: this rank's mesh
 
 
 def resolve_device(name: str) -> torch.device:
@@ -164,7 +184,7 @@ def run(session: Session) -> Served:
     """One batch of prompts (and, for an enc-dec arch, their frames) from
     the session's generator, generated through the sampler; ``seconds``
     times ``generate`` alone."""
-    cfg, params, args, sc, gen, device, decode = session
+    cfg, params, args, sc, gen, device, decode = session[:7]
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=device)
     frames = (torch.randn((args.batch, cfg.encoder_len, cfg.d_model),
@@ -266,7 +286,8 @@ def server_for(session: Session) -> RunaheadServer:
         cache_pages=args.cache_pages, page_impl=args.page_impl,
         step_horizon=step_horizon, draft_len=draft_len,
         drafter=RepeatLastDrafter() if fused_spec else None,
-        draft_len_auto=auto, max_draft_len=max_draft_len)
+        draft_len_auto=auto, max_draft_len=max_draft_len,
+        mesh=session.mesh)
 
 
 def run_continuous(session: Session,
@@ -274,7 +295,7 @@ def run_continuous(session: Session,
     """Serve the launcher's workload through ``server`` (a fresh one when
     None; a server served before replays the graphs it captured then);
     ``seconds`` times the serve alone, with a device sync at both ends."""
-    cfg, _, args, sc, _, device, _ = session
+    cfg, _, args, sc, _, device = session[:6]
     if cfg.is_encdec:
         raise SystemExit("--continuous does not drive enc-dec archs yet")
     server = server or server_for(session)
@@ -396,7 +417,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--adaptive-draft", action="store_true",
                     help="[continuous] re-decide draft_len from the live "
                          "acceptance counters while serving")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="[continuous] mesh of ranks, e.g. 2x4 = 2-way "
+                         "slot data-parallel x 4-way solver vocab sharding")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    help="run the mesh's ranks on the CPU: N gloo ranks "
+                         "(N must equal the mesh's size)")
     args = ap.parse_args(argv)
+    if args.host_devices is not None:
+        args.device = "cpu"              # the mesh's ranks on the CPU
     # on the card the kernels carry the path; the CPU keeps the plain ones
     on_card = args.device == "cuda"
     if args.backend is None:
@@ -411,18 +440,42 @@ def parse_args(argv=None) -> argparse.Namespace:
             ap.error(f"{flag} must be a count >= 1 or auto, got {value!r}")
     if not args.continuous and speculating(args):
         ap.error("--speculative and --draft-len need --continuous")
+    if args.mesh is not None:
+        if not args.continuous:
+            raise SystemExit("--mesh requires --continuous")
+        try:
+            dims, _ = mesh_lib.mesh_axes(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+        if args.host_devices is not None and args.host_devices != \
+                int(np.prod(dims)):
+            ap.error(f"--host-devices {args.host_devices} does not match "
+                     f"--mesh {args.mesh}")
+    if args.host_devices is not None and args.mesh is None:
+        ap.error("--host-devices needs --mesh")
     return args
 
 
 def setup(argv=None) -> Session:
     """Parse the flags, then draw the model's weights on the device."""
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    # under a mesh only rank 0 logs: every rank serves the same requests
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
                         format="%(asctime)s %(name)s %(message)s")
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh is not None:
+        mesh = mesh_lib.parse_mesh(args.mesh)
+        if mesh.device.type != device.type:
+            raise RuntimeError(f"--device {args.device} was asked for, but "
+                               f"this rank of the mesh runs on {mesh.device}")
+        device = mesh.device
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, torch.bfloat16)
+    if mesh is not None:
+        check_same_weights(mesh, params)
     sc = SamplerConfig(
         temperature=args.temperature,
         target_entropy=args.target_entropy,
@@ -430,7 +483,26 @@ def setup(argv=None) -> Session:
         top_p=args.top_p,
         backend=args.backend,
     )
-    return Session(cfg, params, args, sc, gen, device, DecodeGraphs())
+    return Session(cfg, params, args, sc, gen, device, DecodeGraphs(), mesh)
+
+
+def weights_checksum(params: Params) -> torch.Tensor:
+    """The f64 sum of every weight: a (1,) tensor on the weights' device,
+    each leaf summed in f64 in chunks of 2**24 elements (a whole leaf in
+    f64 would take four times its own memory)."""
+    return torch.stack([c.sum(dtype=torch.float64)
+                        for t in tree.leaves(params)
+                        for c in t.detach().reshape(-1).split(1 << 24)]
+                       ).sum().reshape(1)
+
+
+def check_same_weights(mesh: mesh_lib.Mesh, params: Params) -> None:
+    """Every rank drew the same weights from the seed (each on its own
+    device generator): their checksums, gathered over the mesh, agree."""
+    sums = mesh.all_gather(weights_checksum(params), mesh.axis_names)
+    if not bool((sums == sums[0]).all()):
+        raise RuntimeError(f"the mesh's ranks drew different weights: "
+                           f"checksums {sums.tolist()}")
 
 
 def log_decisions(autotuned: bool) -> None:
@@ -445,7 +517,24 @@ def log_decisions(autotuned: bool) -> None:
         log.info("tuning cache: %s", tuning.cache_path())
 
 
+def _rank_main(argv) -> ServedContinuous:
+    """One spawned rank of a ``--mesh`` launch: the launcher's main, its
+    result without the scheduler (which stays in the rank)."""
+    return main(argv)._replace(scheduler=None)
+
+
 def main(argv=None) -> Served | ServedContinuous:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    if args.mesh is not None and not dist.is_initialized():
+        dims, _ = mesh_lib.mesh_axes(args.mesh)
+        if mesh_lib.under_torchrun():
+            mesh_lib.init_from_env(args.device)
+        else:
+            # the launcher starts the ranks itself: rank 0's result
+            return mesh_lib.spawn_local(
+                _rank_main, int(np.prod(dims)), device=args.device,
+                args=(argv,))[0]
     session = setup(argv)
     with (tuning.autotune() if session.args.autotune
           else contextlib.nullcontext()):

@@ -34,7 +34,9 @@ the attention (plain PyTorch, as the JAX package's plain XLA does).  The
 paged pool refuses int8, as JAX's does.
 
 Not ported yet: the tensor-parallel head padding of ``attend``'s flash
-branch (it waits for the mesh).
+branch.  The port's mesh (``launch/mesh.py``) serves with replicated
+weights and shards slots and sampler solves, not heads, so no head is
+padded; the padding comes with tensor-parallel training.
 """
 from __future__ import annotations
 

@@ -61,7 +61,29 @@ makes (per slot per step, in slot order: (1, V) for a serial step, an
 (L - 1) coin draw and (1, L, V) for a verify step), and the graph turns
 them into Gumbel noise, so the streams are eager serving's bit for bit.
 
-Not ported: the mesh.  Asking for a mesh raises.
+The mesh (``mesh=``, a ``launch/mesh.py::Mesh``), SPMD over
+``torch.distributed``: every rank runs this same host loop (admission,
+bookkeeping, eviction) on the same requests and keeps the same host
+state, while the device state is placed by SERVE_RULES (``slot_policy``):
+
+  * the slots shard over the data axes ("slot"): each data rank owns
+    ``n_slots / d`` consecutive slots, with their ring rows or their own
+    partition of the page pool (one ``PageAllocator`` a data rank, which
+    every rank keeps on the host), and runs the decode forward on them
+    with replicated weights; where ``n_slots`` does not divide the data
+    axes the slots are replicated on every rank, as JAX's are;
+  * the model-axis ranks of a data group compute the same logits, and the
+    sampler's solves are vocab-sharded across them (the engine's
+    ``MeshPolicy(local_rows=True)``: one join a solve round);
+  * one all-gather of the step's packed tokens over the data axes keeps
+    the host loop the same on every rank;
+  * an admission prefills on the owning data rank's ranks only, which
+    sample the first token (vocab-sharded over their model group) and
+    broadcast it over the data axes.
+
+Meshed steps and horizons run eagerly: their joins are collectives, which
+no CUDA graph holds under gloo (the one-card mesh).  Speculative decoding
+(``draft_len`` > 1) under a mesh is not ported and raises.
 """
 from __future__ import annotations
 
@@ -72,11 +94,17 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import solver
 from repro_torch.core.graphs import Graphs
 from repro_torch.core.tuning import (
     DISPATCH_OVERHEAD,
     decide_draft_len,
     decide_step_horizon,
+)
+from repro_torch.distributed.sharding import (
+    SERVE_RULES,
+    resolve_axes,
+    resolved_axis_size,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode import (
@@ -160,9 +188,36 @@ def _static_top_k(configs: list[SamplerConfig]) -> int | None:
     return None
 
 
-def _unported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh-native serving is not ported yet")
+def slot_policy(mesh, n_slots: int):
+    """(MeshPolicy, slot_axes) for a serving mesh, from SERVE_RULES.
+
+    slot_axes shard the slot pool over the data axes (None, replicated
+    slots, when n_slots doesn't divide them); the policy vocab-shards
+    every sampler solve over "solver_vocab" on the rank's own slots (the
+    engine drops the vocab axis per solve where the vocab doesn't
+    divide it).
+    """
+    slot_axes = resolve_axes(mesh, SERVE_RULES, "slot")
+    if slot_axes is not None and n_slots % resolved_axis_size(
+            mesh, slot_axes):
+        slot_axes = None
+    vocab_axis = resolve_axes(mesh, SERVE_RULES, "solver_vocab")
+    policy = solver.MeshPolicy(mesh, vocab_axis=vocab_axis,
+                               data_axes=slot_axes or (),
+                               local_rows=slot_axes is not None)
+    return policy, slot_axes
+
+
+class EagerSteps:
+    """A meshed scheduler's stand-in for ``Graphs``: every body runs
+    eagerly, since its joins are collectives that no CUDA graph holds
+    under gloo."""
+
+    capture_s = 0.0
+    keys: list = []
+
+    def run(self, key, body, *args, device=None):
+        return body(*args)
 
 
 def _horizon_done(active, remaining, eos, out, n_acc):
@@ -223,7 +278,6 @@ class ContinuousScheduler:
         draft_len_auto: bool = False,
         max_draft_len: int | None = None,
     ):
-        _unported(mesh)
         if draft_len < 1:
             raise ValueError(f"draft_len must be >= 1, got {draft_len}")
         if draft_len_auto and draft_len < 2:
@@ -237,6 +291,10 @@ class ContinuousScheduler:
         if max_draft_len < draft_len:
             raise ValueError(
                 f"max_draft_len {max_draft_len} < draft_len {draft_len}")
+        if mesh is not None and max_draft_len > 1:
+            raise NotImplementedError(
+                "speculative decoding (draft_len > 1) under a mesh is not "
+                "ported: serve speculatively without mesh=")
         if max_draft_len > 1 and not verify_supported(cfg):
             raise ValueError(
                 "speculative decoding (draft_len > 1) needs an all-dense "
@@ -276,6 +334,20 @@ class ContinuousScheduler:
         self.cache_dtype = cache_dtype
         self.device = params["embed"].device
         dev = self.device
+        # the slots this rank holds: n_local from global slot slot0 on
+        self.mesh = mesh
+        self._policy = self._admit_policy = None
+        self.slot_axes = None
+        groups, my_group = 1, 0
+        if mesh is not None:
+            self._policy, self.slot_axes = slot_policy(mesh, n_slots)
+            self._admit_policy = solver.MeshPolicy(
+                mesh, vocab_axis=self._policy.vocab_axis, data_axes=())
+            groups = mesh.axis_size(self.slot_axes)
+            my_group = mesh.axis_index(self.slot_axes)
+        self.n_local = n_slots // groups
+        self.slot0 = my_group * self.n_local
+        n_local = self.n_local
 
         self.paged = page_size is not None
         self.page_size = page_size
@@ -292,31 +364,36 @@ class ContinuousScheduler:
             self.max_chain = pages_for(context, page_size)
             if cache_pages is None:
                 # dense-equivalent capacity + the reserved null page
-                cache_pages = n_slots * self.max_chain + 1
+                cache_pages = n_slots * self.max_chain + groups
+            # each data rank owns a partition of the pool, null page
+            # included, and every rank keeps each partition's allocator
+            pages = cache_pages // groups
             self.cache = None
-            self.pool = init_paged_pool(cfg, cache_pages, page_size,
+            self.pool = init_paged_pool(cfg, pages, page_size,
                                         cache_dtype, device=dev)
-            self.table = torch.zeros((n_slots, self.max_chain),
+            self.table = torch.zeros((n_local, self.max_chain),
                                      dtype=torch.int32, device=dev)
-            self.alloc = PageAllocator(cache_pages, page_size)
+            self.allocs = [PageAllocator(pages, page_size)
+                           for _ in range(groups)]
+            self.alloc = self.allocs[0]
             self._chains: list[list[int] | None] = [None] * n_slots
             self.n_prefix_hits = 0       # admissions that forked a prefix
             self.n_prefill_skipped = 0   # prompt tokens never re-prefilled
         else:
             if cache_pages is not None:
                 raise ValueError("cache_pages requires page_size")
-            self.cache = init_cache(cfg, n_slots, context, cache_dtype,
+            self.cache = init_cache(cfg, n_local, context, cache_dtype,
                                     device=dev, compute_dtype=compute_dtype)
             self.table = None
 
         def zeros(dtype, *shape):
-            return torch.zeros(shape or (n_slots,), dtype=dtype, device=dev)
+            return torch.zeros(shape or (n_local,), dtype=dtype, device=dev)
 
         self.token = zeros(torch.int64)
         self.pos = zeros(torch.int64)
         self.active = zeros(torch.bool)
         idle = SamplerConfig(spec_k=spec_k, rounds=rounds, backend=backend)
-        self.knobs = SlotSamplers.stack([idle] * n_slots, dev)
+        self.knobs = SlotSamplers.stack([idle] * n_local, dev)
         self.remaining = zeros(torch.int64)      # budgets, horizon entry
         self.eos = zeros(torch.int64)            # stop tokens, -1 = none
         # the noise each iteration reads, drawn before a replay: (B, V)
@@ -324,13 +401,15 @@ class ContinuousScheduler:
         # a slot for a verify step, sliced to the current L
         V = unembed_table(cfg, params).shape[-1]
         K, Lm = step_horizon, max_draft_len
-        self.uniforms = zeros(torch.float32, K, n_slots,
+        self.uniforms = zeros(torch.float32, K, n_local,
                               V if draft_len == 1 else 0)
-        self.coins = zeros(torch.float32, K, n_slots, Lm - 1)
-        self.verify_uniforms = zeros(torch.float32, K, n_slots,
+        self.coins = zeros(torch.float32, K, n_local, Lm - 1)
+        self.verify_uniforms = zeros(torch.float32, K, n_local,
                                      Lm if Lm > 1 else 0, V)
-        self.draft = zeros(torch.int64, n_slots, Lm - 1)   # host drafts
-        self.graphs = Graphs()
+        self.draft = zeros(torch.int64, n_local, Lm - 1)   # host drafts
+        # collectives (a mesh of more than one rank) run eagerly
+        self.graphs = (Graphs() if mesh is None or mesh.size == 1
+                       else EagerSteps())
         self.slots: list[_SlotInfo | None] = [None] * n_slots
         self._finished: list[FinishedRequest] = []
         self._statics = None       # (enable, top_k_static, greedy_only)
@@ -340,6 +419,7 @@ class ContinuousScheduler:
         self.n_drafted = 0               # drafted tokens offered to verify
         self.n_accepted = 0              # drafted tokens accepted
         self.n_admissions = 0            # requests prefilled into a slot
+        self.n_prefills = 0              # ... of them on this rank's slots
         self.n_horizons = 0              # fused horizons (K > 1 only)
         self.n_wasted_steps = 0          # all-idle horizon iterations
         self.n_draft_retunes = 0         # live decide_draft_len L switches
@@ -365,8 +445,28 @@ class ContinuousScheduler:
 
     @property
     def peak_pages(self) -> int:
-        """High-water mark of live pool pages (paged mode; else 0)."""
-        return self.alloc.peak_used if self.paged else 0
+        """High-water mark of live pool pages (paged mode; else 0), summed
+        over the data ranks' partitions under a mesh."""
+        return sum(a.peak_used for a in self.allocs) if self.paged else 0
+
+    # -- placement ----------------------------------------------------------
+
+    def _place(self, i: int) -> tuple[int, int | None]:
+        """(data group owning global slot i, its index among this rank's
+        slots, or None when another data group holds it)."""
+        g = (i // self.n_local) if self.n_local < self.n_slots else 0
+        li = i - self.slot0
+        return g, (li if 0 <= li < self.n_local else None)
+
+    def _local(self, seq: list) -> list:
+        """This rank's entries of a per-slot list."""
+        return seq[self.slot0:self.slot0 + self.n_local]
+
+    def _gather_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data group's slot rows (dim 0) of ``t``, in slot order."""
+        if self.n_local == self.n_slots:
+            return t
+        return self.mesh.all_gather(t, self.slot_axes)
 
     def validate_request(self, n_new: int, sampler: SamplerConfig,
                          prompt_len: int | None = None) -> None:
@@ -393,9 +493,10 @@ class ContinuousScheduler:
     # -- admission ----------------------------------------------------------
 
     def _admit_paged(self, prompt: torch.Tensor, ptoks: list[int],
-                     n_new: int):
-        """Allocate the request's chain (forking registered prefix pages)
-        and prefill into it; None when the pool is exhausted."""
+                     n_new: int, alloc: PageAllocator, mine: bool):
+        """Allocate the request's chain in ``alloc`` (forking registered
+        prefix pages) and, on the ranks that hold the slot (``mine``),
+        prefill into it; None when the pool is exhausted."""
         plan = plan_chain(len(ptoks), n_new, self.context, self.page_size,
                           self.max_draft_len)
         # longest registered prefix wins: each hit is one page of prompt
@@ -403,30 +504,32 @@ class ContinuousScheduler:
         chain: list[int] = []
         if not plan.wrap:
             for j in range(1, plan.share_cap + 1):
-                pid = self.alloc.lookup_prefix(
+                pid = alloc.lookup_prefix(
                     prefix_key(ptoks, j * self.page_size))
                 if pid is None:
                     break
                 chain.append(pid)
         skip = len(chain)
-        self.alloc.fork_prefix(chain)
+        alloc.fork_prefix(chain)
         for _ in range(plan.chain_len - skip):
-            pid = self.alloc.alloc()
+            pid = alloc.alloc()
             if pid is None:              # pool exhausted: undo, try later
-                self.alloc.release(chain)
+                alloc.release(chain)
                 return None
             chain.append(pid)
         if skip:
             self.n_prefix_hits += 1
             self.n_prefill_skipped += skip * self.page_size
-        logits, self.pool = paged_prefill(
-            self.cfg, self.params, prompt, self.context, self.pool,
-            torch.tensor(chain, dtype=torch.int64, device=self.device),
-            page_size=self.page_size, skip=skip,
-            compute_dtype=self.compute_dtype)
+        logits = None
+        if mine:
+            logits, self.pool = paged_prefill(
+                self.cfg, self.params, prompt, self.context, self.pool,
+                torch.tensor(chain, dtype=torch.int64, device=self.device),
+                page_size=self.page_size, skip=skip,
+                compute_dtype=self.compute_dtype)
         if not plan.wrap:
             for j in range(plan.register_cap):
-                self.alloc.register_prefix(
+                alloc.register_prefix(
                     prefix_key(ptoks, (j + 1) * self.page_size), chain[j])
         return logits, chain
 
@@ -443,6 +546,10 @@ class ContinuousScheduler:
         arch (whisper) takes the request's own frames (1, T_enc, D), which
         its prefill encodes into the slot's encoder K/V; the paged cache
         does not serve it.
+
+        Under a mesh every rank calls this with the same request: the
+        slot's data group prefills and samples, and the first token is
+        broadcast to the other data groups.
         """
         ptoks = [int(t) for t in prompt]
         self.validate_request(n_new, sampler, prompt_len=len(ptoks))
@@ -450,49 +557,62 @@ class ContinuousScheduler:
         if not free:
             return False
         i = free[0]
+        g, li = self._place(i)
         prompt_t = torch.tensor([ptoks], dtype=torch.int64,
                                 device=self.device)
         chain = None
+        logits = None
         if self.paged:
             if encoder_frames is not None:
                 raise ValueError("paged cache does not serve enc-dec archs")
-            admitted = self._admit_paged(prompt_t, ptoks, n_new)
+            admitted = self._admit_paged(prompt_t, ptoks, n_new,
+                                         self.allocs[g], li is not None)
             if admitted is None:
                 return False
             logits, chain = admitted
-        else:
+        elif li is not None:
             logits, self.cache = prefill_into_slot(
-                self.cfg, self.params, prompt_t, self.context, self.cache, i,
-                encoder_frames=encoder_frames,
+                self.cfg, self.params, prompt_t, self.context, self.cache,
+                li, encoder_frames=encoder_frames,
                 compute_dtype=self.compute_dtype, kv_dtype=self.cache_dtype)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        first = int(sample_slots(
-            logits, [None if sampler.greedy else gen],
-            SlotSamplers.stack([sampler], self.device),
-            spec_k=self.spec_k, rounds=self.rounds, backend=self.backend,
-            enable=_enable_bits([sampler]),
-            top_k_static=_static_top_k([sampler]),
-            greedy_only=sampler.greedy)[0])
+        gen = None
+        first_t = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        if li is not None:
+            self.n_prefills += 1
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            with solver.mesh_policy(self._admit_policy):
+                first_t = sample_slots(
+                    logits, [None if sampler.greedy else gen],
+                    SlotSamplers.stack([sampler], self.device),
+                    spec_k=self.spec_k, rounds=self.rounds,
+                    backend=self.backend, enable=_enable_bits([sampler]),
+                    top_k_static=_static_top_k([sampler]),
+                    greedy_only=sampler.greedy)
+        if self.n_local < self.n_slots:
+            first_t = self.mesh.broadcast(first_t, self.slot_axes, g)
+        first = int(first_t[0])
         self.n_dispatches += 2           # prefill + first-token sample
         self.n_host_syncs += 1           # int(first)
         self.n_admissions += 1
 
-        self.token[i] = first
-        self.pos[i] = len(ptoks)
+        if li is not None:
+            self.token[li] = first
+            self.pos[li] = len(ptoks)
         info = _SlotInfo(rid, n_new - 1, [first], sampler, gen,
                          context=ptoks + [first], eos_id=eos_id)
         if info.remaining <= 0 or (eos_id is not None and first == eos_id):
             self._finished.append(FinishedRequest(rid, info.tokens))
             if self.paged:               # done at admission: pages go back
-                self.alloc.release(chain)
+                self.allocs[g].release(chain)
         else:
             self.slots[i] = info
             self._statics = None         # occupancy changed
             if self.paged:
                 self._chains[i] = chain
-                row = torch.zeros((self.max_chain,), dtype=torch.int32)
-                row[:len(chain)] = torch.tensor(chain, dtype=torch.int32)
-                self.table[i] = row.to(self.device)
+                if li is not None:
+                    row = torch.zeros((self.max_chain,), dtype=torch.int32)
+                    row[:len(chain)] = torch.tensor(chain, dtype=torch.int32)
+                    self.table[li] = row.to(self.device)
         return True
 
     # -- the decode step ----------------------------------------------------
@@ -507,12 +627,12 @@ class ContinuousScheduler:
             live = [s.sampler for s in self.slots if s is not None]
             idle = SamplerConfig(spec_k=self.spec_k, rounds=self.rounds,
                                  backend=self.backend)
+            mine = self._local(self.slots)
             host = SlotSamplers.stack([s.sampler if s is not None else idle
-                                       for s in self.slots], "cpu")
+                                       for s in mine], "cpu")
             for dst, src in zip(self.knobs, host):
                 dst.copy_(src)
-            self.active.copy_(torch.tensor([s is not None
-                                             for s in self.slots]))
+            self.active.copy_(torch.tensor([s is not None for s in mine]))
             self._statics = (_enable_bits(live), _static_top_k(live),
                              all(c.greedy for c in live))
         return self._statics
@@ -533,7 +653,7 @@ class ContinuousScheduler:
         if self._statics[2]:
             return
         gens = [None if s is None or s.sampler.greedy else s.generator
-                for s in self.slots]
+                for s in self._local(self.slots)]
         for j in range(iterations):
             if L == 1:
                 draw_slot_uniforms(self.uniforms[j], gens)
@@ -571,9 +691,11 @@ class ContinuousScheduler:
                 # recurrent states were never written, their ring rows
                 # are put back
                 freeze_cache_lanes(self.cache, stash, self.pos, active)
-            nxt = sample_slots(
-                logits, [None] * self.n_slots, self.knobs,
-                noise=None if greedy_only else slot_noise(noise[0]), **kw)
+            with solver.mesh_policy(self._policy):
+                nxt = sample_slots(
+                    logits, [None] * self.n_local, self.knobs,
+                    noise=None if greedy_only else slot_noise(noise[0]),
+                    **kw)
             self.token.copy_(torch.where(active, nxt, self.token))
             self.pos.copy_(torch.where(active, self.pos + 1, self.pos))
             return nxt[:, None], torch.zeros_like(self.pos)
@@ -589,7 +711,7 @@ class ContinuousScheduler:
                 self.cfg, self.params, feed, self.pos, self.cache,
                 compute_dtype=self.compute_dtype)
         coins, uniforms = (None, None) if greedy_only else noise
-        out, n_acc = verify_slots(grid, draft, [None] * self.n_slots,
+        out, n_acc = verify_slots(grid, draft, [None] * self.n_local,
                                   self.knobs, coins=coins,
                                   uniforms=uniforms, **kw)
         n_acc = torch.where(active, n_acc, 0)
@@ -644,7 +766,7 @@ class ContinuousScheduler:
         static draft buffer (one host-to-device copy); host time counted
         in ``draft_s``."""
         t0 = time.perf_counter()
-        host = torch.zeros((self.n_slots, L - 1), dtype=torch.int64)
+        host = torch.zeros((self.n_local, L - 1), dtype=torch.int64)
         for i, info in enumerate(self.slots):
             if info is not None:
                 host[i] = torch.tensor(self.drafter(info.context, L - 1),
@@ -656,14 +778,15 @@ class ContinuousScheduler:
         """The device part of one decode step over every slot: the host
         drafts (L > 1) and noise, then one replay of the step graph of the
         current statics and L (a key's first step runs eagerly and
-        captures it).  Reads nothing back to the host.  Returns the
+        captures it; under a mesh it runs eagerly, and the data groups'
+        rows are gathered).  Reads nothing back to the host.  Returns the
         (B, L + 1) packed emissions and accept counts; ``commit`` books
         them."""
         L = self.draft_len
         if L > 1:
             self._write_drafts(L)
         self._draw_noise(1, L)
-        packed = self.replay_step(L)
+        packed = self._gather_slots(self.replay_step(L))
         self.n_decode_steps += 1
         self.n_dispatches += 1
         self.n_drafted += (L - 1) * self.n_active
@@ -729,9 +852,11 @@ class ContinuousScheduler:
             # other holders) and point the slot's table row at the null
             # page, so its dead per-step writes never land in a recycled
             # page
-            self.alloc.release(self._chains[i])
+            g, li = self._place(i)
+            self.allocs[g].release(self._chains[i])
             self._chains[i] = None
-            self.table[i] = 0
+            if li is not None:
+                self.table[li] = 0
 
     def step(self) -> dict[Any, list[int]]:
         """Advance serving by one host-visible boundary: {rid: tokens
@@ -759,15 +884,18 @@ class ContinuousScheduler:
         instead of mis-attributing tokens."""
         statics = self._statics
         K, L = self.step_horizon, self.draft_len
+        mine = self._local(self.slots)
         self.remaining.copy_(torch.tensor(
-            [s.remaining if s is not None else 0 for s in self.slots]))
+            [s.remaining if s is not None else 0 for s in mine]))
         self.eos.copy_(torch.tensor(
             [-1 if s is None or s.eos_id is None else s.eos_id
-             for s in self.slots]))
+             for s in mine]))
         self._draw_noise(K, L)
         packed = self.graphs.run(
             ("horizon", K, self.paged, L) + statics,
             functools.partial(self._horizon, statics, L), device=self.device)
+        # (K, B_local, .) -> every data group's slots, (K, B, .)
+        packed = self._gather_slots(packed.transpose(0, 1)).transpose(0, 1)
         self.n_decode_steps += K
         self.n_dispatches += 1           # the whole horizon is one replay
         self.n_horizons += 1

@@ -68,14 +68,17 @@ class RunaheadServer:
     """Continuous-batching serving engine over the runahead sampler.
 
     Keyword arguments go to ``ContinuousScheduler`` (slots, context,
-    solver statics, dtypes, paging, ``step_horizon``, and speculation:
-    ``draft_len``, ``drafter``, ``draft_len_auto``, ``max_draft_len``).
+    solver statics, dtypes, paging, ``step_horizon``, speculation:
+    ``draft_len``, ``drafter``, ``draft_len_auto``, ``max_draft_len``,
+    and ``mesh``).  Under a mesh every rank runs this loop on the same
+    requests (SPMD); each rank's completions are the same tokens.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,
-                 context: int = 64, **scheduler_kw):
+                 context: int = 64, mesh=None, **scheduler_kw):
         self.scheduler = ContinuousScheduler(cfg, params, n_slots=n_slots,
-                                             context=context, **scheduler_kw)
+                                             context=context, mesh=mesh,
+                                             **scheduler_kw)
         self._pending: deque[Request] = deque()
         self._meta: dict[Any, tuple[int, int, float]] = {}   # rid -> meta
         self._step_idx = 0

@@ -49,6 +49,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attend as pa
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import parse_mesh
 from repro_torch.models import decode, testing
 from repro_torch.serving import paged, sampler
 from repro_torch.serving.draft import RepeatLastDrafter
@@ -701,18 +702,21 @@ def test_rejections(model):
                            sampler=SamplerConfig(backend="hopper")))
     srv.submit(Request("z", [1, 2], 2))        # the failed submits left no trace
     assert [c.rid for c in srv.drain()] == ["z"]
-    # speculative decoding is ported: these construct (the fused one with
-    # the device-capable drafter a fused horizon needs); only the mesh
-    # still raises
+    # speculative decoding and the mesh are ported: these construct (the
+    # fused one with the device-capable drafter a fused horizon needs);
+    # speculation under a mesh still raises
     for kw in (dict(draft_len=2),
                dict(draft_len=2, step_horizon=4,
                     drafter=RepeatLastDrafter())):
         sch = ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
                                   **kw)
         assert sch.draft_len == 2
+    mesh = parse_mesh("1x1")
+    assert ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
+                               mesh=mesh).n_local == 2
     with pytest.raises(NotImplementedError, match="not ported"):
         ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
-                            mesh=object())
+                            mesh=mesh, draft_len=2)
     with pytest.raises(ValueError, match="step_horizon"):
         ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
                             step_horizon=0)

@@ -44,6 +44,12 @@ idle lanes bit for bit after a replay, and continuous serving (per step
 and fused horizons of 4, whisper's requests each with its own frames)
 against eager step bodies; K3-K5 at whisper's vocab row and K7 at
 qwen3-4b's 4096-token admission (B = 1, 32 / 8 heads, head_dim 128).
+The mesh, on ranks sharing cuda:0 over gloo (``tests/torch_mesh_ranks.py``):
+a 2-rank vocab-sharded solve of each kind ("hopper": K2, K4, K5 on the
+local shard, one launch a round) against the "torch" backend on one rank
+(counts bit for bit, mass and entropy within rtol 1e-5 / atol 1e-6); the
+chip-level root through K1 on 4 ranks' chunks against the serial root;
+and a 1x2 mesh's served tokens against the single-rank (graphed) serve.
 """
 import pytest
 import torch
@@ -1591,3 +1597,45 @@ def test_flash_fwd_gradient_at_hymba_training_shape(gen):
                                ct)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the mesh: ranks sharing cuda:0 over gloo (tests/torch_mesh_ranks.py)
+# ---------------------------------------------------------------------------
+
+def test_two_rank_sharded_solves_against_one_rank(gen):
+    import torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import spawn_local
+
+    for out in spawn_local(ranks.cuda_solver_checks, 2, device="cuda",
+                           args=("1x2",), timeout=600):
+        for kind, r in out.items():
+            assert r["ok"], kind
+            name = {"count_above": "multi_count", "count_below":
+                    "multi_count", "mass_at_or_above": "multi_mass",
+                    "entropy_at_temperature": "multi_entropy_moments"}[kind]
+            # one launch a round on the local shard, no whole-solve K3
+            assert set(r["launches"]) == {name}, (kind, r["launches"])
+
+
+def test_chunked_chip_level_root_through_k1(gen):
+    import torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import spawn_local
+
+    for out in spawn_local(ranks.cuda_root_checks, 4, device="cuda",
+                           args=("1x4", 100), timeout=600):
+        for k, (equal, launches) in out.items():
+            assert equal, k
+            assert launches == 1 + -(-6 // k), (k, launches)
+
+
+@pytest.mark.parametrize("spec,dtype", [("1x2", "bfloat16"),
+                                        ("2x2", "float32")])
+def test_meshed_step_tokens_equal_the_single_rank_step(gen, spec, dtype):
+    import torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import spawn_local
+
+    world = 4 if spec == "2x2" else 2
+    for out in spawn_local(ranks.cuda_step_checks, world, device="cuda",
+                           args=(spec, dtype), timeout=600):
+        assert out["mesh"] == out["single"]

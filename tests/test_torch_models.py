@@ -135,10 +135,11 @@ def test_unported_paths_raise():
     # every family is ported for serving (MoE: tests/test_torch_moe.py,
     # xlstm and hymba: tests/test_torch_recurrent.py, whisper:
     # tests/test_torch_whisper.py) and for training (hymba, xlstm and
-    # whisper: tests/test_torch_train_families.py): a step builds.  What
-    # still raises is mesh-native serving, which waits for the port's
-    # multi-GPU layer, and an enc-dec forward without its frames, as
-    # JAX's asserts
+    # whisper: tests/test_torch_train_families.py): a step builds, and
+    # mesh-native serving runs (tests/test_torch_mesh_serving.py).  What
+    # still raises is speculative decoding under a mesh, and an enc-dec
+    # forward without its frames, as JAX's asserts
+    from repro_torch.launch.mesh import parse_mesh
     from repro_torch.serving.scheduler import ContinuousScheduler
     from repro_torch.train.step import TrainConfig, make_train_step
 
@@ -150,5 +151,9 @@ def test_unported_paths_raise():
                                      torch.float32)
     with pytest.raises(ValueError, match="encoder_frames"):
         transformer.forward(cfg, params, torch.zeros((1, 4), dtype=torch.long))
+    mesh = parse_mesh("1x1")
+    assert ContinuousScheduler(cfg, params, n_slots=2, context=8,
+                               mesh=mesh).n_local == 2
     with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousScheduler(cfg, params, n_slots=2, context=8, mesh=object())
+        ContinuousScheduler(cfg, params, n_slots=2, context=8, mesh=mesh,
+                            draft_len=2)

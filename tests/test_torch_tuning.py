@@ -316,7 +316,7 @@ def test_cache_roundtrip_and_stale_schema(cache):
     ("step_horizon", 0), ("draft_len", 0), ("spec_k", 0),
     ("rounds", 5),             # does not cover the 24-step budget at k 4
     ("backend", "hopper"),     # not in the caller's backends
-    ("placement", "vocab"),    # not a placement of the port
+    ("placement", "vocab"),    # not among the caller's placements
 ])
 def test_cached_insane_or_illegal_entries_not_replayed(cache, field, value):
     t1 = tuning.Tuner(str(cache))
@@ -339,8 +339,10 @@ def test_override_forces_fields_and_recomputes_rounds(cache):
     assert d.source == "override" and d.spec_k == 5
     assert d.rounds == -(-24 // 5)
     with pytest.raises(ValueError):
-        with tuning.override(placement="vocab"):
+        with tuning.override(placement="model"):
             pass
+    with tuning.override(placement="vocab"):        # a mesh placement
+        pass
 
 
 def test_measured_set_includes_fixed_and_drops_nan(cache):
@@ -542,9 +544,7 @@ def test_package_surface_mirrors_jax():
     import repro_torch.models
     import repro_torch.serving
 
-    not_ported = {"MeshPolicy", "mesh_policy", "find_root_runahead_sharded"}
-    assert set(repro_torch.core.__all__) == set(repro.core.__all__) - \
-        not_ported
+    assert set(repro_torch.core.__all__) == set(repro.core.__all__)
     assert repro_torch.serving.__all__ == repro.serving.__all__
     assert repro_torch.models.__all__ == repro.models.__all__
     for pkg in (repro_torch.core, repro_torch.serving, repro_torch.models):
