@@ -255,8 +255,10 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
  23. the hybrid family trained: launch.train for hymba-1.5b at its
      published width, phase 11's batch 2 x 4096, remat, the quantile
      clip, AdamW, 4 steps (step 0 warms up, steps 1-2 are timed, step 3
-     is profiled), the depth cut only as far as a byte reckoning against
-     70 GB forces (printed beside the measured peak).  Every loss finite;
+     is profiled), the depth cut to HYMBA_TRAIN_LAYERS (layers 0-16: two
+     of the three global layers) by the run's time limit, or further if
+     a byte reckoning against 70 GB forces it (printed beside the
+     measured peak).  Every loss finite;
      per step K7 twice a layer (forward and remat recompute, banded on
      the sliding-window layers) and K2 once a round of the clip's
      decision, and the clip's bracket at the last step's per-leaf norms
@@ -267,9 +269,11 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      sliding-window), f32 params, batch 1 x 4096, the loss and per-leaf
      gradients with K7 against those with its plain version (loss rtol
      1e-4, each gradient l2 rel 2e-2).
- 24. the SSM family trained as phase 23: xlstm-1.3b at its width and
-     depth, batch 2 x 1024 (a sequence cut that the run's time limit
-     forces: the sLSTM loops over time); no attention, no K7; the card's
+ 24. the SSM family trained as phase 23: xlstm-1.3b at its width, its
+     depth cut to XLSTM_TRAIN_LAYERS (2 sLSTM and 10 mLSTM layers) and
+     batch 2 x 1024 (a sequence cut), both forced by the run's time limit
+     (the sLSTM loops over time; a step launches ~1.6 * 10**4 kernels a
+     layer); no attention, no K7; the card's
      loss and gradients in f32 at phase 19's reference depth (an sLSTM
      and 7 mLSTM layers), batch 2 x 200, against the CPU port's on the
      same weights within CARD_VS_CPU.
@@ -317,6 +321,42 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      K1; "mesh-serve": phase 27, K2-K6), each measured at its shape: the
      2x2 mesh's vocab shard (2, 75968), 4x1's row, 2 slots of K6, K1 on
      two points; launches summed over the ranks.
+ 28. data-parallel training across ranks: launch.train's main (its
+     default ``--mesh elastic``) on two ranks sharing the card over gloo,
+     each drawing the global batch 2 x 4096 and keeping its row, the
+     gradients all-reduced in bf16 buckets: internlm2-1.8b at its
+     published width (remat, quantile clip: K2) and granite-moe-3b-a800m
+     at its width with ``--capacity-mode bisect`` (K3 on the gathered
+     assignments of both rows), 3 steps each, their depth cut only as far
+     as a byte reckoning of one rank's share (MESH_TRAIN_BUDGET, printed
+     beside the run) forces.  Every rank's params and state bit-identical
+     after each step (``launch/train.py::check_replicas``, called from
+     the launcher's ``on_state`` outside the profiled step); losses
+     finite; per rank and
+     step K7 twice a layer, K3 twice a layer (forward and remat
+     recompute) and K2 as the clip's decision gives.  Step ms per rank,
+     tok/s, peak memory per rank, the joins' ms and share of the step
+     (``mesh.stats``), and device busy / idle of the last step on each
+     rank.  At 2 layers in f32 (internlm2-1.8b, granite-moe-3b-a800m
+     under FIFO and under bisect), the meshed step against the
+     single-rank step on the same rank: loss rtol 1e-5; every routing
+     call's expert ids equal and its gates within 1e-5 (a forward over
+     one row rounds apart from one over two on the card); FIFO's keep
+     masks equal bit for bit and the params' change per leaf at l2 rel
+     < 1e-3 (the CPU tests' tolerances); under bisect each meshed cut
+     alone equal to what the layer used, bit for bit, and its keeps equal
+     the single-rank step's but where a gate lies within 1e-5 of its
+     expert's threshold (at most MESH_F32's ``flips``), the params'
+     change within ``bisect_delta_rel``.  Kill and resume across world
+     sizes: reduced internlm2-1.8b on 2 ranks (``--host-devices 2``)
+     killed at step 1 (exit 42, step_2 on disk), resumed on one rank; its
+     losses within MESH_RESUME_RTOL of the uninterrupted 2-rank run's,
+     and a resume from a copy of step_2 with AdamW's mu and nu zeroed
+     outside it (the check sees lost optimizer state).  The line's
+     kernels carry "mesh-train" rows: K7 at a rank's (1, 4096) share of
+     internlm2's step, K3 at the capacity cut's (48, 65536) gathered
+     scores, K2 at the clip's (1, leaves); launches summed over the ranks
+     of both drives.
 
 Whole-path profiles record device activity only and read its raw events
 (``_profile_records``): a training step's ~10**5 kernels read back in
@@ -379,6 +419,7 @@ port's sources are not beside this file.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 import json
 import math
@@ -529,23 +570,27 @@ INT8_JAX_CONTRACT = 0.02
 # phases 23-25: the hybrid, SSM and enc-dec families trained at full width
 # as JAX's make_train_step trains them (remat, the quantile clip through
 # K2, AdamW; random bf16 weights from seed 0); step 0 warms up, steps 1-2
-# are timed, step 3 is profiled.  hymba at phase 11's batch 2 x 4096 (K7
-# banded on its sliding-window layers), its depth cut only as far as the
-# byte reckoning against MOE_TRAIN_BUDGET forces; xlstm at batch 2 x 1024,
-# a sequence cut from train_4k's 4096 that the run's time limit forces
-# (the sLSTM is a loop over time, run twice forward under remat and once
-# backward); whisper through train.step.make_train_step (the launcher
+# are timed, step 3 is profiled.  Their steps are host-bound (10**5-10**6
+# eager launches), so the run's time limit cuts depth: hymba to its layers
+# 0-16 (two of its three global layers; further only if the byte
+# reckoning against MOE_TRAIN_BUDGET forces it) at phase 11's batch 2 x
+# 4096 (K7 banded on its sliding-window layers); xlstm to 12 layers (its
+# sLSTM at layers 0 and 8) at batch 2 x 1024, a sequence cut from
+# train_4k's 4096 (the sLSTM is a loop over time, run twice forward under
+# remat and once backward); whisper through train.step.make_train_step (the launcher
 # refuses enc-dec, as JAX's: its batches carry no frames) at 16 x 448
 # decoder tokens (the decoder's 448 positions, hf:openai/whisper-tiny)
 # with (16, 1500, 384) bf16 frames, in two microbatches
 FAMILY_TRAIN_STEPS = 4
+HYMBA_TRAIN_LAYERS = 17
+XLSTM_TRAIN_LAYERS = 12
 _FAMILY_TRAIN_ARGV = ["--steps", str(FAMILY_TRAIN_STEPS), "--batch", "2",
                       "--clip-mode", "quantile", "--log-every", "1",
                       "--seed", "0"]
 HYMBA_TRAIN_ARGV = ["--arch", "hymba-1.5b", "--seq", "4096"
                     ] + _FAMILY_TRAIN_ARGV
-XLSTM_TRAIN_ARGV = ["--arch", "xlstm-1.3b", "--seq", "1024"
-                    ] + _FAMILY_TRAIN_ARGV
+XLSTM_TRAIN_ARGV = ["--arch", "xlstm-1.3b", "--seq", "1024", "--layers",
+                    str(XLSTM_TRAIN_LAYERS)] + _FAMILY_TRAIN_ARGV
 WHISPER_TRAIN = dict(batch=16, seq=448, microbatches=2)
 # the references: hymba at full width cut to its layers 0-2 (one global,
 # two sliding-window), f32 params, batch 1 x 4096, the loss and gradients
@@ -2971,7 +3016,8 @@ def phase_speculative() -> dict:
 
 class MoERecorder:
     """Wraps models/moe.py's ``moe_apply`` (each call's dropped fraction,
-    kept on the card) and ``_bisect_keep`` (the last call's (scores,
+    kept on the card), ``_dispatch`` (each call's slots an expert in its
+    buffer, ``slots``) and ``_bisect_keep`` (the last call's (scores,
     experts, e_pad, cap) in ``last``; with ``check_keep``, every "hopper"
     keep mask (K3) against the "torch" backend's on the same scores, and
     every call's operands)."""
@@ -2979,16 +3025,23 @@ class MoERecorder:
     def __init__(self, check_keep: bool = False):
         self.check_keep = check_keep
         self.dropped, self.equal, self.operands = [], [], []
+        self.slots = []
 
     def __enter__(self):
         from repro_torch.models import moe
 
-        self._orig = apply, keep = moe.moe_apply, moe._bisect_keep
+        self._orig = apply, keep, dispatch = (moe.moe_apply, moe._bisect_keep,
+                                              moe._dispatch)
 
         def recorded_apply(*a, **kw):
             out, stats = apply(*a, **kw)
             self.dropped.append(stats.dropped_frac.detach())
             return out, stats
+
+        def recorded_dispatch(*a, **kw):
+            d = dispatch(*a, **kw)
+            self.slots.append(d.expert_in.shape[2])
+            return d
 
         def checked_keep(scores, expert_id, e_pad, cap, backend="hopper"):
             got = keep(scores, expert_id, e_pad, cap, backend)
@@ -2999,13 +3052,14 @@ class MoERecorder:
                 self.operands.append((scores, expert_id, e_pad, cap))
             return got
 
-        moe.moe_apply, moe._bisect_keep = recorded_apply, checked_keep
+        moe.moe_apply, moe._bisect_keep, moe._dispatch = (
+            recorded_apply, checked_keep, recorded_dispatch)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import moe
 
-        moe.moe_apply, moe._bisect_keep = self._orig
+        moe.moe_apply, moe._bisect_keep, moe._dispatch = self._orig
 
     def dropped_frac(self) -> float:
         import torch
@@ -4868,10 +4922,11 @@ def _card_vs_cpu(cfg, batch: dict) -> str:
             f"{grad_rel:.3g} (limits {CARD_VS_CPU})")
 
 
-def hymba_train_depth(cfg, batch: int, seq: int) -> tuple[int, dict]:
-    """The deepest cut of hymba's ``cfg`` (widths unchanged) whose
-    reckoned peak fits MOE_TRAIN_BUDGET bytes, and the reckoning at full
-    depth and at the cut: 18 B a parameter (bf16 params and gradients,
+def hymba_train_depth(cfg, batch: int, seq: int,
+                      most: int) -> tuple[int, dict]:
+    """The deepest cut of hymba's ``cfg`` (widths unchanged), ``most``
+    layers at most, whose reckoned peak fits MOE_TRAIN_BUDGET bytes, and
+    the reckoning at full depth and at the cut: 18 B a parameter (bf16 params and gradients,
     f32 master, mu and nu, the clip's bf16 copy of the gradients), 16 B
     an element of the largest leaf (a run's stacked MLP weight: AdamW's
     and the clip's f32 temporaries), the f32 logits three times over,
@@ -4906,7 +4961,7 @@ def hymba_train_depth(cfg, batch: int, seq: int) -> tuple[int, dict]:
         parts["total"] = sum(v for k, v in parts.items() if k != "params")
         return parts
 
-    L = cfg.n_layers
+    L = min(cfg.n_layers, most)
     while L > 1 and need(L)["total"] > MOE_TRAIN_BUDGET:
         L -= 1
     return L, {"full": need(cfg.n_layers), "cut": need(L)}
@@ -4971,8 +5026,9 @@ def _hymba_k7_reference() -> str:
 
 def phase_hymba_train(gen) -> tuple[dict, dict]:
     """launch.train's main in-process for hymba-1.5b at its published
-    width, phase 11's batch 2 x 4096, the quantile clip, cut in depth
-    only as far as the byte reckoning forces: losses, K7 twice a layer a
+    width, phase 11's batch 2 x 4096, the quantile clip, its depth cut to
+    HYMBA_TRAIN_LAYERS (further if the byte reckoning forces it): losses,
+    K7 twice a layer a
     step (banded on the sliding-window layers), K2 as the clip's
     decision gives, ms a step, tok/s, peak memory, the last step
     profiled; K2 at the clip's shape; the K7 reference.  Returns
@@ -4987,12 +5043,13 @@ def phase_hymba_train(gen) -> tuple[dict, dict]:
     label = "phase 23"
     cfg = get_config("hymba-1.5b")
     batch, seq = 2, 4096
-    L, reckoned = hymba_train_depth(cfg, batch, seq)
+    L, reckoned = hymba_train_depth(cfg, batch, seq, HYMBA_TRAIN_LAYERS)
     gb = lambda parts: ", ".join(  # noqa: E731
         f"{k} {v / 1e9:.2f} G" + ("" if k == "params" else "B")
         for k, v in parts.items())
     say(f"{label} depth reckoning (budget {MOE_TRAIN_BUDGET / 1e9:.0f} GB "
-        f"of the card's 80): full depth {cfg.n_layers} layers: "
+        f"of the card's 80; the run's time limit allows "
+        f"{HYMBA_TRAIN_LAYERS} layers): full depth {cfg.n_layers} layers: "
         f"{gb(reckoned['full'])} | cut to {L} layers: {gb(reckoned['cut'])}")
     argv = HYMBA_TRAIN_ARGV + (["--layers", str(L)] if L < cfg.n_layers
                                else [])
@@ -5037,12 +5094,14 @@ def phase_xlstm_train(gen) -> tuple[dict, dict]:
     label = "phase 24"
     r = _family_train(label, lambda on_step: train.main(
         XLSTM_TRAIN_ARGV, on_step=on_step), 2 * 1024, 0)
+    full = get_config("xlstm-1.3b")
+    cut = dataclasses.replace(full, n_layers=XLSTM_TRAIN_LAYERS)
     say_family_train(
-        label, "xlstm-1.3b full width and depth (48 layers: 42 mLSTM, 6 "
-               "sLSTM, d_model 2048, 4 heads of 512, vocab 50304), batch 2 x "
-               "1024 (a sequence cut from train_4k's 4096: the sLSTM's loop "
-               "over time), remat, quantile clip, AdamW; no attention, no "
-               "K7", r)
+        label, f"xlstm-1.3b full width (d_model 2048, 4 heads of 512, vocab "
+               f"50304), depth {XLSTM_TRAIN_LAYERS} of {full.n_layers} "
+               f"({layer_plan(cut)}; the run's time limit), batch 2 x 1024 "
+               f"(a sequence cut from train_4k's 4096: the sLSTM's loop over "
+               f"time), remat, quantile clip, AdamW; no attention, no K7", r)
     k2 = _k2_clip_row(gen, r["norms"], r["clip"],
                       "this run's last step (xlstm-1.3b)")
     say_row(f"{label} K2 xlstm-train", k2)
@@ -5173,6 +5232,51 @@ SCREENED_S = 16
 SCREENED_NEW = (6, 4, 8, 5, 7, 3, 6, 4)
 SCREENED_CONTEXT = 32
 SCREENED_SERVES = (("2x2", True), ("2x2", False), ("4x1", True))
+
+# phase 28: data-parallel training on two ranks sharing the card, each
+# drawing the global batch and keeping its row; every model at its
+# published width, its depth cut only as far as the reckoning of one
+# rank's share against MESH_TRAIN_BUDGET bytes forces (two ranks and this
+# process share the card's 80 GB)
+MESH_TRAIN_RANKS = 2
+MESH_TRAIN_STEPS = 3            # step 0 warms up, the last is profiled
+MESH_TRAIN_BUDGET = 30e9
+MESH_TRAIN_ARGV = ["--steps", str(MESH_TRAIN_STEPS), "--batch", "2",
+                   "--seq", "4096", "--clip-mode", "quantile", "--log-every",
+                   "1", "--seed", "0"]
+MESH_TRAIN_MODELS = (("internlm2-1.8b", []),
+                     ("granite-moe-3b-a800m", ["--capacity-mode", "bisect"]))
+# the meshed f32 step against the single-rank step: 2 layers at full
+# width, the same global batch, one step at a constant lr
+# (the CPU tests' tolerances: loss rtol 1e-5, the change 1e-3).  The
+# card's f32 forward over one row a rank rounds apart from one over both
+# rows (cuBLAS picks its kernels by shape), so the gathered gates are not
+# bit-equal to the single-rank step's: the expert ids must be equal and
+# the gates within gate_atol; FIFO's keeps, which read only the ids, are
+# equal bit for bit.  Under bisect a keep flips where a gate rounds across
+# its expert's threshold tau: each cut is held alone (the meshed step's
+# own gathered operands through ``models/moe.py::_cut`` again, at the
+# whole batch's capacity: its keep mask bit for bit), every flip against
+# the single-rank step must lie within gate_atol of its expert's tau, and
+# at most ``flips`` of them (8 were read over the 4 cuts, PR 26); one
+# flipped assignment moves AdamW's first, sign-like update of its
+# expert's weights, so bisect's params' change is held at
+# ``bisect_delta_rel`` (0.00986 read with those 8 flips; FIFO, no flips,
+# 2.1e-4).
+MESH_F32 = dict(layers=2, batch=2, seq=4096, lr=1e-3, loss_rtol=1e-5,
+                delta_rel=1e-3, gate_atol=1e-5, flips=32,
+                bisect_delta_rel=3e-2)
+MESH_F32_CASES = (("internlm2-1.8b", "fifo"),
+                  ("granite-moe-3b-a800m", "fifo"),
+                  ("granite-moe-3b-a800m", "bisect"))
+# kill and resume across world sizes: killed on 2 ranks, resumed on one
+MESH_KILL_ARGV = ["--arch", "internlm2-1.8b", "--reduced", "--steps", "4",
+                  "--batch", "2", "--seq", "64", "--clip-mode", "quantile",
+                  "--lr", "3e-3", "--log-every", "1", "--seed", "0"]
+# bf16, one row a rank against two: 2.17e-05 read (PR 26); a resume whose
+# AdamW moments were lost (the control: a copy of the checkpoint with mu
+# and nu zeroed) must miss it
+MESH_RESUME_RTOL = 2e-4
 
 
 def _mesh_argv(base: list[str], paged: bool, horizon: int) -> list[str]:
@@ -5577,6 +5681,531 @@ def phase_mesh_serve(per_step_streams: dict, single_tok_s: float) -> dict:
     return launches
 
 
+def mesh_train_depth(cfg, tokens: int, budget: float) -> tuple[int, dict]:
+    """The deepest cut of ``cfg`` (widths unchanged) whose reckoned peak on
+    one rank of a data-parallel step fits ``budget`` bytes, and the
+    reckoning at full depth and at the cut.  A rank holds the whole
+    replicated state: 18 B a parameter (bf16 params and gradients, f32
+    master, mu and nu, the clip's bf16 copy of the gradients); 3 buckets
+    of the gradient all-reduce (``train/step.py::GRAD_BUCKET_BYTES``:
+    the flattened bucket, its reduced copy, their mean); 16 B an element
+    of the largest leaf (AdamW's and the clip's f32 temporaries); and for
+    its own ``tokens``: the f32 logits three times over, remat's saved
+    layer inputs and one layer's recompute (a MoE layer's expert buffer
+    at the whole batch's capacity an expert, as phase 17 reckons it: a
+    bound, a rank packing only its own kept tokens)."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.train.step import GRAD_BUCKET_BYTES
+
+    d, f = cfg.d_model, cfg.d_ff
+    e_pad = moe.padded_experts(cfg.n_experts) if cfg.is_moe else 0
+
+    def need(L: int) -> dict:
+        c = dataclasses.replace(cfg, n_layers=L)
+        P = c.param_count()
+        if cfg.is_moe:
+            cap = moe._capacity(tokens * MESH_TRAIN_RANKS, cfg.n_experts,
+                                cfg.moe_top_k, cfg.capacity_factor)
+            leaf = max(L * e_pad * d * f, cfg.vocab_padded * d)
+            layer = 2 * (4 * tokens * cfg.moe_top_k * d
+                         + 3 * e_pad * cap * (d + 3 * f))
+        else:
+            leaf = max(L * d * f, cfg.vocab_padded * d)
+            layer = 2 * tokens * (3 * f + 8 * d)
+        parts = {
+            "params": P,
+            "state": 18 * P,
+            "all-reduce buckets": 3 * GRAD_BUCKET_BYTES,
+            "largest leaf": 16 * leaf,
+            "logits": 12 * tokens * cfg.vocab_padded,
+            "remat inputs": 2 * L * tokens * d,
+            "layer recompute": layer,
+        }
+        parts["total"] = sum(v for k, v in parts.items() if k != "params")
+        return parts
+
+    L = cfg.n_layers
+    while L > 1 and need(L)["total"] > budget:
+        L -= 1
+    return L, {"full": need(cfg.n_layers), "cut": need(L)}
+
+
+@contextlib.contextmanager
+def recording_cuts():
+    """Each capacity cut (``models/moe.py::_cut``, over the whole batch:
+    the meshed step's gathered assignments), in call order: its expert
+    ids, gates, capacity and keep mask, and under bisect each expert's
+    threshold tau (``capacity_threshold``'s)."""
+    from repro_torch.models import moe
+
+    cut, solve, cuts = moe._cut, moe.capacity_threshold, []
+
+    def recorded(a_expert, a_gate, e_pad, cap, *rest):
+        taus = []
+
+        def recorded_solve(*a, **kw):
+            taus.append(solve(*a, **kw))
+            return taus[-1]
+
+        moe.capacity_threshold = recorded_solve
+        try:
+            keep, pos = cut(a_expert, a_gate, e_pad, cap, *rest)
+        finally:
+            moe.capacity_threshold = solve
+        cuts.append(dict(expert=a_expert.clone(), gate=a_gate.clone(),
+                         cap=cap, keep=keep.clone(),
+                         tau=taus[0].clone() if taus else None))
+        return keep, pos
+
+    moe._cut = recorded
+    try:
+        yield cuts
+    finally:
+        moe._cut = cut
+
+
+def _mesh_f32_check(arch: str, mode: str, mesh) -> dict:
+    """One f32 step of ``arch`` (capacity ``mode``) at MESH_F32's depth
+    and batch, meshed and on this rank alone, from the same weights on the
+    same global batch: both losses, the largest per-leaf l2 distance of
+    the params' changes, and per routing call (each forward and remat
+    recompute) the assignments whose expert id, gate bits or keep differ
+    between the two, and the largest gate difference.  Per meshed cut
+    also: its capacity, the keeps that differ from ``_cut`` run again on
+    its own operands at the whole batch's capacity, and (bisect) the keep
+    flips against the single-rank cut whose gate lies farther than
+    gate_atol from its expert's tau in both runs."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import moe, transformer
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import step as train_step
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=MESH_F32["layers"])
+    kw = dict(param_dtype="float32", clip_mode="quantile",
+              capacity_mode=mode)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=MESH_F32["seq"],
+                           global_batch=MESH_F32["batch"], seed=0)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch_at(0).items()}
+    p0 = [t.clone() for t in leaves(transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), torch.float32))]
+    lr = lambda s: torch.full((), MESH_F32["lr"], device="cuda")  # noqa
+    orig, route = train_step.forward, moe._route
+    routed = []
+
+    def recorded_route(*a, **k):
+        # each routing call's expert ids and gates (the meshed run's on
+        # this rank's rows: gathered in rank order below)
+        probs, idx, vals = route(*a, **k)
+        routed.append((idx.detach().clone(), vals.detach().clone()))
+        return probs, idx, vals
+
+    train_step.forward = functools.partial(transformer.forward,
+                                           compute_dtype=torch.float32)
+    moe._route = recorded_route
+    out = {}
+    try:
+        for name, m in (("mesh", mesh), ("single", None)):
+            params = transformer.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0),
+                torch.float32)
+            fn = train_step.make_train_step(
+                cfg, train_step.TrainConfig(**kw), lr, mesh=m)
+            routed.clear()
+            with recording_cuts() as cuts:
+                params, opt, metrics = fn(params, adamw_init(params), batch)
+            calls = [(mesh.all_gather(i, mesh.axis_names),
+                      mesh.all_gather(v, mesh.axis_names))
+                     if m is not None else (i, v) for i, v in routed]
+            out[name] = dict(loss=float(metrics["loss"]), cuts=cuts,
+                             routed=calls, params=leaves(params))
+            del params, opt, fn
+            free_memory()
+    finally:
+        train_step.forward, moe._route = orig, route
+    worst = 0.0
+    for a, b, z in zip(out["mesh"]["params"], out["single"]["params"], p0):
+        dz = (b - z).double()
+        worst = max(worst, float((a - b).double().norm()
+                                 / max(dz.norm(), 1e-30)))
+    cuts = out["mesh"]["cuts"], out["single"]["cuts"]
+    keeps = [c["keep"] for c in cuts[0]], [c["keep"] for c in cuts[1]]
+    routed = out["mesh"]["routed"], out["single"]["routed"]
+    cap, alone, far, near = None, [], [], 0.0
+    for cm, cs in zip(*cuts):
+        e_pad = moe.padded_experts(cfg.n_experts)
+        cap = moe._capacity(MESH_F32["batch"] * MESH_F32["seq"],
+                            cfg.n_experts, cfg.moe_top_k, cfg.capacity_factor)
+        keep, _ = moe._cut(cm["expert"], cm["gate"], e_pad, cap, mode,
+                           "hopper")
+        alone.append(int((keep != cm["keep"]).sum()))
+        flip = cm["keep"] != cs["keep"]
+        if mode == "bisect" and bool(flip.any()):
+            e = cs["expert"][flip]
+            dist = torch.minimum((cm["gate"][flip] - cm["tau"][e]).abs(),
+                                 (cs["gate"][flip] - cs["tau"][e]).abs())
+            far.append(int((dist > MESH_F32["gate_atol"]).sum()))
+            near = max(near, float(dist.max()))
+    return dict(
+        caps=[c["cap"] for c in cuts[0]], cap=cap, alone_diffs=alone,
+        far_flips=far, flip_tau_dist=near,
+        loss=(out["mesh"]["loss"], out["single"]["loss"]), delta_rel=worst,
+        calls=(len(keeps[0]), len(keeps[1])),
+        keep_diffs=[int((a != b).sum()) for a, b in zip(*keeps)],
+        assignments=[int(k.numel()) for k in keeps[1]],
+        expert_diffs=[int((a[0] != b[0]).sum()) for a, b in zip(*routed)],
+        gate_diffs=[int((a[1] != b[1]).sum()) for a, b in zip(*routed)],
+        gate_max_diff=max([float((a[1] - b[1]).abs().max())
+                           for a, b in zip(*routed)] or [0.0]),
+        dropped=[float(1 - k.float().mean()) for k in keeps[1]])
+
+
+def _rank_mesh_train(runs, kill_argv: list[str], cache: str) -> dict:
+    """One rank of phase 28: each (arch, argv, layers) of ``runs``
+    through launch.train's main (this world is its elastic mesh), with
+    its launches per step held against the decisions, the last step
+    profiled, the clip's norms and (rank 0) the last capacity cut's
+    operands kept; then the f32 checks (``_mesh_f32_check``) and the
+    uninterrupted run of ``kill_argv``.  Returns numbers and numpy
+    arrays only: a CPU tensor would cross to the parent as a shared-memory
+    handle, which dies with the rank."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import tuning
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.runtime.elastic import make_elastic_mesh
+    from repro_torch.train import step as train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    tuning.set_cache_path(cache)
+    out = {"runs": []}
+    mesh = make_elastic_mesh(model_parallel=1)
+
+    def replicas(step, state):
+        train.check_replicas(mesh, state, step)
+
+    for arch, argv, L in runs:
+        per_step, prof, norms = [], {}, {}
+
+        def on_step(step, metrics):
+            per_step.append(dict(ops.LAUNCHES))
+
+        def on_state(step, state):
+            # the last step profiled alone: the replica check (its digests
+            # and all_gather) runs outside the window
+            if step == MESH_TRAIN_STEPS - 1:
+                torch.cuda.synchronize()
+                prof["wall_ms"] = (time.perf_counter() - prof["t0"]) * 1e3
+                prof["p"].__exit__(None, None, None)
+            replicas(step, state)
+            if step == MESH_TRAIN_STEPS - 2:
+                torch.cuda.synchronize()
+                prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+                prof["p"].__enter__()
+                prof["t0"] = time.perf_counter()
+
+        def recorded_clip(grads, *a, **kw):
+            got = clip(grads, *a, **kw)
+            norms["last"] = got[1].detach()
+            return got
+
+        clip = train_step.clip_by_quantile
+        train_step.clip_by_quantile = recorded_clip
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        forget_decisions()
+        try:
+            with MoERecorder() as rec:
+                res = train.main(argv + ["--layers", str(L)],
+                                 on_step=on_step, on_state=on_state)
+        finally:
+            train_step.clip_by_quantile = clip
+        launches = dict(ops.LAUNCHES)
+        bisect = "--capacity-mode" in argv
+        want = {("count_below", 1, False): 1}
+        cut = None
+        if bisect:
+            e_pad = rec.last[2]
+            want[("count_above", e_pad, True)] = 2 * L
+            cut = decisions()[("count_above", e_pad, True)][0]
+        want = solver_launches(want)
+        prev = {name: 0 for name in launches}
+        for i, snap in enumerate(per_step):
+            moved = {k: snap[k] - prev[k] for k in snap}
+            check({k: moved[k] for k in SOLVER_KERNELS} == want,
+                  f"rank {rank} {arch} step {i}: the solves launched "
+                  f"{moved}, where the decisions ({decisions_note()}) give "
+                  f"{want}")
+            check(moved["flash_fwd"] == 2 * L,
+                  f"rank {rank} {arch} step {i}: K7 launched "
+                  f"{moved['flash_fwd']} times, not {2 * L}")
+            prev = snap
+        kernels, calls = _profile_records(prof["p"])
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        clip_d = decisions()[("count_below", 1, False)][0]
+        out["runs"].append(dict(
+            arch=arch, layers=L, losses=res["losses"],
+            step_seconds=res["step_seconds"],
+            join_seconds=res["join_seconds"], world=res["world"],
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=launches, busy_ms=busy_ms, wall_ms=prof["wall_ms"],
+            kernels=sum(e.count for e in kernels),
+            want=want, note=decisions_note(),
+            norms=norms["last"].cpu().numpy(),
+            clip=(clip_d.rounds, clip_d.spec_k),
+            cut=None if cut is None else (cut.rounds, cut.spec_k),
+            operands=(tuple(t.cpu().numpy() if hasattr(t, "cpu") else t
+                            for t in rec.last)
+                      if bisect and rank == 0 else None),
+            dropped=rec.dropped_frac() if bisect else None,
+            slots=(min(rec.slots), max(rec.slots)) if rec.slots else None))
+        del res
+    free_memory()
+    out["f32"] = {(arch, mode): _mesh_f32_check(arch, mode, mesh)
+                  for arch, mode in MESH_F32_CASES}
+    out["kill_ref"] = train.main(kill_argv, on_state=replicas)["losses"]
+    return out
+
+
+def _zero_moments(src: str, dst: str) -> int:
+    """A copy of the checkpoint ``src`` at ``dst`` with AdamW's first and
+    second moments (the leaves under ``opt/mu`` and ``opt/nu``) zeroed,
+    its manifest's digests rewritten; returns how many leaves."""
+    import hashlib
+    import os
+    import shutil
+
+    import numpy as np
+
+    shutil.copytree(src, dst)
+    path = os.path.join(dst, "manifest.json")
+    manifest = json.loads(Path(path).read_text())
+    n = 0
+    for name, meta in manifest["leaves"].items():
+        if name.split("/")[:2] in (["opt", "mu"], ["opt", "nu"]):
+            f = os.path.join(dst, meta["file"])
+            np.save(f, np.zeros_like(np.load(f)))
+            meta["sha256"] = hashlib.sha256(Path(f).read_bytes()).hexdigest()
+            n += 1
+    Path(path).write_text(json.dumps(manifest))
+    return n
+
+
+def phase_mesh_train(gen) -> tuple[dict, dict]:
+    """Phase 28: data-parallel training on MESH_TRAIN_RANKS ranks sharing
+    the card (see the module docstring).  Returns (the launches of both
+    drives summed over the ranks, the "mesh-train" kernel rows)."""
+    import logging
+    import os
+    import tempfile
+    import types
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import tuning
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import spawn_local
+
+    free_memory()
+    say(f"phase 28: this process holds "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB of the card before "
+        f"the ranks start")
+    t0 = time.perf_counter()
+    tokens = 4096                   # one row of the 2 x 4096 batch a rank
+    gb = lambda parts: ", ".join(  # noqa: E731
+        f"{k} {v / 1e9:.2f} G" + ("" if k == "params" else "B")
+        for k, v in parts.items())
+    runs = []
+    for arch, extra in MESH_TRAIN_MODELS:
+        cfg = get_config(arch)
+        L, reckoned = mesh_train_depth(cfg, tokens, MESH_TRAIN_BUDGET)
+        say(f"phase 28 {arch} depth reckoning (a rank's share, budget "
+            f"{MESH_TRAIN_BUDGET / 1e9:.0f} GB a rank, {MESH_TRAIN_RANKS} "
+            f"ranks on the card's 80): full depth {cfg.n_layers} layers: "
+            f"{gb(reckoned['full'])} | cut to {L} layers: "
+            f"{gb(reckoned['cut'])}")
+        runs.append((arch, ["--arch", arch] + MESH_TRAIN_ARGV + extra, L))
+    outs = spawn_local(_rank_mesh_train, MESH_TRAIN_RANKS, device="cuda",
+                       args=(runs, MESH_KILL_ARGV, tuning.cache_path()),
+                       timeout=900)
+    launches = {}
+    for i, (arch, _, L) in enumerate(runs):
+        rs = [out["runs"][i] for out in outs]
+        for r in rs:
+            check(r["world"] == MESH_TRAIN_RANKS,
+                  f"{arch}: trained on {r['world']} ranks")
+            check(len(r["losses"]) == MESH_TRAIN_STEPS
+                  and all(map(math.isfinite, r["losses"])),
+                  f"{arch}: losses not all finite: {r['losses']}")
+            check(r["losses"] == rs[0]["losses"],
+                  f"{arch}: the ranks report different losses")
+            for name, n in r["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+        timed = [max(r["step_seconds"][j] for r in rs)
+                 for j in range(1, MESH_TRAIN_STEPS)]
+        ms = statistics.median(timed) * 1e3
+        join = [statistics.median(r["join_seconds"][1:]) * 1e3 for r in rs]
+        say(f"phase 28 mesh train {arch}: full width, depth {L}, "
+            f"{MESH_TRAIN_RANKS} ranks sharing cuda:0 (gloo), global batch "
+            f"2 x 4096 (one row a rank), remat, quantile clip"
+            + (", capacity bisect" if rs[0]["cut"] else "")
+            + f" | losses {[round(x, 4) for x in rs[0]['losses']]} | "
+            f"warm-up step {rs[0]['step_seconds'][0] * 1e3:.0f} ms, steps "
+            f"1-{MESH_TRAIN_STEPS - 1} {[round(t * 1e3, 1) for t in timed]} "
+            f"ms (slowest rank), median {ms:.1f} ms = "
+            f"{2 * tokens / ms * 1e3:.0f} tok/s | peak memory by rank "
+            f"{[round(r['peak_gb'], 2) for r in rs]} GB | joins by rank "
+            f"{[round(j, 1) for j in join]} ms a step, "
+            f"{[round(j / ms, 3) for j in join]} of the step | per step and "
+            f"rank: K7 {2 * L}, K3 {rs[0]['want']['runahead_topk_threshold']}"
+            f", K2 {rs[0]['want']['multi_count']} ({rs[0]['note']})"
+            + (f" | dropped fraction {rs[0]['dropped']:.6f}; a rank's expert "
+               f"buffer holds its own kept tokens: "
+               f"{[r['slots'] for r in rs]} (min, max) slots an expert by "
+               f"rank, of the whole batch's capacity "
+               f"{rs[0]['operands'][3]}"
+               if rs[0]["dropped"] is not None else "")
+            + " | params and state bit-identical across the ranks after "
+            "every step (check_replicas)")
+        for rank, r in enumerate(rs):
+            say(f"phase 28 {arch} rank {rank} profile (last step): device "
+                f"busy {r['busy_ms']:.1f} ms of {r['wall_ms']:.1f} ms traced "
+                f"wall (idle share {1 - r['busy_ms'] / r['wall_ms']:.3f}), "
+                f"{r['kernels']} kernels")
+    for arch, mode in MESH_F32_CASES:
+        for rank, out in enumerate(outs):
+            c = out["f32"][(arch, mode)]
+            what = f"{arch} {mode} f32 rank {rank}"
+            rel = abs(c["loss"][0] - c["loss"][1]) / abs(c["loss"][1])
+            check(rel <= MESH_F32["loss_rtol"],
+                  f"{what}: meshed loss {c['loss'][0]} vs single "
+                  f"{c['loss'][1]}")
+            check(c["calls"][0] == c["calls"][1]
+                  and not any(c["expert_diffs"]),
+                  f"{what}: the routing calls or expert ids differ "
+                  f"({c['calls']}, {c['expert_diffs']})")
+            check(c["gate_max_diff"] <= MESH_F32["gate_atol"],
+                  f"{what}: gates differ by {c['gate_max_diff']:.3g}")
+            check(c["caps"] == [c["cap"]] * len(c["caps"])
+                  and not any(c["alone_diffs"]),
+                  f"{what}: the meshed cuts at capacities {c['caps']} (the "
+                  f"whole batch's {c['cap']}) keep {c['alone_diffs']} "
+                  f"assignments otherwise than _cut alone on their operands")
+            if mode == "bisect":
+                # a gate that rounds across its expert's tau flips its keep
+                check(not any(c["far_flips"]),
+                      f"{what}: {c['far_flips']} keeps flip farther than "
+                      f"{MESH_F32['gate_atol']} from their expert's tau")
+                check(sum(c["keep_diffs"]) <= MESH_F32["flips"],
+                      f"{what}: {c['keep_diffs']} keeps differ of "
+                      f"{c['assignments']}")
+                check(c["delta_rel"] < MESH_F32["bisect_delta_rel"],
+                      f"{what}: the params' change differs by "
+                      f"{c['delta_rel']:.3g} of the single-rank step's")
+            else:
+                check(not any(c["keep_diffs"]),
+                      f"{what}: keep masks differ {c['keep_diffs']}")
+                check(c["delta_rel"] < MESH_F32["delta_rel"],
+                      f"{what}: the params' change differs by "
+                      f"{c['delta_rel']:.3g} of the single-rank step's")
+        c = outs[0]["f32"][(arch, mode)]
+        say(f"phase 28 f32 check {arch} {mode} ({MESH_F32['layers']} "
+            f"layers, full width, 2 x 4096, one step): meshed loss "
+            f"{c['loss'][0]:.7f} vs single-rank {c['loss'][1]:.7f}; the "
+            f"params' change within {c['delta_rel']:.3g} per leaf (l2)"
+            + (f"; {c['calls'][0]} routing calls: expert ids equal, gates "
+               f"not bit-equal at {c['gate_diffs']} of "
+               f"{c['assignments']} (max |diff| {c['gate_max_diff']:.3g}: "
+               f"a forward over 1 row rounds apart from one over 2), keep "
+               f"masks differ at {c['keep_diffs']}, each flip's gate within "
+               f"{c['flip_tau_dist']:.3g} of its expert's tau (dropped "
+               f"{[round(x, 4) for x in c['dropped']]}); each meshed cut "
+               f"alone on its gathered operands at capacity {c['cap']}: "
+               f"keep masks equal"
+               if c["calls"][0] else ""))
+
+    # kill on two ranks, resume on one
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_ckpt_") as d:
+        ckpt = ["--ckpt-dir", d, "--ckpt-every", "2"]
+        try:
+            train.main(MESH_KILL_ARGV + ckpt + ["--host-devices", "2",
+                                                "--die-at-step", "1"])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        check(code == 42, f"the killed 2-rank launch exited {code}, not 42")
+        check(CheckpointManager(d).steps() == [2],
+              f"after the kill: {os.listdir(d)}")
+        lines, handler = _capture_log("repro_torch.train")
+        try:
+            resumed = train.main(MESH_KILL_ARGV + ckpt)
+        finally:
+            logging.getLogger("repro_torch.train").removeHandler(handler)
+        # the control: the same resume with AdamW's moments lost
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_ctl_") as e:
+            zeroed = _zero_moments(os.path.join(d, "step_2"),
+                                   os.path.join(e, "step_2"))
+            control = train.main(MESH_KILL_ARGV + ["--ckpt-dir", e])
+    check("resumed from checkpoint step 2" in lines,
+          f"the one-rank relaunch did not resume from step 2: {lines[:3]}")
+    ref = outs[0]["kill_ref"][2:]
+    worst, lost = (max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref))
+                   for r in (resumed, control))
+    check(len(resumed["losses"]) == len(ref) and worst <= MESH_RESUME_RTOL,
+          f"resumed losses {resumed['losses']} vs the 2-rank run's {ref}")
+    check(lost > MESH_RESUME_RTOL,
+          f"a resume with AdamW's moments zeroed ({zeroed} leaves) came "
+          f"within {lost:.3g} of the 2-rank run: the check cannot see it")
+    say(f"phase 28 kill and resume: reduced internlm2-1.8b on 2 ranks "
+        f"killed at step 1 (exit 42, step_2 on disk), resumed on 1 rank: "
+        f"losses {resumed['losses']} vs the uninterrupted 2-rank run's "
+        f"{ref} (largest rel diff {worst:.3g} <= {MESH_RESUME_RTOL}); the "
+        f"control, step_2 with its {zeroed} AdamW mu and nu leaves zeroed: "
+        f"losses {control['losses']}, largest rel diff {lost:.3g} > "
+        f"{MESH_RESUME_RTOL}")
+
+    # the kernels at a rank's shapes of the drives
+    dense, moe_run = outs[0]["runs"][0], outs[0]["runs"][1]
+    rows = {"flash_fwd": _k7_row(gen, dict(B=1, S=4096, H=16, Hk=8, D=128),
+                                 0, False)}
+    scores, expert, e_pad, cap = moe_run["operands"]
+    rounds, spec_k = moe_run["cut"]
+    rows["runahead_topk_threshold"] = _capacity_row(
+        [(torch.from_numpy(scores).cuda(), torch.from_numpy(expert).cuda(),
+          e_pad, cap)],
+        types.SimpleNamespace(rounds=rounds, spec_k=spec_k),
+        "phase 28's last capacity cut (granite-moe-3b-a800m, both ranks' "
+        "assignments gathered)")
+    rounds, spec_k = dense["clip"]
+    rows["multi_count"] = _k2_clip_row(
+        gen, torch.from_numpy(dense["norms"]).cuda(),
+        types.SimpleNamespace(rounds=rounds, spec_k=spec_k),
+        "phase 28's last step (internlm2-1.8b, rank 0)")
+    rows["flash_fwd"]["note"] += "; a rank's share of phase 28's step"
+    for name, r in rows.items():
+        say_row(f"phase 28 {name} mesh-train", r)
+    say(f"phase 28: launches (both drives, all ranks) {launches} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return launches, rows
+
+
 # the file of each kernel's port and of the TPU kernel it replaces
 KERNEL_FILES = {
     "multi_count": ("multi_count.cu", "multi_count.py:69"),
@@ -5796,6 +6425,8 @@ def main() -> int:
         launches_by_path["mesh-runahead"] = phase_mesh_runahead()
         launches_by_path["mesh-serve"] = phase_mesh_serve(per_step_streams,
                                                           single_tok_s)
+        launches_by_path["mesh-train"], path_rows["mesh-train"] = (
+            phase_mesh_train(gen))
 
     # the path whose run each kernel's launch count is read on: K2 runs
     # where the served requests' top_k differ (phase 13)

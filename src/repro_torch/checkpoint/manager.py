@@ -15,9 +15,14 @@ first 16 hex digits of the SHA256 of its path string (``tree.py``: dict
 keys, list indices and NamedTuple field names joined by ``/``), bf16
 stored as its ``uint16`` bits with ``"dtype": "bfloat16"`` in the
 manifest.  A checkpoint written by either package restores in the other.
-Leaves are stored unsharded; restore places them on ``device`` (the
-template leaf's device by default).  Elastic placement on a mesh waits for
-the port's multi-GPU layer.
+Leaves are stored unsharded, so a checkpoint restores on any world size
+(the elastic restart): ``restore_pytree(..., sharding_fn)`` places each
+leaf on the current mesh, as JAX's does (``sharding_fn(name, array)``
+returns a device, or a ``Placement``: a device and a spec that
+``launch/shardings.py::local_block`` cuts the leaf by on a mesh);
+without one a leaf lands on ``device``, or on the template leaf's device.
+Under a mesh (``CheckpointManager(..., mesh=)``) only the mesh's rank 0
+writes, and every rank waits for the write on a barrier.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import os
 import re
 import shutil
 import threading
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -96,18 +102,45 @@ def _verify(ckpt_dir: str) -> dict | None:
         return None
 
 
-def _load_leaf(ckpt_dir: str, meta: dict) -> torch.Tensor:
+def _load_leaf(ckpt_dir: str, meta: dict) -> tuple[np.ndarray, torch.Tensor]:
+    """(the array as stored, bf16 as its uint16 bits; the tensor)."""
     arr = np.load(os.path.join(ckpt_dir, meta["file"]))
     if meta["dtype"] == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
+        return arr, torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return arr, torch.from_numpy(arr)
 
 
-def restore_pytree(ckpt_dir: str, template, device=None):
+class Placement(NamedTuple):
+    """Where a restored leaf goes: ``device``, cut to this rank's block
+    of ``spec`` on ``mesh`` (``launch/shardings.py::local_block``; an
+    empty spec keeps the leaf whole)."""
+
+    device: Any
+    spec: tuple = ()
+    mesh: Any = None
+
+
+def _place(t: torch.Tensor, where, dtype) -> torch.Tensor:
+    if isinstance(where, Placement):
+        if where.spec:
+            from repro_torch.launch.shardings import local_block
+
+            t = local_block(t, where.spec, where.mesh)
+        where = where.device
+    return t.to(device=where, dtype=dtype).contiguous()
+
+
+def restore_pytree(ckpt_dir: str, template,
+                   sharding_fn: Callable[[str, np.ndarray], Any] | None = None,
+                   *, device=None):
     """Restore into the structure of ``template`` (shapes must match).
 
-    Each leaf takes the template leaf's dtype and lands on ``device``, or
-    on the template leaf's device when ``device`` is None.
+    Each leaf takes the template leaf's dtype.  ``sharding_fn(name,
+    array)`` (the leaf's path string and its array as stored, bf16 as
+    its uint16 bits) decides its
+    placement on the current mesh, as JAX's does: a device, a
+    ``Placement``, or None for the default: ``device``, or the template
+    leaf's device when ``device`` is None.
     """
     manifest = _verify(ckpt_dir)
     if manifest is None:
@@ -117,24 +150,37 @@ def restore_pytree(ckpt_dir: str, template, device=None):
         meta = manifest["leaves"].get(name)
         if meta is None:
             raise KeyError(f"checkpoint missing leaf {name}")
-        t = _load_leaf(ckpt_dir, meta)
+        arr, t = _load_leaf(ckpt_dir, meta)
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(
                 f"shape mismatch for {name}: ckpt {tuple(t.shape)} vs "
                 f"template {tuple(leaf.shape)}")
-        out.append(t.to(device=leaf.device if device is None else device,
-                        dtype=leaf.dtype))
+        where = sharding_fn(name, arr) if sharding_fn else None
+        if where is None:
+            where = leaf.device if device is None else device
+        out.append(_place(t, where, leaf.dtype))
     return unflatten(template, out)
 
 
 class CheckpointManager:
-    """keep-last-N manager with async writes and corrupt-skip restore."""
+    """keep-last-N manager with async writes and corrupt-skip restore.
 
-    def __init__(self, directory: str, keep: int = 3):
+    With a ``mesh``, its ranks hold one replicated state: rank 0 alone
+    writes, and ``save`` and ``wait`` return on every rank once the
+    checkpoint is on disk (a barrier after rank 0's write); ``save_async``
+    returns once rank 0 holds its host copy."""
+
+    def __init__(self, directory: str, keep: int = 3, mesh=None):
         self.directory = directory
         self.keep = keep
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0
         self._thread: threading.Thread | None = None
         os.makedirs(directory, exist_ok=True)
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     # ---- discovery --------------------------------------------------------
 
@@ -172,12 +218,17 @@ class CheckpointManager:
 
     def save(self, step: int, tree) -> str:
         self.wait()   # never race a pending async write on the same step
-        path = save_pytree(self.directory, step, self._to_host(tree))
-        self._gc()
+        path = os.path.join(self.directory, f"step_{step}")
+        if self.writes:
+            path = save_pytree(self.directory, step, self._to_host(tree))
+            self._gc()
+        self._barrier()
         return path
 
     def save_async(self, step: int, tree) -> None:
         self.wait()
+        if not self.writes:
+            return
         host_tree = self._to_host(tree)              # blocking D2H copy only
 
         def work():
@@ -188,16 +239,19 @@ class CheckpointManager:
         self._thread.start()
 
     def wait(self):
+        """Drain the async writer (every rank, under a mesh)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._barrier()
 
     # ---- restore -----------------------------------------------------------
 
-    def restore_latest(self, template, device=None):
+    def restore_latest(self, template, sharding_fn=None, *, device=None):
         """Returns (step, tree) from the newest VALID checkpoint, or None."""
         for step in reversed(self.steps()):
             path = os.path.join(self.directory, f"step_{step}")
             if _verify(path):
-                return step, restore_pytree(path, template, device)
+                return step, restore_pytree(path, template, sharding_fn,
+                                            device=device)
         return None

@@ -358,6 +358,11 @@ def problem(kind: str, operand: Tensor, *, backend: str = "torch", **params
 _BACKEND_ORDER = ("torch", "hopper")
 
 
+def kinds() -> list[str]:
+    """The registered problem kinds, sorted."""
+    return sorted({k for k, _ in _REGISTRY})
+
+
 def backends_for(kind: str) -> list[str]:
     """The backends registered for `kind`, oracle first."""
     for module in _LAZY_BACKEND_MODULES.values():

@@ -222,6 +222,14 @@ class Mesh:
             dist.broadcast(t, src=src, group=group)
         return t
 
+    def barrier(self) -> None:
+        """Wait until every rank of the mesh has reached this call."""
+        group = self._group(self.axis_names)
+        if group is None:
+            return
+        with self._counted():
+            dist.barrier(group=group)
+
     def broadcast_object(self, obj: Any, axes, src_index: int) -> Any:
         """The picklable ``obj`` of the group member at position
         ``src_index`` of the group of ``axes``, returned on every member
@@ -365,6 +373,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+class RankExit(RuntimeError):
+    """A spawned rank ended with a non-zero exit code before it reported
+    (``exitcode``: the code of the first such rank found)."""
+
+    def __init__(self, rank: int, world: int, exitcode: int):
+        super().__init__(f"rank {rank} of {world} exited with code "
+                         f"{exitcode} before reporting")
+        self.rank, self.exitcode = rank, exitcode
+
+
 def _rank_main(fn, args, rank, world, port, device, results) -> None:
     """One spawned rank: join the world, run ``fn(*args)``, report."""
     torch.set_num_threads(1)
@@ -390,7 +408,8 @@ def spawn_local(fn: Callable, world_size: int, *, device: str = "cpu",
     rank joins the world over a fresh loopback port with the backend
     ``choose_backend`` picks, on ``device`` (``cuda``: ranks beyond the
     host's GPUs share them).  A rank that raises or dies ends the launch:
-    the other ranks are stopped and this raises with its traceback.
+    the other ranks are stopped and this raises with its traceback (a
+    rank that exits before it reports: ``RankExit``, with its code).
     """
     import multiprocessing as mp
 
@@ -413,9 +432,8 @@ def spawn_local(fn: Callable, world_size: int, *, device: str = "cpu",
                 dead = [r for r, p in enumerate(procs)
                         if r not in out and p.exitcode not in (None, 0)]
                 if dead:
-                    raise RuntimeError(
-                        f"rank {dead[0]} of {world_size} exited with code "
-                        f"{procs[dead[0]].exitcode} before reporting")
+                    raise RankExit(dead[0], world_size,
+                                   procs[dead[0]].exitcode)
                 if time.monotonic() > deadline:
                     raise TimeoutError(
                         f"{world_size} ranks did not finish in {timeout} s")

@@ -204,12 +204,15 @@ def unembed_table(cfg: ModelConfig, params: Params) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def apply_ffn(cfg: ModelConfig, p: Params, h: torch.Tensor, *,
-              capacity_mode: str = "fifo", moe_groups: int = 1):
-    """A block's MLP or MoE on its normed input: (out, MoEStats or None)."""
+              capacity_mode: str = "fifo", moe_groups: int = 1,
+              split: moe_lib.BatchSplit = moe_lib.NO_SPLIT):
+    """A block's MLP or MoE on its normed input: (out, MoEStats or None).
+    Under a ``split`` of the batch the MoE layer computes the whole
+    batch's routing (``models/moe.py::moe_apply``)."""
     if "moe" not in p:
         return apply_mlp(cfg.act, p["mlp"], h), None
     return moe_lib.moe_apply(p["moe"], cfg, h, capacity_mode=capacity_mode,
-                             n_groups=moe_groups)
+                             n_groups=moe_groups, split=split)
 
 
 def hymba_window(kind: str, cfg: ModelConfig) -> int:
@@ -233,10 +236,12 @@ def hymba_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
 def _apply_block(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, capacity_mode: str = "fifo",
                  moe_groups: int = 1,
-                 encoder_out: torch.Tensor | None = None):
+                 encoder_out: torch.Tensor | None = None,
+                 split: moe_lib.BatchSplit = moe_lib.NO_SPLIT):
     """One block of ``kind`` over the full sequence: (x, the MoE layer's
     aux loss, a 0-d f32 tensor; None for any other block).
-    ``encoder_out`` is what a ``whisper_dec`` block cross-attends to."""
+    ``encoder_out`` is what a ``whisper_dec`` block cross-attends to;
+    ``split`` the batch's data split, which a MoE layer routes over."""
     eps = cfg.norm_eps
     if kind in XLSTM_KINDS:
         h = apply_norm(cfg.norm, p["ln"], x, eps)
@@ -255,7 +260,7 @@ def _apply_block(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
                                 kv_src=encoder_out)
         h = apply_norm(cfg.norm, p["ln3"], x, eps)
     out, stats = apply_ffn(cfg, p, h, capacity_mode=capacity_mode,
-                           moe_groups=moe_groups)
+                           moe_groups=moe_groups, split=split)
     return x + out, None if stats is None else stats.aux_loss
 
 
@@ -316,6 +321,13 @@ def forward(
     deterministic), so a ``"bisect"`` layer solves its capacity twice a
     training step.  An enc-dec arch (whisper) takes its encoder's input
     frames (B, T_enc, D) as ``encoder_frames``.
+
+    Under ``distributed/sharding.py::axis_rules`` that split the batch
+    over ranks, ``tokens`` are this rank's rows and each MoE layer routes
+    over the whole batch (``models/moe.py::batch_split``).  The split is
+    read here once and passed down as an argument: on the card autograd
+    recomputes a checkpointed layer on its own thread, where the rules'
+    thread-local context is not set.
     """
     B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens, compute_dtype)
@@ -323,12 +335,13 @@ def forward(
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     remat = remat and torch.is_grad_enabled()
+    split = moe_lib.batch_split()
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for run_params, (kind, count) in zip(params["runs"], ported_plan(cfg)):
         aux_run = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for p_l in layer_unbind(run_params, count):
             args = (kind, cfg, p_l, x, positions, capacity_mode, moe_groups,
-                    encoder_out)
+                    encoder_out, split)
             if remat:
                 x, aux = checkpoint(_apply_block, *args, use_reentrant=False)
             else:

@@ -60,6 +60,7 @@ from repro_torch.serving.server import (
     RunaheadServer,
     generate_oneshot_reference,
 )
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 ARCH = "qwen3-4b"
 CONTEXT = 24

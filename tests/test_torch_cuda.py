@@ -50,6 +50,11 @@ local shard, one launch a round) against the "torch" backend on one rank
 (counts bit for bit, mass and entropy within rtol 1e-5 / atol 1e-6); the
 chip-level root through K1 on 4 ranks' chunks against the serial root;
 and a 1x2 mesh's served tokens against the single-rank (graphed) serve.
+Data-parallel training (``tests/torch_train_ranks.py``): two f32 steps of
+reduced internlm2-1.8b and granite-moe-3b-a800m (bisect: K3 on the
+gathered assignments) on 2 ranks against the single-rank step on each
+rank (loss rtol 1e-5, params within 1e-5, keep masks bit for bit), the
+ranks' replica digests equal.
 """
 import pytest
 import torch
@@ -1639,3 +1644,25 @@ def test_meshed_step_tokens_equal_the_single_rank_step(gen, spec, dtype):
     for out in spawn_local(ranks.cuda_step_checks, world, device="cuda",
                            args=(spec, dtype), timeout=600):
         assert out["mesh"] == out["single"]
+
+
+@pytest.mark.parametrize("arch,mode", [("internlm2-1.8b", "fifo"),
+                                       ("granite-moe-3b-a800m", "bisect")])
+def test_meshed_train_step_equals_the_single_rank_step(gen, arch, mode):
+    import numpy as np
+    import torch_train_ranks as ranks
+    from repro_torch.launch.mesh import spawn_local
+
+    outs = spawn_local(ranks.cuda_train_checks, 2, device="cuda",
+                       args=(arch, mode), timeout=600)
+    for out in outs:
+        mesh, single = out["mesh"], out["single"]
+        for m, s in zip(mesh["metrics"], single["metrics"]):
+            np.testing.assert_allclose(m["loss"], s["loss"], rtol=1e-5)
+        for a, b in zip(mesh["params"], single["params"]):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+        for a, b in zip(mesh["keeps"], single["keeps"]):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+        assert mesh["digests"] == outs[0]["mesh"]["digests"]

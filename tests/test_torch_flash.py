@@ -35,6 +35,7 @@ from repro_torch.kernels import blocks, ops
 from repro_torch.kernels import flash_fwd as ff
 from repro_torch.models import attention
 from repro_torch.models import testing, transformer
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 GRAD = dict(atol=5e-4, rtol=1e-3)

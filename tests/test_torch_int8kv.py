@@ -50,6 +50,7 @@ from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
 from repro_torch.serving.server import Request, RunaheadServer
 from repro_torch.tree import leaves, leaves_with_path
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 QWEN, HYMBA, WHISPER = "qwen3-4b", "hymba-1.5b", "whisper-tiny"
 S, N_DECODE = 10, 6

@@ -24,6 +24,7 @@ from repro_torch.kernels import multi_mass as mm
 from repro_torch.kernels import ops
 from repro_torch.kernels import row_reduce as rr
 from repro_torch.kernels import runahead_threshold as rt
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 B = 3
 TOL = dict(rtol=1e-5, atol=1e-6)

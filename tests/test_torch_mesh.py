@@ -57,6 +57,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import shardings
 from repro_torch.launch.mesh import spawn_local
 from repro_torch.runtime import elastic
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 COUNT_KINDS = ("count_above", "count_below")
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)

@@ -49,6 +49,7 @@ from repro_torch.serving import engine
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
 from repro_torch.serving.server import Request, RunaheadServer
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 CONTEXT = 32
 TINY = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_head=16,

@@ -26,6 +26,7 @@ from repro.models import transformer as jtransformer
 from repro_torch.configs import registry
 from repro_torch.convert import params_from_jax
 from repro_torch.models import decode, testing, transformer
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 ARCH = "qwen3-4b"
 S, CONTEXT, N_DECODE = 6, 12, 3

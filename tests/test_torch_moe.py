@@ -53,6 +53,7 @@ from repro_torch.serving.scheduler import ContinuousScheduler
 from repro_torch.serving.server import Request, RunaheadServer
 from repro_torch.train import step
 from repro_torch.tree import leaves, unflatten
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 QWEN, GRANITE = "qwen2-moe-a2.7b", "granite-moe-3b-a800m"
 S, CONTEXT, N_DECODE = 6, 13, 2
@@ -140,27 +141,35 @@ def _moe_both(jcfg, cfg, jp, p, x, **kw):
 
 
 def _dispatch_both(jcfg, cfg, jp, p, x, mode, n_groups=1):
-    """Each group's dispatch: keep masks and slots bit for bit, gates and
-    the expert inputs within 1e-6."""
+    """Each group's dispatch: keep masks and slots bit for bit (the port
+    lays the groups' slots out one after another), gates and the expert
+    inputs within 1e-6."""
     T = x.shape[0] * x.shape[1]
     if T % n_groups:
         n_groups = 1
     tg = T // n_groups
     cap = moe._capacity(tg, cfg.n_experts, cfg.moe_top_k,
                         cfg.capacity_factor)
+    d = moe._dispatch(p, cfg, torch.from_numpy(x), mode, n_groups, "hopper",
+                      moe.NO_SPLIT)
+    e_cap = moe.padded_experts(cfg.n_experts) * cap
+    assert d.expert_in.shape[:3] == (n_groups, e_cap // cap, cap)
+    a_g = tg * cfg.moe_top_k
     keeps = []
-    for xt in x.reshape(n_groups, tg, -1):
+    for g, xt in enumerate(x.reshape(n_groups, tg, -1)):
         jin, jslot, jkeep, jgate, _, _, _ = _jdispatch(
             jp, jcfg, jnp.asarray(xt), cap, mode)
-        ein, slot, keep, gate, _, _ = moe._dispatch_group(
-            p, cfg, torch.from_numpy(xt), cap, mode)
-        np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
-        np.testing.assert_array_equal(slot.numpy(), np.asarray(jslot))
-        np.testing.assert_allclose(gate.numpy(), np.asarray(jgate),
+        part = slice(g * a_g, (g + 1) * a_g)
+        keep, slot = d.keep[part].numpy(), d.slot[part].numpy()
+        np.testing.assert_array_equal(keep, np.asarray(jkeep))
+        np.testing.assert_array_equal(
+            slot, np.where(keep, np.asarray(jslot) + g * e_cap,
+                           n_groups * e_cap))
+        np.testing.assert_allclose(d.a_gate[part].numpy(), np.asarray(jgate),
                                    atol=1e-6, rtol=0)
-        np.testing.assert_allclose(ein.numpy(), np.asarray(jin), atol=1e-6,
-                                   rtol=0)
-        keeps.append((keep.numpy(), slot.numpy(), cap))
+        np.testing.assert_allclose(d.expert_in[g].numpy(), np.asarray(jin),
+                                   atol=1e-6, rtol=0)
+        keeps.append((keep, slot - g * e_cap, cap))
     return keeps
 
 

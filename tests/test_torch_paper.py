@@ -30,6 +30,7 @@ from repro.kernels.taylor_eval import taylor_sincos_eval as jtaylor_kernel
 from repro_torch.core import bisect, paper_functions, runahead, solver
 from repro_torch.kernels import ops, taylor_eval
 from repro_torch.launch import paper
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}

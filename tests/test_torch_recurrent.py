@@ -55,6 +55,7 @@ from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
 from repro_torch.serving.server import Request, RunaheadServer
 from repro_torch.tree import leaves, leaves_with_path
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 XLSTM, HYMBA = "xlstm-1.3b", "hymba-1.5b"
 ARCHS = [XLSTM, HYMBA]

@@ -28,6 +28,7 @@ from repro_torch.launch import serve
 from repro_torch.models import testing
 from repro_torch.serving import engine
 from repro_torch.serving.sampler import SamplerConfig, masked_logits, sample
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 CONFIGS = [dict(top_k=40, top_p=0.9, target_entropy=3.0),
            dict(temperature=0.7, top_k=12),

@@ -20,6 +20,7 @@ from repro.core import solver as jsolver
 from repro.core import tuning
 from repro_torch.core import applications as apps
 from repro_torch.core import solver
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 B, V = 3, 1000
 BACKENDS = ["torch", "hopper"]

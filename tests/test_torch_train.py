@@ -60,6 +60,7 @@ from repro_torch.runtime.elastic import derive_mesh_shape
 from repro_torch.runtime.watchdog import StragglerWatchdog
 from repro_torch.train import step
 from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_head=16,
@@ -284,9 +285,9 @@ def test_train_steps_at_flash_min_seq_match_jax():
     kw = dict(remat=True, param_dtype="float32")
     data = JSyntheticTokens(vocab=TINY["vocab"], seq_len=4096,
                             global_batch=1)
-    jgrads = jax.grad(lambda p: jstep.loss_fn(
+    jgrads = jax.jit(jax.grad(lambda p: jstep.loss_fn(
         jcfg, p, jax.tree.map(jnp.asarray, data.batch_at(0)),
-        jstep.TrainConfig(**kw))[0])(jparams)
+        jstep.TrainConfig(**kw))[0]))(jparams)
     inputs = [p.detach().requires_grad_(True) for p in leaves(params)]
     loss, _ = step.loss_fn(cfg, unflatten(params, inputs), _batch(data, 0),
                            step.TrainConfig(**kw))
@@ -503,15 +504,27 @@ def test_derive_mesh_shape_matches_jax():
 # the launcher: kill and resume
 # ---------------------------------------------------------------------------
 
-def _run_train(ckpt_dir, extra):
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+def _start_train(ckpt_dir, extra) -> subprocess.Popen:
+    """The launcher in a process of its own, on one torch thread (as the
+    test modules run: ``tests/torch_one_thread.py``)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device",
            "cpu", "--arch", "internlm2-1.8b", "--reduced", "--steps", "8",
            "--batch", "2", "--seq", "16", "--clip-mode", "quantile",
            "--ckpt-dir", str(ckpt_dir), "--ckpt-every", "3",
            "--log-every", "1"] + extra
-    return subprocess.run(cmd, capture_output=True, text=True, env=env,
-                          timeout=300)
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _finished(proc: subprocess.Popen) -> subprocess.CompletedProcess:
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
 
 
 def _manifest(ckpt_dir, step_n):
@@ -529,13 +542,15 @@ def test_kill_and_resume_is_bit_exact(tmp_path):
     """Killed at step 4 (after the step-3 checkpoint), the rerun resumes
     from step 3, logs the same losses from there, and writes a final
     checkpoint equal, leaf for leaf, to an uninterrupted run's."""
-    straight = _run_train(tmp_path / "a", [])
+    # the uninterrupted run and the killed one side by side
+    procs = (_start_train(tmp_path / "a", []),
+             _start_train(tmp_path / "b", ["--die-at-step", "4"]))
+    straight, died = map(_finished, procs)
     assert straight.returncode == 0, straight.stderr[-2000:]
-    died = _run_train(tmp_path / "b", ["--die-at-step", "4"])
     assert died.returncode == 42, died.stderr[-2000:]
     assert "fault injection: dying at step 4" in died.stderr
     assert "step_3" in os.listdir(tmp_path / "b")
-    resumed = _run_train(tmp_path / "b", [])
+    resumed = _finished(_start_train(tmp_path / "b", []))
     assert resumed.returncode == 0, resumed.stderr[-2000:]
     assert "resumed from checkpoint step 3" in resumed.stderr
     assert "step_8" in os.listdir(tmp_path / "b")

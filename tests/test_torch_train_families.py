@@ -49,6 +49,7 @@ from repro_torch.models import testing
 from repro_torch.optim import adamw, schedule
 from repro_torch.train import step
 from repro_torch.tree import leaves, tree_map
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 B, SEQ, N_STEPS = 2, 160, 2
 LR = dict(lr=1e-3, warmup_steps=5, total_steps=50)

@@ -30,6 +30,7 @@ from test_torch_train_families import (
     _port_run,
     check_train_steps_match_jax,
 )
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 
 @pytest.fixture(autouse=True)

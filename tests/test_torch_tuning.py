@@ -28,6 +28,7 @@ from repro_torch.kernels import blocks
 from repro_torch.kernels import paged_attend as pa
 from repro_torch.kernels import row_reduce as rr
 from repro_torch.kernels import runahead_threshold as rt
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 TO_JAX = {"torch": "jnp", "hopper": "pallas", "auto": "auto"}
 KINDS = ["count_above", "count_below", "mass_at_or_above",
@@ -549,6 +550,33 @@ def test_package_surface_mirrors_jax():
     assert repro_torch.models.__all__ == repro.models.__all__
     for pkg in (repro_torch.core, repro_torch.serving, repro_torch.models):
         assert all(hasattr(pkg, name) for name in pkg.__all__)
+    # core/solver.py's public module-level names, beyond __all__
+    assert _public_names(jsolver) - SOLVER_JAX_ONLY <= _public_names(solver)
+    assert solver.kinds() == jsolver.kinds() == sorted(KINDS)
+
+
+# names of the JAX solver module with no counterpart in the port:
+# shard_map's version shim (the port's mesh runs over torch.distributed)
+SOLVER_JAX_ONLY = {"shard_map_compat"}
+
+
+def _public_names(module) -> set[str]:
+    """Names a module defines for its users: no underscore, no module, no
+    function or class imported from elsewhere, no ``__future__`` flag."""
+    import __future__
+    import inspect
+    import types
+
+    out = set()
+    for name, value in vars(module).items():
+        if (name.startswith("_") or isinstance(value, types.ModuleType)
+                or isinstance(value, __future__._Feature)):
+            continue
+        if ((inspect.isfunction(value) or inspect.isclass(value))
+                and value.__module__ != module.__name__):
+            continue
+        out.add(name)
+    return out
 
 
 # ---------------------------------------------------------------------------

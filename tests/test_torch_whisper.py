@@ -45,6 +45,7 @@ from repro_torch.serving.engine import generate
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
 from repro_torch.tree import leaves, leaves_with_path
+import torch_one_thread  # noqa: F401 (one torch thread)
 
 ARCH = "whisper-tiny"
 S, N_DECODE = 8, 8
