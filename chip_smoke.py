@@ -200,9 +200,10 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      --draft-len auto picks, beside what this run's phase 15 verify-step
      readings give, and a short speculative continuous serve through the
      launcher.
- 19. the xlstm family served: xlstm-1.3b at its width and depth (48
-     layers: 42 mLSTM, 6 sLSTM; d_model 2048, 4 heads of 512, vocab
-     50304; 3.23 GB of random bf16 weights from seed 0) through
+ 19. the xlstm family served: xlstm-1.3b at its width, its depth cut to
+     XLSTM_SERVE_LAYERS (24 of 48 layers: 21 mLSTM, 3 sLSTM; d_model
+     2048, 4 heads of 512, vocab 50304; random bf16 weights from seed 0,
+     the serve launcher's --layers) through
      launch.serve: one-shot with phase 5's traffic (graphed decode steps
      against the eager loop, bit for bit; K3-K5 as the tuner's decisions
      give), continuous on the dense ring (8 requests of 500 prompt
@@ -221,11 +222,12 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      width, the depth cut to the first run of each kind (within
      RECURRENT_F32_TOL of the largest |logit|); no token >= the vocab;
      peak memory.
- 20. the hymba family served, as phase 19: hymba-1.5b at its width and
-     depth (32 layers: 3 global and 29 sliding-window (1024) attention ||
-     SSM blocks, d_model 1600, 25/5 heads of 64, d_ff 5504, vocab 32001
-     padded to 32128; 2.79 GB of bf16), one-shot at batch 2 x 4096 prompt
-     tokens (K7 in the prefill, banded on 29 layers, 32 launches; the SWA
+ 20. the hymba family served, as phase 19: hymba-1.5b at its width, its
+     depth cut to HYMBA_SERVE_LAYERS (17 of 32 layers: 2 global and 15
+     sliding-window (1024) attention || SSM blocks, d_model 1600, 25/5
+     heads of 64, d_ff 5504, vocab 32001 padded to 32128), one-shot at
+     batch 2 x 4096 prompt tokens (K7 in the prefill, banded on 15
+     layers, 17 launches; the SWA
      ring wrapped), continuous with 1500-token prompts (past the window,
      under FLASH_MIN_SEQ); no token >= 32001 (the phantom columns sit at
      the row's max - 80 after the sampler's clamp).
@@ -297,6 +299,8 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
  27. mesh-native continuous serving: qwen3-4b at full width and depth
      on four ranks sharing the card (each draws the weights from the
      seed, ~8 GB of bf16, and the checksums agree), phase 9's traffic
+     with its budgets halved (MESH_NEW_TOKENS, since PR 27: a meshed step
+     is bound by its joins, so the steps set the run's time)
      paged (K6) under the 2x2, 4x1 and 1x4 meshes, and under 2x2 also on
      the dense ring and at step_horizon 4; the vocab meshes under the
      tuner's fixed decisions (vocab-sharded solves: K2, K4 and K5 on
@@ -305,17 +309,17 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      default mode.  Every
      rank's launches equal what the decisions give for its steps and its
      own admissions; every rank's streams agree; the 1x4 paged streams
-     equal phase 9's and the horizon-4 streams the per-step ones; the
-     others are counted against phase 9's (a bf16 forward over 2 or 1
-     rows rounds apart from one over 4).  The data splits are held on a
+     equal rank 0's graphed single-rank serve of the same traffic and the
+     horizon-4 streams the per-step ones; the others are counted against
+     it (a bf16 forward over 2 or 1 rows rounds apart from one over 4).  The data splits are held on a
      screened workload: eight greedy and top-k requests on prompts whose
      greedy streams keep a top-1/top-2 gap above 1e-2, served in f32
      under 2x2 (paged and dense) and 4x1 (paged), their streams equal
      to rank 0's single-rank serve; the witness: one prefill and decode
      step of 4 rows against the same over 2 and 1 rows, bf16 within
      VERIFY_REL_TOL of the row's largest |logit|, f32 beside it.  tok/s
-     beside phase 9's warm rate, ms a step and the share of the serve
-     in joins.  The steps run eagerly: a collective does not go into a
+     beside the single-rank serve's warm rate, ms a step and the share
+     of the serve in joins.  The steps run eagerly: a collective does not go into a
      CUDA graph under gloo.
      The line's kernels carry the mesh paths ("mesh-runahead": phase 26,
      K1; "mesh-serve": phase 27, K2-K6), each measured at its shape: the
@@ -357,6 +361,37 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      internlm2's step, K3 at the capacity cut's (48, 65536) gathered
      scores, K2 at the clip's (1, leaves); launches summed over the ranks
      of both drives.
+ 29. speculation under a mesh, in phase 27's group of ranks after its
+     serves (draft_len 4, the tuner's fixed decisions): phase 15's
+     n-gram workload at phase 27's budgets in bf16 under 2x2 paged and
+     4x1 dense, each rank's streams and counters equal, drafts
+     accepted, the streams counted against rank 0's single-rank serve
+     of the same workload, tok/s, acceptance, tokens a
+     verify step, the joins' share and (2x2 paged, profiled) the
+     device's idle share; a fused horizon (4, repeat-last drafts on the
+     card) under 2x2 paged equal to its per-step run; phase 27's
+     screened requests in f32 with speculation (phase 15's oracle
+     drafter of phase 27's streams) under 2x2 dense, 4x1 paged and 1x4
+     paged and dense equal to rank 0's single-rank speculative serve,
+     streams and acceptance counts, drafts accepted on every mesh.
+     K6 once a layer a verify step on the paged pools.  The line's
+     kernels carry "mesh-spec" rows: K2, K4, K5 on the 2x2 vocab shard of
+     a rank's verify grid (8, 75968), K3 on 4x1's grid rows (4, 151936),
+     K6 at 2 slots x 4 verify queries.
+ 30. ZeRO-1 training, in phase 28's group of ranks after its drives:
+     phase 28's internlm2-1.8b drive again with the optimizer state in
+     each rank's ZeRO-1 blocks, without and with the reduce-scatter
+     gradient constraint; losses equal on every rank and within
+     ZERO1_LOSS_RTOL of phase 28's all-reduce drive (all-reduce, or
+     gloo's all-reduce + slice: the same sums); every rank's params
+     bit for bit equal after each step's all-gather; each rank's state
+     bytes on the card (memory_allocated around its init) against the
+     replicated state's (ZERO1_OPT_RATIO); the dry run's predicted
+     argument bytes and peak of the same cell (launch/dryrun.py, on the
+     CPU's meta device) against the measured max_memory_allocated within
+     ZERO1_PEAK_TOL; K7 twice a layer and K2 every step.  The line's
+     kernels carry "mesh-train-zero1" rows: K7 at phase 28's shape, K2
+     at the ZeRO-1 clip's (1, leaves).
 
 Whole-path profiles record device activity only and read its raw events
 (``_profile_records``): a training step's ~10**5 kernels read back in
@@ -511,23 +546,31 @@ MOE_TRAIN_ARGV = ["--arch", "granite-moe-3b-a800m", "--steps",
                   "--capacity-mode", "bisect", "--clip-mode", "quantile",
                   "--log-every", "1", "--seed", "0"]
 MOE_TRAIN_BUDGET = 70e9
-# phases 19 and 20: the recurrent families at full width and depth with
+# phases 19 and 20: the recurrent families at full width with
 # phase 5's sampler, one-shot and on the dense ring (8 requests, n_new
 # uniform in [16, 32], two arriving a step, 4 slots) at step horizons 1
 # and 4.  xlstm: phase 5's one-shot traffic, 500-token prompts (not a
 # multiple of the mLSTM chunk); hymba: a 4096-token one-shot prompt (K7 in
 # the prefill, the SWA ring wrapped), 1500-token prompts (past the window,
 # under FLASH_MIN_SEQ)
-XLSTM_SERVE_ARGV = ["--arch", "xlstm-1.3b", "--batch", "4", "--prompt-len",
+# since PR 27 both serve at a cut depth, for the run's time limit (the
+# serve launcher's --layers): xlstm 48 -> 24 layers (3 of its 6 sLSTM),
+# hymba 32 -> 17 (two of its three global layers, as phase 23 trains it)
+XLSTM_SERVE_LAYERS, HYMBA_SERVE_LAYERS = 24, 17
+XLSTM_SERVE_ARGV = ["--arch", "xlstm-1.3b", "--layers",
+                    str(XLSTM_SERVE_LAYERS), "--batch", "4", "--prompt-len",
                     "64", "--new-tokens", "16"] + SAMPLER_ARGV
-XLSTM_CONT_ARGV = ["--arch", "xlstm-1.3b", "--continuous", "--requests", "8",
-                   "--slots", "4", "--arrival-burst", "2", "--prompt-len",
-                   "500", "--new-tokens", "32"] + SAMPLER_ARGV
-HYMBA_SERVE_ARGV = ["--arch", "hymba-1.5b", "--batch", "2", "--prompt-len",
+XLSTM_CONT_ARGV = ["--arch", "xlstm-1.3b", "--layers",
+                   str(XLSTM_SERVE_LAYERS), "--continuous", "--requests",
+                   "8", "--slots", "4", "--arrival-burst", "2",
+                   "--prompt-len", "500", "--new-tokens", "32"] + SAMPLER_ARGV
+HYMBA_SERVE_ARGV = ["--arch", "hymba-1.5b", "--layers",
+                    str(HYMBA_SERVE_LAYERS), "--batch", "2", "--prompt-len",
                     "4096", "--new-tokens", "16"] + SAMPLER_ARGV
-HYMBA_CONT_ARGV = ["--arch", "hymba-1.5b", "--continuous", "--requests", "8",
-                   "--slots", "4", "--arrival-burst", "2", "--prompt-len",
-                   "1500", "--new-tokens", "32"] + SAMPLER_ARGV
+HYMBA_CONT_ARGV = ["--arch", "hymba-1.5b", "--layers",
+                   str(HYMBA_SERVE_LAYERS), "--continuous", "--requests",
+                   "8", "--slots", "4", "--arrival-burst", "2",
+                   "--prompt-len", "1500", "--new-tokens", "32"] + SAMPLER_ARGV
 # the f32 check of prefill + decode steps against the forward, depth cut
 # to the first run of each kind: (prompt, positions compared) an arch (the
 # hymba prompt runs past its window of 1024); its tolerance, a fraction of
@@ -4107,8 +4150,9 @@ def _prefill_reproduces_forward(arch: str, gen) -> str:
 def phase_recurrent(phase: int, arch: str, oneshot_argv, cont_argv, gen,
                     describe: str) -> dict:
     """One recurrent family served as a user serves it: launch.serve's
-    setup and runs at full width and depth, random bf16 weights from seed
-    0; one-shot (its decode graph against the eager loop) and continuous
+    setup and runs at full width and the phase's depth (``--layers``),
+    random bf16 weights from seed 0; one-shot (its decode graph against
+    the eager loop) and continuous
     on the dense ring at step horizons 1 and 4 (streams equal; the
     graphed steps' streams equal the eager step body's); tok/s, idle
     share, admission ms, graphed decode steps against their byte bounds,
@@ -4159,7 +4203,7 @@ def phase_recurrent(phase: int, arch: str, oneshot_argv, cont_argv, gen,
     check(torch.equal(again.tokens, want),
           f"the graphed {arch} tokens differ from the eager loop's")
     n_tok = toks.numel()
-    say(f"{label} {family} serve: {arch} full width and depth ({describe}), "
+    say(f"{label} {family} serve: {arch} full width ({describe}), "
         f"{weights_gb:.2f} GB of bf16 weights drawn in {init_s:.1f}s | "
         f"one-shot batch {args.batch} x prompt {args.prompt_len}, "
         f"{n_tok} tokens: first {served.seconds:.3f}s (one eager step and "
@@ -5219,7 +5263,12 @@ MESH_CASES = tuple((t, 2) for t in MESH_TERMS) + ((1000, 3), (1000, 4))
 MESH_REPS = 9
 JOIN_PAYLOADS = (4, 256, 16384, 1 << 20)
 # phase 27: the meshes of four ranks on the one card, and the serves each
-# runs: (mesh, paged, step horizon), phase 9's traffic
+# runs: (mesh, paged, step horizon), phase 9's traffic with its budgets
+# halved since PR 27 (n_new uniform in [8, 16]: a meshed step on the one
+# card is bound by its joins, so the steps set the phase's time, and
+# phase 29 serves in the same group), held against rank 0's single-rank
+# serve of the same traffic
+MESH_NEW_TOKENS = 16
 MESH_SPECS = ("2x2", "4x1", "1x4")
 MESH_SERVES = tuple((m, True, 1) for m in MESH_SPECS) + (
     ("2x2", False, 1), ("2x2", True, HORIZON), ("2x2", False, HORIZON))
@@ -5277,6 +5326,42 @@ MESH_KILL_ARGV = ["--arch", "internlm2-1.8b", "--reduced", "--steps", "4",
 # AdamW moments were lost (the control: a copy of the checkpoint with mu
 # and nu zeroed) must miss it
 MESH_RESUME_RTOL = 2e-4
+
+
+# phase 29: speculation under a mesh (draft_len DRAFT_LEN) on phase 27's
+# group of ranks, under the tuner's fixed decisions (vocab-sharded verify
+# solves: K2, K4, K5 on the local shards; 4x1's "data": K3 on a rank's
+# grid rows).  Phase 15's n-gram workload in bf16 on each mesh, paged and
+# dense (streams counted against phase 15's: a forward over fewer rows
+# rounds apart in bf16); a fused horizon of repeat-last drafts against
+# its per-step run under 2x2 paged; phase 27's screened workload in f32
+# against rank 0's single-rank speculative serve
+# (between the bf16 and the f32 serves every mesh serves both caches)
+SPEC_MESH_SERVES = (("2x2", True), ("4x1", False))
+SPEC_PROFILED = ("2x2", True)
+SPEC_SCREENED_SERVES = (("2x2", False), ("4x1", True), ("1x4", True),
+                        ("1x4", False))
+
+# phase 30: ZeRO-1 data-parallel training (optimizer state in each rank's
+# zero1_block, without and with the reduce-scatter gradient constraint)
+# of phase 28's internlm2-1.8b drive at its depth, in phase 28's group of
+# ranks, from the same seed and batches; its losses against phase 28's
+# all-reduce drive within ZERO1_LOSS_RTOL: the gradients joined by the
+# same all-reduce, or (gloo over CUDA tensors) the reduce-scatter's
+# all-reduce + slice, so the losses are phase 28's (builder's chip runs
+# 5 and 6: a largest rel diff of 0 for both drives), and within
+# ZERO1_LOSS_RTOL_SCATTER where a backend's reduce_scatter_tensor sums
+# the ranks' bf16 gradients in another order; after every step the
+# ranks' params bit for bit equal (their replica digests, after the
+# all-gather); the ZeRO-1 state's bytes a rank against
+# the replicated state's (master, mu and nu: every leaf but the few that
+# stay whole is cut 2 ways); the dry run's predicted peak of the same
+# cell (launch/dryrun.py on a 2x1 recording mesh) against the measured
+# torch.cuda.max_memory_allocated, within ZERO1_PEAK_TOL of it
+ZERO1_LOSS_RTOL = 1e-6
+ZERO1_LOSS_RTOL_SCATTER = 1e-2
+ZERO1_OPT_RATIO = (0.45, 0.6)
+ZERO1_PEAK_TOL = 0.3
 
 
 def _mesh_argv(base: list[str], paged: bool, horizon: int) -> list[str]:
@@ -5450,6 +5535,14 @@ def _rank_serve(base: list[str], plan, cache: str) -> list:
     tuning.set_cache_path(cache)
     session = serve.setup(base)
     torch.cuda.empty_cache()           # the weights' draw leaves blocks
+    single = None
+    if rank == 0:
+        # the reference: this traffic served by one rank (graphed), warm
+        server = serve.server_for(session)
+        serve.run_continuous(session, server)
+        warm = serve.run_continuous(session, server)
+        n_tok = sum(len(x.tokens) for x in warm.completions)
+        single = dict(streams=streams(warm), tok_s=n_tok / warm.seconds)
     meshes = {}
     out = []
     for spec, paged, horizon, mode in plan:
@@ -5493,7 +5586,113 @@ def _rank_serve(base: list[str], plan, cache: str) -> list:
             decisions=sorted({f"{k.split('|')[0]} B={k.split('|')[1][2:]}: "
                               f"{d.placement} k{d.spec_k}x{d.rounds}"
                               for k, d in tuning.explain()})))
-    return dict(plan=out, screened=_rank_screened(session, meshes))
+    screened = _rank_screened(session, meshes)
+    reqs = screened.pop("requests")
+    # the oracle's book: phase 27's meshed streams of the screened requests
+    # (equal on every rank and to rank 0's single-rank serve)
+    recorded = screened["meshed"][SCREENED_SERVES[0]]
+    book = {tuple(r.prompt): recorded[r.rid] for r in reqs}
+    spec = _rank_spec(session, meshes, base, reqs, book)
+    return dict(plan=out, screened=screened, spec=spec, single=single)
+
+
+def _rank_spec(session, meshes: dict, base: list[str], screened,
+               book: dict) -> dict:
+    """One rank of phase 29, in phase 27's group: speculative serves
+    (draft_len DRAFT_LEN) under the tuner's fixed decisions.  Phase 15's
+    n-gram workload on each mesh of SPEC_MESH_SERVES (SPEC_PROFILED's
+    serve under the profiler); phase 9's traffic at horizon HORIZON with
+    repeat-last drafts and per step with the same drafter, under 2x2
+    paged; phase 27's screened requests in f32 under SPEC_SCREENED_SERVES
+    and, on rank 0, on its own, paged and dense, their drafts phase 15's
+    oracle of ``book`` (phase 27's streams of them: a greedy request's
+    drafts are all right, a sampled one's right where its draws agree, so
+    each verify step commits accepted rows and rolls back rejected ones
+    on every rank).  Each serve's streams,
+    counters, launches (on the card K6 once a layer a verify step on the
+    paged pool), joins and seconds."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import tuning
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.draft import RepeatLastDrafter
+    from repro_torch.serving.server import RunaheadServer
+
+    spec_argv = ["--draft-len", str(DRAFT_LEN)]
+    on_card = session.device.type == "cuda"
+    ngram = spec_requests(session)
+    traffic = serve.continuous_requests(session.cfg, session.args,
+                                        session.sampler)
+
+    def one(spec, paged, horizon, drafter, reqs, profile=False):
+        mesh = meshes[spec]
+        s = session._replace(mesh=mesh, args=serve.parse_args(
+            _mesh_argv(base, paged, horizon) + spec_argv))
+        server = serve.server_for(s)
+        sched = server.scheduler
+        if drafter == "repeat":
+            sched.drafter = RepeatLastDrafter()
+        check(type(sched.drafter).__name__ == (
+            "NGramDrafter" if drafter == "ngram" else "RepeatLastDrafter"),
+              f"phase 29 {spec}: drafter {sched.drafter}")
+        serve.sync(session.device)
+        ops.reset_launches()
+        forget_decisions()
+        mesh.stats.reset()
+        busy = wall = None
+        with tuning.disabled():
+            if profile:
+                (streams, secs, c), busy, wall, _, _ = profiled(
+                    lambda: timed_run(server, reqs))
+            else:
+                streams, secs, c = timed_run(server, reqs)
+        launches = dict(ops.LAUNCHES)
+        if paged and on_card:
+            check(launches["paged_attend"]
+                  == session.cfg.n_layers * c["decode_steps"],
+                  f"phase 29 {spec}: K6 launched {launches['paged_attend']}"
+                  f" times for {c['decode_steps']} verify steps")
+        return dict(spec=spec, paged=paged, horizon=horizon,
+                    drafter=drafter, streams=streams, seconds=secs,
+                    counts=c, launches=launches, joins=mesh.stats.count,
+                    join_s=mesh.stats.seconds, local=sched.n_local,
+                    prefills=sched.n_prefills, busy_ms=busy, wall_ms=wall,
+                    draft_len=sched.draft_len,
+                    tokens=sum(len(t) for t in streams.values()))
+
+    out = {"ngram": [one(spec, paged, 1, "ngram", ngram,
+                         (spec, paged) == SPEC_PROFILED)
+                     for spec, paged in SPEC_MESH_SERVES],
+           "fused": one("2x2", True, HORIZON, "repeat", traffic),
+           "per_step": one("2x2", True, 1, "repeat", traffic)}
+
+    def screened_serve(mesh, paged: bool) -> dict:
+        pages = dict(page_size=16, page_impl="hopper") if paged else {}
+        srv = RunaheadServer(session.cfg, session.params, n_slots=4,
+                             context=SCREENED_CONTEXT, mesh=mesh,
+                             backend="hopper", cache_dtype=torch.float32,
+                             compute_dtype=torch.float32,
+                             draft_len=DRAFT_LEN, **pages,
+                             drafter=Oracle(book, SCREENED_S,
+                                            session.cfg.vocab))
+        with tuning.disabled():
+            done = srv.run([dataclasses.replace(r) for r in screened])
+        sched = srv.scheduler
+        return dict(streams={c.rid: c.tokens for c in done},
+                    accepted=sched.n_accepted, drafted=sched.n_drafted)
+
+    out["screened"] = {(spec, paged): screened_serve(meshes[spec], paged)
+                       for spec, paged in SPEC_SCREENED_SERVES}
+    if meshes[MESH_SPECS[0]].rank == 0:
+        out["screened_single"] = {paged: screened_serve(None, paged)
+                                  for paged in (True, False)}
+        # phase 15's n-gram workload at this traffic by one rank (graphed)
+        s = session._replace(args=serve.parse_args(base + spec_argv))
+        out["single"] = timed_run(serve.server_for(s), ngram)[0]
+    return out
 
 
 def _rows_witness(cfg, params, prompts) -> dict:
@@ -5572,27 +5771,30 @@ def _rank_screened(session, meshes: dict) -> dict:
         return {c.rid: c.tokens for c in done}
 
     out = {"meshed": {(spec, paged): serve(meshes[spec], paged)
-                      for spec, paged in SCREENED_SERVES}}
+                      for spec, paged in SCREENED_SERVES},
+           "requests": reqs}
     if world.rank == 0:
         out["single"] = {paged: serve(None, paged) for paged in (True, False)}
         out["witness"] = _rows_witness(cfg, params, prompts)
     return out
 
 
-def phase_mesh_serve(per_step_streams: dict, single_tok_s: float) -> dict:
-    """Phase 27: phase 9's serve of qwen3-4b at full width and depth on
-    four ranks sharing the card (about 8 GB of bf16 weights each): paged
+def phase_mesh_serve() -> tuple[dict, list]:
+    """Phase 27: phase 9's serve of qwen3-4b at full width and depth, its
+    budgets halved (MESH_NEW_TOKENS), on four ranks sharing the card
+    (about 8 GB of bf16 weights each; the reference is rank 0's graphed
+    single-rank serve of the same traffic, warm): paged
     (K6) under the 2x2, 4x1 and 1x4 meshes, and 2x2 on the dense ring and
     at horizon 4.  The vocab meshes' serves run the tuner's fixed
     decisions (vocab-sharded solves: K2, K4, K5 on the local shards), 4x1
     its "data" placement (K3 on each rank's one row); one more 2x2 serve
-    in the default mode.  The streams: 1x4 paged == phase 9's (the same
-    rows in each forward); horizon 4 == per step; the others counted
-    against phase 9's (a forward over 2 or 1 rows rounds apart from one
-    over 4 in bf16; ``_rank_screened`` holds the data splits in f32 on
-    screened prompts).  tok/s beside phase 9's warm figure, and the share
-    of the serve spent in joins.  Returns the launches of the drive,
-    summed over ranks."""
+    in the default mode.  The streams: 1x4 paged == the reference's (the
+    same rows in each forward); horizon 4 == per step; the others counted
+    against the reference's (a forward over 2 or 1 rows rounds apart from
+    one over 4 in bf16; ``_rank_screened`` holds the data splits in f32 on
+    screened prompts).  tok/s beside the reference's, and the share of
+    the serve spent in joins.  Returns (the launches of the drive, summed
+    over ranks; each rank's phase 29 results)."""
     import torch
 
     from repro_torch.core import tuning
@@ -5607,7 +5809,11 @@ def phase_mesh_serve(per_step_streams: dict, single_tok_s: float) -> dict:
             for spec, paged, horizon in MESH_SERVES]
     plan.append(("2x2", True, 1, "default"))
     outs = spawn_local(_rank_serve, 4, device="cuda",
-                       args=(CONT_ARGV, plan, tuning.cache_path()))
+                       args=(CONT_ARGV + ["--new-tokens",
+                                          str(MESH_NEW_TOKENS)],
+                             plan, tuning.cache_path()))
+    ref = outs[0]["single"]
+    per_step_streams, single_tok_s = ref["streams"], ref["tok_s"]
     launches = {}
     for out in outs:
         for r in out["plan"]:
@@ -5627,16 +5833,16 @@ def phase_mesh_serve(per_step_streams: dict, single_tok_s: float) -> dict:
         share = max(x["join_s"] for x in rs) / wall
         say(f"phase 27 mesh {spec} {'paged' if paged else 'dense'} "
             f"h={horizon} [{mode}]: {r['tokens']} tokens in {wall:.3f}s = "
-            f"{r['tokens'] / wall:.1f} tok/s (phase 9 single rank, graphed "
-            f"warm: {single_tok_s:.1f}) | {r['steps']} steps, "
+            f"{r['tokens'] / wall:.1f} tok/s (rank 0 alone, graphed warm: "
+            f"{single_tok_s:.1f}) | {r['steps']} steps, "
             f"{wall / r['steps'] * 1e3:.1f} ms a step, joins "
             f"{share:.3f} of the serve ({max(x['joins'] for x in rs)} "
             f"collectives a rank) | {r['local']} slots a rank, prefills "
-            f"by rank {[x['prefills'] for x in rs]} | streams equal to phase "
-            f"9's: {same} of {len(per_step_streams)} | decisions: "
+            f"by rank {[x['prefills'] for x in rs]} | streams equal to the "
+            f"single rank's: {same} of {len(per_step_streams)} | decisions: "
             f"{'; '.join(r['decisions'])}")
     check(by[("1x4", True, 1, "fixed")]["streams"] == per_step_streams,
-          "the 1x4 mesh's paged streams differ from phase 9's")
+          "the 1x4 mesh's paged streams differ from the single rank's")
     for spec, paged, horizon, mode in plan:
         if horizon > 1:
             check(by[(spec, paged, horizon, mode)]["streams"]
@@ -5674,9 +5880,106 @@ def phase_mesh_serve(per_step_streams: dict, single_tok_s: float) -> dict:
         check(w[("bf16", n)][0] <= VERIFY_REL_TOL,
               f"a bf16 forward over {n} rows lies {w[('bf16', n)][0]:.3g} "
               f"of the row's largest |logit| from the 4-row forward")
-    say(f"phase 27: every rank's streams agree; 1x4 paged == phase 9's; "
+    say(f"phase 27: every rank's streams agree; 1x4 paged == one rank's; "
         f"horizon 4 == per step; screened 2x2 and 4x1 == single rank | "
         f"launches (all ranks) {launches} "
+        f"({time.perf_counter() - t0:.1f}s, phase 29's serves included)")
+    return launches, [out["spec"] for out in outs]
+
+
+def phase_mesh_spec(outs: list) -> dict:
+    """Phase 29: the speculative serves of phase 27's ranks (``_rank_spec``,
+    one dict a rank).  Every rank's streams agree; phase 15's n-gram
+    workload on each mesh of SPEC_MESH_SERVES, counted against rank 0's
+    single-rank serve of it (bf16), with tok/s, acceptance, tokens a verify step, the
+    join share of the serve and (SPEC_PROFILED's serve) the device's idle
+    share; the fused horizon == its per-step run; the screened f32 serves
+    == rank 0's single-rank speculative serve.  Returns the launches of
+    the serves, summed over the ranks."""
+    t0 = time.perf_counter()
+    spec_streams = outs[0]["single"]
+    launches = {}
+    for out in outs:
+        for r in out["ngram"] + [out["fused"], out["per_step"]]:
+            for name, n in r["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+    for i, (spec, paged) in enumerate(SPEC_MESH_SERVES):
+        rs = [out["ngram"][i] for out in outs]
+        r = rs[0]
+        for x in rs[1:]:
+            check(x["streams"] == r["streams"]
+                  and x["counts"] == r["counts"],
+                  f"phase 29 {spec}: the ranks' streams or counters differ")
+        wall = max(x["seconds"] for x in rs)
+        c = r["counts"]
+        same = sum(r["streams"][rid] == toks
+                   for rid, toks in spec_streams.items())
+        check(c["accepted"] > 0, f"phase 29 {spec}: no draft accepted")
+        idle = ""
+        if r["busy_ms"] is not None:
+            idle = (" | device idle share (profiled serve) by rank "
+                    + str([round(1 - x["busy_ms"] / x["wall_ms"], 3)
+                           for x in rs]))
+        say(f"phase 29 mesh {spec} {'paged' if paged else 'dense'} "
+            f"n-gram draft_len {r['draft_len']} [fixed]: {r['tokens']} "
+            f"tokens in {wall:.3f}s = {r['tokens'] / wall:.1f} tok/s | "
+            f"acceptance {c['accepted'] / max(1, c['drafted']):.4f} "
+            f"({c['accepted']} of {c['drafted']}), "
+            f"{(r['tokens'] - c['admissions']) / c['decode_steps']:.3f} "
+            f"tokens a verify step over {c['decode_steps']} steps | joins "
+            f"{max(x['join_s'] for x in rs) / wall:.3f} of the serve "
+            f"({max(x['joins'] for x in rs)} collectives a rank) | "
+            f"{r['local']} slots a rank | streams equal to one rank's: "
+            f"{same} of {len(spec_streams)}{idle}")
+    fused = [out["fused"] for out in outs]
+    per_step = [out["per_step"] for out in outs]
+    for f, p in zip(fused, per_step):
+        check(f["streams"] == p["streams"],
+              "phase 29: the fused speculative horizon's streams under 2x2 "
+              "differ from its per-step run's")
+        check(f["counts"]["decode_steps"] == HORIZON * f["counts"]["horizons"],
+              f"phase 29 fused counters {f['counts']}")
+    f, p = fused[0], per_step[0]
+    say(f"phase 29 fused: 2x2 paged, step_horizon {HORIZON}, repeat-last "
+        f"drafts, phase 9's traffic: streams == the per-step run's with "
+        f"the same drafter on every rank | fused "
+        f"{f['tokens'] / max(x['seconds'] for x in fused):.1f} tok/s "
+        f"({f['counts']['horizons']} horizons), per step "
+        f"{p['tokens'] / max(x['seconds'] for x in per_step):.1f} tok/s "
+        f"({p['counts']['decode_steps']} steps); acceptance "
+        f"{f['counts']['accepted']} of {f['counts']['drafted']}")
+    single = outs[0]["screened_single"]
+    for paged, x in single.items():
+        check(x["accepted"] > 0, f"phase 29 screened single-rank serve "
+              f"paged={paged}: no draft accepted ({x})")
+    accepted = []
+    for spec, paged in SPEC_SCREENED_SERVES:
+        got = outs[0]["screened"][(spec, paged)]
+        for rank, out in enumerate(outs):
+            check(out["screened"][(spec, paged)] == got,
+                  f"phase 29 screened {spec}: rank {rank}'s streams or "
+                  f"counts differ")
+        want = single[paged]
+        check(got["streams"] == want["streams"],
+              f"phase 29 screened f32 speculative serve under {spec} "
+              f"{'paged' if paged else 'dense'}: {got['streams']} differ "
+              f"from the single-rank serve's {want['streams']}")
+        check(got["accepted"] > 0
+              and (got["accepted"], got["drafted"])
+              == (want["accepted"], want["drafted"]),
+              f"phase 29 screened {spec} paged={paged}: accepted "
+              f"{got['accepted']} of {got['drafted']} drafts, the "
+              f"single-rank serve {want['accepted']} of {want['drafted']}")
+        accepted.append(f"{spec} {'paged' if paged else 'dense'} "
+                        f"{got['accepted']} of {got['drafted']}")
+    say(f"phase 29 screened: phase 27's {len(SCREENED_NEW)} screened "
+        f"requests in f32 with draft_len {DRAFT_LEN} (phase 15's oracle of "
+        f"phase 27's streams) under each mesh == rank 0's single-rank "
+        f"speculative serve (streams and acceptance counts), on every rank "
+        f"| accepted drafts: {'; '.join(accepted)} (single rank: paged "
+        f"{single[True]['accepted']} of {single[True]['drafted']}, dense "
+        f"{single[False]['accepted']} of {single[False]['drafted']}) | "
+        f"launches (all ranks, every phase 29 serve) {launches} "
         f"({time.perf_counter() - t0:.1f}s)")
     return launches
 
@@ -5929,12 +6232,16 @@ def _rank_mesh_train(runs, kill_argv: list[str], cache: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         forget_decisions()
+        opt_bytes = {}
+        init = train.adamw_init
+        train.adamw_init = _measured_init(init, opt_bytes)
         try:
             with MoERecorder() as rec:
                 res = train.main(argv + ["--layers", str(L)],
                                  on_step=on_step, on_state=on_state)
         finally:
             train_step.clip_by_quantile = clip
+            train.adamw_init = init
         launches = dict(ops.LAUNCHES)
         bisect = "--capacity-mode" in argv
         want = {("count_below", 1, False): 1}
@@ -5973,13 +6280,103 @@ def _rank_mesh_train(runs, kill_argv: list[str], cache: str) -> dict:
                             for t in rec.last)
                       if bisect and rank == 0 else None),
             dropped=rec.dropped_frac() if bisect else None,
-            slots=(min(rec.slots), max(rec.slots)) if rec.slots else None))
+            slots=(min(rec.slots), max(rec.slots)) if rec.slots else None,
+            opt_bytes=opt_bytes["bytes"]))
         del res
+    free_memory()
+    arch, argv, L = runs[0]
+    out["zero1"] = {constraint: _zero1_drive(argv, L, constraint)
+                    for constraint in (False, True)}
     free_memory()
     out["f32"] = {(arch, mode): _mesh_f32_check(arch, mode, mesh)
                   for arch, mode in MESH_F32_CASES}
     out["kill_ref"] = train.main(kill_argv, on_state=replicas)["losses"]
     return out
+
+
+def _measured_init(init, into: dict, **kw):
+    """``launch/train.py``'s ``adamw_init`` with ``kw`` (a ZeRO-1
+    ``mesh=``), recording the bytes the state took on the card
+    (``torch.cuda.memory_allocated`` around the call) in ``into``."""
+    import torch
+
+    def measured(params, **kwargs):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        state = init(params, **kwargs, **kw)
+        torch.cuda.synchronize()
+        into["bytes"] = torch.cuda.memory_allocated() - before
+        return state
+
+    return measured
+
+
+def _zero1_drive(argv: list[str], layers: int, constraint: bool) -> dict:
+    """One rank of a phase 30 drive: ``launch/train.py``'s main on
+    ``argv`` (phase 28's first drive: the same seed, batches and depth)
+    with the optimizer state as this rank's ZeRO-1 blocks and, with
+    ``constraint``, the reduce-scatter gradient constraint.  Its losses,
+    step seconds, joins, the state's bytes on the card, the peak of
+    allocated memory, the launches of every step (K7 2 a layer; the
+    clip's K2 held to the tuner's decision), the reduce-scatter's form,
+    the clip's last norms and each step's replica digest of the params
+    (``launch/train.py::replica_digest``, after the all-gather)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.shardings import zero1_grad_constraint
+    from repro_torch.runtime.elastic import make_elastic_mesh
+    from repro_torch.train import step as train_step
+
+    mesh = make_elastic_mesh(model_parallel=1)
+    init, make = train.adamw_init, train.make_train_step
+    clip = train_step.clip_by_quantile
+    opt_bytes, per_step, norms, used, digests = {}, [], {}, {}, []
+
+    def make_zero1(cfg, tc, lr_fn, mesh=None):
+        used["mesh"] = mesh              # the launcher's: the step's joins
+        return make(cfg, tc, lr_fn, mesh=mesh, grad_constraint=(
+            zero1_grad_constraint(mesh) if constraint else None))
+
+    def recorded_clip(grads, *a, **kw):
+        got = clip(grads, *a, **kw)
+        norms["last"] = got[1].detach()
+        return got
+
+    train.adamw_init = _measured_init(init, opt_bytes, mesh=mesh)
+    train.make_train_step = make_zero1
+    train_step.clip_by_quantile = recorded_clip
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    forget_decisions()
+    try:
+        res = train.main(argv + ["--layers", str(layers)],
+                         on_step=lambda i, m: per_step.append(
+                             dict(ops.LAUNCHES)),
+                         on_state=lambda i, state: digests.append(
+                             train.replica_digest(state["params"]).tolist()))
+    finally:
+        train.adamw_init, train.make_train_step = init, make
+        train_step.clip_by_quantile = clip
+    prev = {name: 0 for name in per_step[0]}
+    for i, snap in enumerate(per_step):
+        moved = {k: snap[k] - prev[k] for k in snap}
+        check(moved["flash_fwd"] == 2 * layers and moved["multi_count"] > 0,
+              f"phase 30 step {i}: launches {moved}")
+        prev = snap
+    return dict(losses=res["losses"], step_seconds=res["step_seconds"],
+                join_seconds=res["join_seconds"], world=res["world"],
+                opt_bytes=opt_bytes["bytes"],
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=dict(ops.LAUNCHES), note=decisions_note(),
+                clip=[(d.rounds, d.spec_k, d.placement) for (kind, _, _),
+                      (d, _) in decisions().items()
+                      if kind == "count_below"],
+                norms=norms["last"].cpu().numpy(),
+                form=used["mesh"].reduce_scatter_form,
+                param_digests=digests)
 
 
 def _zero_moments(src: str, dst: str) -> int:
@@ -6202,7 +6599,126 @@ def phase_mesh_train(gen) -> tuple[dict, dict]:
     for name, r in rows.items():
         say_row(f"phase 28 {name} mesh-train", r)
     say(f"phase 28: launches (both drives, all ranks) {launches} "
-        f"({time.perf_counter() - t0:.1f}s)")
+        f"({time.perf_counter() - t0:.1f}s, phase 30's drives included)")
+    z_launches, z_rows = phase_zero1(outs, gen, rows["flash_fwd"], runs[0])
+    return launches, rows, z_launches, z_rows
+
+
+def phase_zero1(outs: list, gen, k7_row: dict, run) -> tuple[dict, dict]:
+    """Phase 30: the ZeRO-1 drives of phase 28's ranks (``_zero1_drive``,
+    without and with the gradient constraint).  Every rank reports the
+    same losses, within ZERO1_LOSS_RTOL of phase 28's all-reduce drive of
+    the same run (ZERO1_LOSS_RTOL_SCATTER under a reduce_scatter_tensor),
+    and holds the same params after every step; each rank's ZeRO-1 state takes ZERO1_OPT_RATIO of the
+    replicated state's bytes on the card; the dry run's prediction of
+    the same cell (``launch/dryrun.py``: the launcher's TrainConfig, a
+    2x1 recording mesh, the run's batch and depth) against the measured
+    peak of allocated memory, within ZERO1_PEAK_TOL; K2 at the clip's
+    shape against its plain version (K7's row is phase 28's: the same
+    shape).  Returns (the drives' launches over the ranks, the
+    "mesh-train-zero1" kernel rows)."""
+    import dataclasses
+    import types
+
+    import torch
+
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.launch import cost, dryrun
+    from repro_torch.train.step import TrainConfig
+
+    t0 = time.perf_counter()
+    arch, argv, L = run
+    ref = outs[0]["runs"][0]
+    batch = int(argv[argv.index("--batch") + 1])
+    seq = int(argv[argv.index("--seq") + 1])
+    cfg = dataclasses.replace(get_config(arch), n_layers=L)
+    launches = {}
+    for constraint in (False, True):
+        rs = [out["zero1"][constraint] for out in outs]
+        r = rs[0]
+        for x in rs:
+            check(x["world"] == MESH_TRAIN_RANKS
+                  and x["losses"] == r["losses"]
+                  and all(map(math.isfinite, x["losses"])),
+                  f"phase 30 constraint={constraint}: losses by rank "
+                  f"{[y['losses'] for y in rs]}")
+            for name, n in x["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+        for x in rs:
+            check(len(x["param_digests"]) == MESH_TRAIN_STEPS
+                  and x["param_digests"] == r["param_digests"],
+                  f"phase 30 constraint={constraint}: after the all-gather "
+                  f"the ranks' params differ (replica digests by rank "
+                  f"{[len(y['param_digests']) for y in rs]} steps)")
+        worst = max(abs(a - b) / abs(b)
+                    for a, b in zip(r["losses"], ref["losses"]))
+        limit = (ZERO1_LOSS_RTOL
+                 if r["form"] in (None, "all_reduce+slice") or not constraint
+                 else ZERO1_LOSS_RTOL_SCATTER)
+        check(worst <= limit,
+              f"phase 30 constraint={constraint}: losses {r['losses']} vs "
+              f"phase 28's all-reduce drive {ref['losses']} (largest rel "
+              f"diff {worst:.3g}, limit {limit})")
+        ratios = [x["opt_bytes"] / out["runs"][0]["opt_bytes"]
+                  for x, out in zip(rs, outs)]
+        check(all(ZERO1_OPT_RATIO[0] <= q <= ZERO1_OPT_RATIO[1]
+                  for q in ratios),
+              f"phase 30: ZeRO-1 state / replicated state {ratios}")
+        if constraint:
+            check(r["form"] is not None,
+                  "phase 30: the constrained drive made no reduce-scatter")
+        pred = dryrun.run_cell(
+            arch, "train_4k", False, cfg=cfg,
+            mesh=cost.RecordingMesh((MESH_TRAIN_RANKS, 1),
+                                    ("data", "model")),
+            shape=ShapeSpec("phase30", seq, batch, "train"),
+            train_config=TrainConfig(clip_mode="quantile", remat=True),
+            zero_grads=constraint)
+        peak = max(x["peak_bytes"] for x in rs)
+        ratio = peak / pred["memory"]["peak_bytes"]
+        check(abs(ratio - 1) <= ZERO1_PEAK_TOL,
+              f"phase 30: measured peak {peak / 1e9:.2f} GB vs the dry "
+              f"run's {pred['memory']['peak_bytes'] / 1e9:.2f} GB")
+        timed = [max(x["step_seconds"][j] for x in rs)
+                 for j in range(1, MESH_TRAIN_STEPS)]
+        ms = statistics.median(timed) * 1e3
+        join = max(statistics.median(x["join_seconds"][1:]) for x in rs)
+        join_kind = (f"reduce-scatter: {r['form']}" if constraint
+                     else "all-reduce")
+        replicated = [round(o["runs"][0]["opt_bytes"] / 1e9, 3) for o in outs]
+        peaks = [round(x["peak_bytes"] / 1e9, 2) for x in rs]
+        say(f"phase 30 zero1 {arch} ({join_kind}): full width, depth {L}, {MESH_TRAIN_RANKS} ranks sharing "
+            f"cuda:0, global batch {batch} x {seq} | losses "
+            f"{[round(x, 4) for x in r['losses']]} vs phase 28's all-reduce "
+            f"drive {[round(x, 4) for x in ref['losses']]} (largest rel "
+            f"diff {worst:.3g} <= {limit}); the ranks' params equal bit "
+            f"for bit after each of the {MESH_TRAIN_STEPS} all-gathers | "
+            f"steps 1-"
+            f"{MESH_TRAIN_STEPS - 1} {[round(t * 1e3, 1) for t in timed]} ms "
+            f"(slowest rank), median {ms:.1f} ms, joins {join * 1e3:.1f} ms "
+            f"a step ({join * 1e3 / ms:.3f}) | optimizer state on the card "
+            f"by rank {[round(x['opt_bytes'] / 1e9, 3) for x in rs]} GB vs "
+            f"replicated {replicated} GB: {[round(q, 4) for q in ratios]} (dry run's ZeRO-1 state "
+            f"{pred['memory']['opt_state_bytes'] / 1e9:.3f} GB) | peak "
+            f"allocated by rank {peaks} GB; the dry run predicts arguments "
+            f"{pred['memory']['argument_bytes'] / 1e9:.2f} GB, peak "
+            f"{pred['memory']['peak_bytes'] / 1e9:.2f} GB (trace "
+            f"{pred['trace_s']}s): measured / predicted {ratio:.3f} "
+            f"(tolerance {ZERO1_PEAK_TOL}) | dry-run collectives "
+            f"{pred['collectives']}, {pred['collective_bytes'] / 1e9:.3f} GB"
+            f" | clip {r['clip']}; {r['note']}")
+    r = outs[0]["zero1"][True]
+    rounds, spec_k, _ = r["clip"][0]
+    rows = {"flash_fwd": dict(k7_row, note=k7_row["note"]
+                              + "; phase 30's drives run it at this shape"),
+            "multi_count": _k2_clip_row(
+                gen, torch.from_numpy(r["norms"]).cuda(),
+                types.SimpleNamespace(rounds=rounds, spec_k=spec_k),
+                "phase 30's last step (internlm2-1.8b, ZeRO-1, rank 0)")}
+    for name, row in rows.items():
+        say_row(f"phase 30 {name} mesh-train-zero1", row)
+    say(f"phase 30: launches (both drives, all ranks) {launches} "
+        f"({time.perf_counter() - t0:.1f}s of reporting)")
     return launches, rows
 
 
@@ -6332,6 +6848,86 @@ def _mesh_rows(gen) -> dict:
     return {"mesh-serve": rows, "mesh-runahead": {"taylor_sincos_eval": k1}}
 
 
+def _spec_mesh_rows(gen) -> dict:
+    """The kernels at phase 29's shapes, each against its plain version:
+    K2, K4, K5 on the 2x2 mesh's vocab shard of a verify grid (2 slots a
+    rank x DRAFT_LEN rows, V / 2 = 75968 columns, M = 31); K3 on the 4x1
+    mesh's one slot's grid rows (DRAFT_LEN, 151936; "data"); K6 on the
+    2x2 paged pool's verify (2 slots a rank, DRAFT_LEN queries each).
+    Returns {"mesh-spec": {kernel: row}}."""
+    import torch
+
+    from repro_torch.kernels import multi_count as mc
+    from repro_torch.kernels import multi_entropy as me
+    from repro_torch.kernels import multi_mass as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attend as pa
+    from repro_torch.kernels import runahead_threshold as rt
+
+    B, V, M = 2 * DRAFT_LEN, PATH_V // 2, PATH_M
+    x = torch.randn((B, V), generator=gen, device="cuda") * 2.0
+    lo, hi = x.amin(-1, keepdim=True), x.amax(-1, keepdim=True)
+    taus = lo + (hi - lo) * torch.rand((B, M), generator=gen, device="cuda")
+    shard = (f"({B}, {V}) x M={M}, the 2x2 mesh's vocab shard of a rank's "
+             f"verify grid")
+    rows = {"multi_count": _shard_row(
+        "multi_count", lambda: ops.multi_count(x, taus),
+        lambda: mc.multi_count_plain(x, taus), True,
+        bound_ms(4 * (x.numel() + 2 * taus.numel()), 2 * x.numel() * M),
+        shard)}
+    p = torch.softmax(x, dim=-1)
+    pt = p.amin(-1, keepdim=True) + (p.amax(-1, keepdim=True) - p.amin(
+        -1, keepdim=True)) * torch.rand((B, M), generator=gen, device="cuda")
+    rows["multi_mass"] = _shard_row(
+        "multi_mass", lambda: ops.multi_mass(p, pt),
+        lambda: mm.multi_mass_plain(p, pt), False,
+        bound_ms(4 * (p.numel() + 2 * pt.numel()), 3 * p.numel() * M),
+        shard)
+    z = x - x.amax(-1, keepdim=True)
+    ts = torch.exp(torch.empty((B, M), device="cuda").uniform_(
+        -3.0, 3.0, generator=gen))
+    pairs = z.numel() * M
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_ms = pairs / (sms * SFU_PER_CLOCK * max_sm_clock_hz()) * 1e3
+    rows["multi_entropy_moments"] = _shard_row(
+        "multi_entropy_moments", lambda: ops.multi_entropy_moments(z, ts),
+        lambda: me.multi_entropy_moments_plain(z, ts), False,
+        max((sfu_ms, "operations"),
+            bound_ms(4 * (z.numel() + 3 * ts.numel()), 4 * pairs)), shard)
+    x1 = torch.randn((DRAFT_LEN, PATH_V), generator=gen, device="cuda") * 2.0
+    kw = dict(k_target=40, rounds=8, spec_k=5)
+    n_cmp = 2 + 1 + kw["rounds"] * kw["spec_k"]
+    rows["runahead_topk_threshold"] = _shard_row(
+        "runahead_topk_threshold",
+        lambda: ops.runahead_topk_threshold(x1, **kw),
+        lambda: rt.runahead_topk_threshold_plain(x1, **kw), True,
+        bound_ms(4 * (x1.numel() + 2 * DRAFT_LEN),
+                 2 * x1.numel() * n_cmp),
+        f"({DRAFT_LEN}, {PATH_V}), the 4x1 mesh's one slot's verify grid "
+        f"rows (\"data\")",
+        library=lambda: torch.topk(x1, 40, dim=-1),
+        library_name="torch.topk", plain_calls=2)
+    sh = dict(K6_PATH, B=2, L=DRAFT_LEN, pos=K6_PATH["pos"][:2])
+    args = _k6_inputs(gen, sh, torch.bfloat16)
+    C, P = sh["C"], sh["P"]
+    pages = sum(min(args[2].shape[1], -(-(q + DRAFT_LEN) // P))
+                for q in sh["pos"])
+    n_bytes = (2 * args[4].numel() * 2
+               + pages * P * sh["nkv"] * sh["hd"] * 4)
+    n_ops = 4 * sh["nq"] * sh["hd"] * sum(
+        min(C, q + 1 + j) for q in sh["pos"] for j in range(DRAFT_LEN))
+    rows["paged_attend"] = _shard_row(
+        "paged_attend", lambda: ops.paged_attend(*args, context=C),
+        lambda: pa.paged_attend_plain(*args, context=C), False,
+        bound_ms(n_bytes, n_ops),
+        f"B=2 slots a rank x L={DRAFT_LEN} verify queries (the 2x2 paged "
+        f"pool), bf16 within 1e-2 (phase 3's bf16 tolerance)",
+        plain_calls=2, tol=dict(rtol=1e-2, atol=1e-2))
+    for name, r in rows.items():
+        say_row(f"phase 29 {name} (mesh spec shape)", r)
+    return {"mesh-spec": rows}
+
+
 def _path_kernels(path_rows: dict, launches_by_path: dict) -> list:
     """The JSON line's entries of ``path_rows`` ({path: {kernel: row}}),
     each with its launch count on its path."""
@@ -6404,15 +7000,17 @@ def main() -> int:
         phase_tuning(gen, per_step_streams, verify_ms)
         launches_by_path.update(phase_recurrent(
             19, "xlstm-1.3b", XLSTM_SERVE_ARGV, XLSTM_CONT_ARGV, gen,
-            "48 layers: 42 mLSTM and 6 sLSTM, d_model 2048, 4 heads of 512, "
-            "vocab 50304"))
+            f"{XLSTM_SERVE_LAYERS} of its 48 layers: 21 mLSTM and 3 sLSTM, "
+            "d_model 2048, 4 heads of 512, vocab 50304"))
         launches_by_path.update(phase_recurrent(
             20, "hymba-1.5b", HYMBA_SERVE_ARGV, HYMBA_CONT_ARGV, gen,
-            "32 layers: 3 global and 29 sliding-window (1024) attention || "
-            "SSM blocks, d_model 1600, 25/5 heads of 64, SSM state 16, d_ff "
-            "5504, vocab 32001 padded to 32128"))
+            f"{HYMBA_SERVE_LAYERS} of its 32 layers: 2 global and 15 "
+            "sliding-window (1024) attention || SSM blocks, d_model 1600, "
+            "25/5 heads of 64, SSM state 16, d_ff 5504, vocab 32001 padded "
+            "to 32128"))
         launches_by_path["hymba-prefill"] = launches_by_path["hymba-serve"]
-        check(launches_by_path["hymba-prefill"]["flash_fwd"] == 32,
+        check(launches_by_path["hymba-prefill"]["flash_fwd"]
+              == HYMBA_SERVE_LAYERS,
               "K7 did not run once a layer in hymba's 4096-token prefill")
         launches_by_path.update(phase_whisper(gen))
         launches_by_path.update(phase_int8(gen))
@@ -6423,10 +7021,13 @@ def main() -> int:
         with tuning.disabled():
             path_rows.update(_mesh_rows(gen))
         launches_by_path["mesh-runahead"] = phase_mesh_runahead()
-        launches_by_path["mesh-serve"] = phase_mesh_serve(per_step_streams,
-                                                          single_tok_s)
-        launches_by_path["mesh-train"], path_rows["mesh-train"] = (
-            phase_mesh_train(gen))
+        launches_by_path["mesh-serve"], spec_outs = phase_mesh_serve()
+        launches_by_path["mesh-spec"] = phase_mesh_spec(spec_outs)
+        with tuning.disabled():
+            path_rows.update(_spec_mesh_rows(gen))
+        (launches_by_path["mesh-train"], path_rows["mesh-train"],
+         launches_by_path["mesh-train-zero1"],
+         path_rows["mesh-train-zero1"]) = phase_mesh_train(gen)
 
     # the path whose run each kernel's launch count is read on: K2 runs
     # where the served requests' top_k differ (phase 13)

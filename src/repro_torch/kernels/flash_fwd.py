@@ -200,7 +200,7 @@ class FlashFwd(torch.autograd.Function):
         ctx.save_for_backward(q, k, v)
         ctx.geometry = dict(window=window, n_rep=n_rep, q_chunk=q_chunk,
                             kv_chunk=kv_chunk)
-        if q.device.type == "cpu":
+        if q.device.type != "cuda":          # the CPU, or the meta trace
             return flash_fwd_plain(q, k, v, window=window, n_rep=n_rep,
                                    q_chunk=q_chunk, kv_chunk=kv_chunk)
         return flash_fwd_cuda(q, k, v, window=window, n_rep=n_rep)

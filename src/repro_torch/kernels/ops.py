@@ -49,9 +49,11 @@ def reset_launches() -> None:
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True for CPU operands, False for CUDA ones; raises otherwise."""
+    """True for CPU operands, False for CUDA ones; raises otherwise.
+    Meta operands (shapes only: the dry run's trace, ``launch/cost.py``)
+    count as CPU ones, so the trace runs the plain versions."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds in ({"cpu"}, {"meta"}):
         return True
     if kinds == {"cuda"}:
         return False

@@ -29,9 +29,9 @@ returns their results in rank order; a rank that fails ends the launch
 with its traceback.  Under ``torchrun`` a program calls
 ``init_from_env`` instead.
 
-Every collective the port's solves and serving issue goes through
-``Mesh.all_reduce``, ``Mesh.all_gather``, ``Mesh.broadcast`` or
-``Mesh.broadcast_object``, which
+Every collective the port's solves, serving and training issue goes
+through ``Mesh.all_reduce``, ``Mesh.all_gather``, ``Mesh.reduce_scatter``,
+``Mesh.broadcast`` or ``Mesh.broadcast_object``, which
 count them and their host seconds in ``Mesh.stats`` (a collective waits
 for its result, so host seconds are its cost on the critical path).
 """
@@ -107,6 +107,7 @@ class Mesh:
         self.coords = dict(zip(axis_names, _unravel(self.rank, dims)))
         self.device = local_device()
         self.stats = JoinStats()
+        self.reduce_scatter_form: str | None = None
         # decisions every rank of a group agreed on (core/solver.py)
         self.agreed: dict = {}
         # frozenset(axes) -> (ranks of my group, process group or None)
@@ -209,6 +210,44 @@ class Mesh:
         with self._counted():
             dist.all_gather(parts, t, group=group)
         return torch.cat(parts, dim=0)
+
+    def reduce_scatter(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """This rank's block of the sum of ``t`` over the group of
+        ``axes``: dim 0 of ``t`` cut into one block a member in the
+        group's order (the tiling ``all_gather`` undoes), the block at
+        this rank's index summed over the members.  A new tensor.
+
+        NCCL, and gloo on CPU tensors, run ``reduce_scatter_tensor``
+        (``reduce_scatter_single`` where torch has it);
+        gloo over CUDA tensors (ranks sharing a card) runs an all-reduce
+        and keeps the block: its reduce-scatter is not relied on for
+        device tensors.  ``reduce_scatter_form`` names the form of the
+        last call."""
+        group = self._group(axes)
+        ways = self.axis_size(axes)
+        if t.shape[0] % ways:
+            raise ValueError(f"dim 0 of {tuple(t.shape)} does not split "
+                             f"{ways} ways over {axes}")
+        if group is None:
+            return t.clone()
+        size = t.shape[0] // ways
+        t = t.contiguous()
+        gloo_cuda = (t.is_cuda and dist.get_backend(group) == "gloo")
+        with self._counted():
+            if gloo_cuda:
+                self.reduce_scatter_form = "all_reduce+slice"
+                out = t.clone()
+                dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+                out = out[self.axis_index(axes) * size:][:size].clone()
+            else:
+                self.reduce_scatter_form = "reduce_scatter_tensor"
+                out = torch.empty((size,) + tuple(t.shape[1:]),
+                                  dtype=t.dtype, device=t.device)
+                # reduce_scatter_single in newer torch, the same call
+                rs = getattr(dist, "reduce_scatter_single",
+                             dist.reduce_scatter_tensor)
+                rs(out, t, group=group)
+        return out
 
     def broadcast(self, t: torch.Tensor, axes, src_index: int
                   ) -> torch.Tensor:

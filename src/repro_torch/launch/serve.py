@@ -62,11 +62,14 @@ vocab-sharded sampler solves (``serving/scheduler.py``).  Outside
 over CUDA tensors when there are fewer GPUs than ranks, NCCL when each
 has its own); ``--host-devices N`` runs N gloo ranks on the CPU, the
 counterpart of JAX's forced host devices.  Every rank draws the same
-weights from ``--seed``; only rank 0 logs:
+weights from ``--seed``; only rank 0 logs.  ``--page-size``,
+``--step-horizon``, ``--speculative``, ``--draft-len`` and
+``--adaptive-draft`` serve under the mesh as without it (rank 0
+resolves ``auto`` and broadcasts it):
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen3-4b --reduced --continuous --mesh 2x2 --host-devices 4 \
-      --requests 6 --slots 4 --prompt-len 8 --new-tokens 6
+      --requests 6 --slots 4 --prompt-len 8 --new-tokens 6 --draft-len 3
 
 The MoE archs (``--arch qwen2-moe-a2.7b``, ``granite-moe-3b-a800m``)
 serve one-shot and on the dense ring (per step or fused), routing with
@@ -104,6 +107,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import logging
 import sys
 import time
@@ -117,6 +121,7 @@ from repro_torch import tree
 from repro_torch.configs.registry import get_config
 from repro_torch.core import tuning
 from repro_torch.kernels import ops
+from repro_torch.launch import env
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode import verify_supported
@@ -271,10 +276,15 @@ def server_for(session: Session) -> RunaheadServer:
     ``prompt + new + max_draft_len - 1``): a verify that wrapped the ring
     would overwrite rows its shallower queries still read.  A fused
     speculative serve drafts on the card by repeating the current token:
-    host drafters cannot run inside a horizon's graph."""
+    host drafters cannot run inside a horizon's graph.  Under a mesh the
+    mesh's first rank resolves L and K and broadcasts them, so every
+    rank captures and joins at the same ones."""
     cfg, params, args, sc = session[:4]
     draft_len = resolve_draft_len(args, cfg)
     step_horizon = resolve_step_horizon(args, draft_len)
+    if session.mesh is not None:
+        draft_len, step_horizon = session.mesh.broadcast_object(
+            (draft_len, step_horizon), session.mesh.axis_names, 0)
     fused_spec = step_horizon > 1 and draft_len > 1
     auto = args.adaptive_draft and draft_len > 1
     max_draft_len = max(draft_len, 8) if auto else draft_len
@@ -336,12 +346,14 @@ def run_continuous(session: Session,
     if s.max_draft_len > 1:
         log.info("speculation: %d drafted, %d accepted (rate %.3f), %.2f "
                  "tokens per decode step, %d draft_len retunes (now %d), "
-                 "%.1f ms drafting on the host", counts["drafted"],
+                 "%.1f ms drafting on the host%s", counts["drafted"],
                  counts["accepted"],
                  counts["accepted"] / max(1, counts["drafted"]),
                  (n_tok - counts["admissions"])
                  / max(1, counts["decode_steps"]),
-                 counts["draft_retunes"], s.draft_len, 1e3 * s.draft_s)
+                 counts["draft_retunes"], s.draft_len, 1e3 * s.draft_s,
+                 "" if s.mesh is None else
+                 " (counts over every slot of the mesh, host ms rank 0's)")
     log.info("latency p50=%.0fms p99=%.0fms max=%.0fms; max queue wait %d "
              "steps", 1e3 * float(np.quantile(lat, 0.5)),
              1e3 * float(np.quantile(lat, 0.99)), 1e3 * float(lat[-1]),
@@ -365,6 +377,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the config's first N layers (a depth cut; "
+                         "every width stays the config's)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=32)
@@ -472,6 +487,8 @@ def setup(argv=None) -> Session:
                                f"this rank of the mesh runs on {mesh.device}")
         device = mesh.device
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, torch.bfloat16)
     if mesh is not None:
@@ -524,6 +541,7 @@ def _rank_main(argv) -> ServedContinuous:
 
 
 def main(argv=None) -> Served | ServedContinuous:
+    env.configure()
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     if args.mesh is not None and not dist.is_initialized():

@@ -232,3 +232,83 @@ def local_block(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
         size = n // ways
         x = x.narrow(dim, mesh.axis_index(axes) * size, size)
     return x
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 shards as the port places them
+# ---------------------------------------------------------------------------
+
+def zero1_local_spec(path, leaf, mesh) -> tuple:
+    """The spec of a ZeRO-1 optimizer-state leaf as the port places it:
+    ``zero1_spec``'s ``data`` entry alone.  The port's training has no
+    tensor-parallel layout yet, so the ``model`` axis (and ``pod``) hold
+    replicas; a leaf with no dim that ``data`` divides stays whole on
+    every rank, as JAX's ``zero1_spec`` leaves it replicated."""
+    return tuple("data" if s == "data" else None
+                 for s in zero1_spec(path, leaf, mesh))
+
+
+def zero1_dim(path, leaf, mesh) -> int | None:
+    """The dim of ``leaf`` that ``zero1_local_spec`` cuts over ``data``
+    (None where it stays whole, or on a mesh of one data rank)."""
+    if mesh.shape.get("data", 1) == 1:
+        return None
+    spec = zero1_local_spec(path, leaf, mesh)
+    return spec.index("data") if "data" in spec else None
+
+
+def data_block(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` cut over ``data`` on ``dim`` (a view)."""
+    size = x.shape[dim] // mesh.shape["data"]
+    return x.narrow(dim, mesh.axis_index("data") * size, size)
+
+
+def zero1_block(x: torch.Tensor, path, mesh) -> torch.Tensor:
+    """This rank's ZeRO-1 block of ``x`` (a view; ``x`` itself where the
+    leaf stays whole)."""
+    dim = zero1_dim(path, x, mesh)
+    return x if dim is None else data_block(x, dim, mesh)
+
+
+def zero1_sharding_fn(mesh, device, prefix: str = "opt"):
+    """A checkpoint ``sharding_fn`` (``checkpoint/manager.py``) that
+    restores a whole optimizer state as this rank's ZeRO-1 shards: a
+    leaf named ``<prefix>/<master|mu|nu|error>/<param path>`` is cut by
+    ``zero1_local_spec`` of its param path, every other leaf (``step``,
+    the params) lands whole on ``device``."""
+    from repro_torch.checkpoint.manager import Placement
+
+    fields = {"master", "mu", "nu", "error"}
+
+    def fn(name: str, arr):
+        keys = _keys(name)
+        head = keys[:len(_keys(prefix))] if prefix else ()
+        rest = keys[len(head):]
+        if head == _keys(prefix) and rest and rest[0] in fields:
+            return Placement(device, zero1_local_spec(rest[1:], arr.shape,
+                                                      mesh), mesh)
+        return device
+
+    return fn
+
+
+class Zero1Grads:
+    """The ZeRO-1 gradient constraint (JAX's ``dryrun.py`` ``--zero-grads``
+    ``grad_constraint``: every gradient constrained to its optimizer
+    state's ``zero1_spec``), as ``train/step.py::make_train_step``'s
+    ``grad_constraint=``: the step joins the gradients by one
+    reduce-scatter onto the shards (``Mesh.reduce_scatter``) instead of
+    an all-reduce of which each rank keeps its shard."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __repr__(self) -> str:
+        return f"Zero1Grads({self.mesh.shape})"
+
+
+def zero1_grad_constraint(mesh) -> Zero1Grads:
+    """The ZeRO-1 gradient constraint on ``mesh`` (mirrors
+    ``repro/launch/dryrun.py``'s ``grad_constraint`` under
+    ``--zero-grads``)."""
+    return Zero1Grads(mesh)

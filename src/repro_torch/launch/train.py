@@ -54,6 +54,7 @@ from repro_torch import tree
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.launch import env
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import resolve_device, sync
 from repro_torch.models.testing import reduced_config
@@ -175,6 +176,7 @@ def main(argv=None, *, on_step=None, on_state=None):
     with ``{"params", "opt"}``.  A ``--host-devices`` launch
     returns rank 0's result; its ``--die-at-step`` raises SystemExit(42)
     here once every rank has exited 42."""
+    env.configure()
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     if args.mesh == "elastic" and not dist.is_initialized():

@@ -33,14 +33,22 @@ codes, ``_dequantize_kv`` reads the ring back in the compute dtype before
 the attention (plain PyTorch, as the JAX package's plain XLA does).  The
 paged pool refuses int8, as JAX's does.
 
+``REPRO_DISABLE_FLASH=1`` (read at import into ``FLASH_ENABLED``, as
+JAX's switch for A/B dry runs) turns the flash branch off: every length
+takes the full-materialisation ``_sdpa``.  It acts off the card only (the
+CPU, and the dry run's meta trace): on CUDA operands, where the branch is
+K7, ``attend`` raises rather than move K7's work to plain PyTorch.
+
 Not ported yet: the tensor-parallel head padding of ``attend``'s flash
-branch.  The port's mesh (``launch/mesh.py``) serves with replicated
-weights and shards slots and sampler solves, not heads, so no head is
-padded; the padding comes with tensor-parallel training.
+branch.  The port's mesh (``launch/mesh.py``) serves and trains with
+replicated weights and shards slots, batches and sampler solves, not
+heads, so no head is padded; the padding comes with the tensor-parallel
+layout, the next slice of the port (ROADMAP).
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import torch
@@ -55,6 +63,9 @@ from repro_torch.models.layers import NEG_INF, apply_rope, dense_init, rmsnorm
 
 Params = dict
 FLASH_MIN_SEQ = 4096     # full-materialisation attention below this
+# REPRO_DISABLE_FLASH=1 restores the full-materialisation attention at
+# every length off the card (JAX's A/B switch; ``_flash_branch``)
+FLASH_ENABLED = os.environ.get("REPRO_DISABLE_FLASH") != "1"
 
 
 def init_attention(gen, cfg: ModelConfig, dtype, lead: tuple = (),
@@ -233,7 +244,8 @@ def attend(
 ):
     """Full-sequence attention (train / prefill / encoder / cross).
 
-    At ``S >= FLASH_MIN_SEQ`` causal self-attention runs K7 through
+    At ``S >= FLASH_MIN_SEQ`` (``_flash_branch``) causal
+    self-attention runs K7 through
     ``ops.flash_fwd`` with implicit positions 0..S-1, grouped GQA and K/V
     never repeated (the JAX function's single-device branch); below it,
     and for cross attention (K/V projected from ``kv_src``, no RoPE, no
@@ -246,7 +258,7 @@ def attend(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    if causal and kv_src is None and S >= FLASH_MIN_SEQ:
+    if causal and kv_src is None and _flash_branch(S, q.device):
         out = ops.flash_fwd(q, k, v, window=window, n_rep=n_rep)
     else:
         mask = None
@@ -263,6 +275,23 @@ def attend(
     if return_kv:
         return out, (k, v)   # k already roped: the decode cache layout
     return out
+
+
+def _flash_branch(S: int, device: torch.device) -> bool:
+    """Whether causal self-attention over ``S`` positions on ``device``
+    takes the flash branch: at ``S >= FLASH_MIN_SEQ`` unless
+    ``REPRO_DISABLE_FLASH=1`` turned it off, which it may only off the
+    card: on CUDA the branch is K7, and the switch raises there."""
+    if S < FLASH_MIN_SEQ:
+        return False
+    if FLASH_ENABLED:
+        return True
+    if device.type == "cuda":
+        raise ValueError(
+            "REPRO_DISABLE_FLASH=1 would run K7's work in plain PyTorch on "
+            "the card; it switches the flash branch off only on the CPU "
+            "and the dry run's meta trace")
+    return False
 
 
 def _decode_sdpa(q, k, v, mask, n_rep: int):

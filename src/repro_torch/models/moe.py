@@ -30,6 +30,7 @@ token's k expert outputs (``.at[a_token].add``), the port sums the
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, NamedTuple
 
@@ -188,6 +189,21 @@ class BatchSplit(NamedTuple):
 
 NO_SPLIT = BatchSplit(None, (), 1, 0)     # the whole batch on this device
 
+_CAP_AT_BOUND = [False]
+
+
+@contextlib.contextmanager
+def capacity_at_bound():
+    """Within it, a split rank's expert buffer holds the whole batch's
+    capacity a (group, expert), the bound of the count ``_dispatch``
+    otherwise reads back from the device: for a trace that cannot read
+    one (the dry run's, on meta tensors, enters it)."""
+    prev, _CAP_AT_BOUND[0] = _CAP_AT_BOUND[0], True
+    try:
+        yield
+    finally:
+        _CAP_AT_BOUND[0] = prev
+
 
 def batch_split() -> BatchSplit:
     """The split the active ``axis_rules`` give the logical "batch" axis
@@ -237,7 +253,8 @@ def _dispatch(p: Params, cfg: ModelConfig, x: torch.Tensor,
     ``g * e_pad * cap + e * cap + pos``), with no read of the device, so
     a decode step holding the layer can be captured in a CUDA graph;
     under one, ``cap_l`` is the largest count this rank keeps in one
-    (group, expert), read back to size its buffer.
+    (group, expert), read back to size its buffer (within
+    ``capacity_at_bound()``, the capacity: no read).
     """
     B, S, D = x.shape
     T_l = B * S
@@ -287,7 +304,7 @@ def _dispatch(p: Params, cfg: ModelConfig, x: torch.Tensor,
         a_pos = a_pos - torch.where(a_group == 0, earlier[a_expert], 0)
     key = a_group * e_pad + a_expert
     cap_l = cap
-    if split.ways > 1:
+    if split.ways > 1 and not _CAP_AT_BOUND[0]:
         counts = torch.zeros(n_lg * e_pad, dtype=torch.int32, device=dev)
         counts = counts.scatter_add(0, key, keep.to(torch.int32))
         cap_l = max(1, int(counts.max()))

@@ -18,9 +18,9 @@ state after the last real step.
 
 sLSTM, scalar memory per channel: a strictly serial recurrence, a loop
 over time on gates whose projections are computed for the whole sequence
-up front.  JAX's ``REPRO_SLSTM_NAIVE=1`` switch, which keeps the
-projections inside the recurrence and computes the same function, is not
-ported.
+up front.  ``REPRO_SLSTM_NAIVE=1`` (JAX's A/B switch, read at each call)
+keeps the projections inside the recurrence instead: per step (B, D) @
+(D, D) matmuls, the same function.
 
 Decode is an O(1) state update for both.  States are f32 whatever the
 compute dtype; ``m`` starts at -1e30.
@@ -28,6 +28,7 @@ compute dtype; ``m`` starts at -1e30.
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, NamedTuple
 
 import torch
@@ -245,14 +246,18 @@ def _slstm_recurrence(z, log_i, log_f, o, state: SLSTMState):
 def slstm_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 return_state: bool = False):
     """Full-sequence sLSTM: gates for the whole sequence, then a loop over
-    time (the serial part speculation cannot remove)."""
+    time (the serial part speculation cannot remove); with
+    ``REPRO_SLSTM_NAIVE=1`` each step projects its own input."""
     up = x @ p["w_up"].to(x.dtype)
     xm, zg = up.chunk(2, dim=-1)
-    gates = _slstm_gates(p, xm)                     # (B, S, D) each
     state = init_slstm_state(cfg, x.shape[0], x.device)
+    naive = os.environ.get("REPRO_SLSTM_NAIVE") == "1"
+    gates = None if naive else _slstm_gates(p, xm)  # (B, S, D) each
     hs = []
     for t in range(x.shape[1]):
-        h, state = _slstm_recurrence(*(g[:, t] for g in gates), state)
+        g_t = (_slstm_gates(p, xm[:, t]) if naive
+               else [g[:, t] for g in gates])
+        h, state = _slstm_recurrence(*g_t, state)
         hs.append(h)
     h = torch.stack(hs, dim=1).to(x.dtype) * F.silu(zg)
     out = h @ p["w_down"].to(x.dtype)

@@ -13,6 +13,16 @@ the state is 22.7 GB of f32; a second copy would not fit beside the model
 on an 80 GB card.  Only ``step`` (a 0-d int32 tensor) is replaced, so the
 returned state is a new NamedTuple over the same tensors.  The update's
 arithmetic runs in the JAX function's order.
+
+ZeRO-1 (``adamw_init(params, mesh=)`` on a mesh of more than one ``data``
+rank): master, mu, nu and the residual hold only this rank's block of
+each leaf (``launch/shardings.py::zero1_block``, JAX's
+``make_opt_state_shardings`` with its ``model`` axis held as replicas),
+``step`` stays whole; ``adamw_update`` then takes the gradient blocks
+and views of the params' blocks, and the train step all-gathers the
+params (``train/step.py``).  ``zero1_whole`` gathers a sharded state
+whole: the caller that owns a ZeRO-1 state calls it before it hands the
+state to ``checkpoint/manager.py``, which writes trees as they are.
 """
 from __future__ import annotations
 
@@ -21,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.solver import true_div
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 
 class AdamWState(NamedTuple):
@@ -36,8 +46,16 @@ def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
-def adamw_init(params, *, compress: str | None = None) -> AdamWState:
+def adamw_init(params, *, compress: str | None = None,
+               mesh=None) -> AdamWState:
+    """The state of ``params``: whole, or under a ``mesh`` this rank's
+    ZeRO-1 blocks of every leaf (``step`` whole)."""
     device = leaves(params)[0].device
+    if mesh is not None:
+        from repro_torch.launch.shardings import zero1_block
+
+        params = unflatten(params, [zero1_block(p, path, mesh)
+                                    for path, p in leaves_with_path(params)])
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=device),
         master=tree_map(lambda p: p.detach().to(torch.float32, copy=True),
@@ -46,6 +64,30 @@ def adamw_init(params, *, compress: str | None = None) -> AdamWState:
         nu=tree_map(_zeros_f32, params),
         error=tree_map(_zeros_f32, params) if compress == "int8_ef" else None,
     )
+
+
+def zero1_whole(state: AdamWState, params, mesh) -> AdamWState:
+    """A ZeRO-1 ``state`` gathered whole on every rank (one all-gather
+    over ``data`` a sharded leaf, in the shard's dtype); ``params`` gives
+    each leaf's path and whole shape.  A collective: every rank calls it."""
+    from repro_torch.launch.shardings import zero1_dim
+
+    paths = [(path, p.shape) for path, p in leaves_with_path(params)]
+
+    def whole(tree):
+        if tree is None:
+            return None
+        out = []
+        for (path, shape), t in zip(paths, leaves(tree)):
+            dim = zero1_dim(path, shape, mesh)
+            if dim is not None and tuple(t.shape) != tuple(shape):
+                t = mesh.all_gather(t.movedim(dim, 0), "data").movedim(0,
+                                                                      dim)
+            out.append(t.contiguous())
+        return unflatten(tree, out)
+
+    return AdamWState(state.step, whole(state.master), whole(state.mu),
+                      whole(state.nu), whole(state.error))
 
 
 def _quantize_int8(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -83,7 +83,15 @@ state, while the device state is placed by SERVE_RULES (``slot_policy``):
 
 Meshed steps and horizons run eagerly: their joins are collectives, which
 no CUDA graph holds under gloo (the one-card mesh).  Speculative decoding
-(``draft_len`` > 1) under a mesh is not ported and raises.
+(``draft_len`` > 1) runs under a mesh as JAX's verify branch does: each
+rank drafts for its own slots (every rank holds every slot's history, so
+the model-axis ranks of a data group write the same drafts), verifies
+them over its (B_local, L) grid with ``verify_slots`` under the slot
+policy (the rank of a data group draws the same noise: each holds the
+request's generator, seeded alike), and rolls back its own ring rows or
+pool partition.  The accept counts come back in the gathered packed
+rows, so every rank books the same ``n_drafted`` and ``n_accepted`` and
+takes the same ``draft_len`` retune.
 """
 from __future__ import annotations
 
@@ -291,10 +299,6 @@ class ContinuousScheduler:
         if max_draft_len < draft_len:
             raise ValueError(
                 f"max_draft_len {max_draft_len} < draft_len {draft_len}")
-        if mesh is not None and max_draft_len > 1:
-            raise NotImplementedError(
-                "speculative decoding (draft_len > 1) under a mesh is not "
-                "ported: serve speculatively without mesh=")
         if max_draft_len > 1 and not verify_supported(cfg):
             raise ValueError(
                 "speculative decoding (draft_len > 1) needs an all-dense "
@@ -711,9 +715,10 @@ class ContinuousScheduler:
                 self.cfg, self.params, feed, self.pos, self.cache,
                 compute_dtype=self.compute_dtype)
         coins, uniforms = (None, None) if greedy_only else noise
-        out, n_acc = verify_slots(grid, draft, [None] * self.n_local,
-                                  self.knobs, coins=coins,
-                                  uniforms=uniforms, **kw)
+        with solver.mesh_policy(self._policy):
+            out, n_acc = verify_slots(grid, draft, [None] * self.n_local,
+                                      self.knobs, coins=coins,
+                                      uniforms=uniforms, **kw)
         n_acc = torch.where(active, n_acc, 0)
         # live slots commit 1 + accepted rows; inactive slots get every
         # row restored, bit-frozen as in the serial branch
@@ -762,12 +767,12 @@ class ContinuousScheduler:
         return torch.stack(packed)
 
     def _write_drafts(self, L: int) -> None:
-        """The host drafter's L - 1 tokens for every live slot, into the
-        static draft buffer (one host-to-device copy); host time counted
-        in ``draft_s``."""
+        """The host drafter's L - 1 tokens for every live slot of this
+        rank, into the static draft buffer (one host-to-device copy); host
+        time counted in ``draft_s``."""
         t0 = time.perf_counter()
         host = torch.zeros((self.n_local, L - 1), dtype=torch.int64)
-        for i, info in enumerate(self.slots):
+        for i, info in enumerate(self._local(self.slots)):
             if info is not None:
                 host[i] = torch.tensor(self.drafter(info.context, L - 1),
                                        dtype=torch.int64)

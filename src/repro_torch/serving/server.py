@@ -70,8 +70,9 @@ class RunaheadServer:
     Keyword arguments go to ``ContinuousScheduler`` (slots, context,
     solver statics, dtypes, paging, ``step_horizon``, speculation:
     ``draft_len``, ``drafter``, ``draft_len_auto``, ``max_draft_len``,
-    and ``mesh``).  Under a mesh every rank runs this loop on the same
-    requests (SPMD); each rank's completions are the same tokens.
+    and ``mesh``, with which every speculation argument combines).  Under
+    a mesh every rank runs this loop on the same requests (SPMD); each
+    rank's completions are the same tokens.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,

@@ -33,6 +33,24 @@ GSPMD reduces in the gradient dtype too; gloo reduces bf16).  The clip
 replicated gradient as on one device, so every rank's params and state
 stay bit-identical, and one small all-reduce of the scalar metrics gives
 every rank JAX's global loss, ce, z_loss and aux.
+
+ZeRO-1 (an optimizer state from ``adamw_init(params, mesh=)``, whose
+master, mu, nu and residual are this rank's ``zero1_block`` of each
+leaf): a step does four things in order.  It joins the gradients: by
+default the same bucketed all-reduce, of which each rank keeps its
+blocks; with ``grad_constraint=launch/shardings.py::
+zero1_grad_constraint(mesh)`` (JAX's ``--zero-grads`` constraint of
+``launch/dryrun.py``) one reduce-scatter onto the blocks a bucket
+(``Mesh.reduce_scatter``; the leaves that stay whole are all-reduced).
+It clips over the blocks: the ranks' per-leaf sums of squares are
+joined by one all-reduce over ``data`` (the global norm; the quantile
+clip's per-leaf norms), and the quantile clip's bisection runs under a
+``MeshPolicy`` whose vocab axis is ``data``, so that where the leaf
+count divides the data ranks each rank's K2 counts its share of the
+norms and the counts are summed (the counts are exact, so the bracket
+is the single-rank step's bit for bit).  It updates AdamW on the
+blocks, writing the new params into each rank's block of them, and
+all-gathers the params over ``data`` in buckets of their dtype.
 """
 from __future__ import annotations
 
@@ -41,14 +59,15 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.solver import true_div
+from repro_torch.core.solver import MeshPolicy, true_div
 from repro_torch.distributed.sharding import TRAIN_RULES, axis_rules
 from repro_torch.launch.mesh import data_axes
+from repro_torch.launch.shardings import Zero1Grads, data_block, zero1_dim
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import forward
 from repro_torch.optim.adamw import AdamWState, adamw_update
 from repro_torch.optim.clip import clip_by_global_norm, clip_by_quantile
-from repro_torch.tree import leaves, tree_map, unflatten
+from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,13 +142,9 @@ def rank_rows(batch: dict, n_microbatches: int, mesh) -> dict:
     return out
 
 
-def all_reduce_mean_(tensors: list, mesh, axes) -> list:
-    """Each tensor replaced IN PLACE by its mean over the ranks of
-    ``axes``: one sum all-reduce per bucket (consecutive tensors of one
-    dtype, at most ``GRAD_BUCKET_BYTES``), each counted in
-    ``mesh.stats``, then a true division by the rank count.  Every rank
-    ends with the same bits.  Returns ``tensors``."""
-    ways = mesh.axis_size(axes)
+def _buckets(tensors: list) -> list[list[int]]:
+    """Consecutive tensors of one dtype, at most ``GRAD_BUCKET_BYTES`` a
+    bucket (a larger tensor is a bucket of its own): their indices."""
     buckets, cur, size = [], [], 0
     for i, t in enumerate(tensors):
         nbytes = t.numel() * t.element_size()
@@ -141,7 +156,17 @@ def all_reduce_mean_(tensors: list, mesh, axes) -> list:
         size += nbytes
     if cur:
         buckets.append(cur)
-    for idx in buckets:
+    return buckets
+
+
+def all_reduce_mean_(tensors: list, mesh, axes) -> list:
+    """Each tensor replaced IN PLACE by its mean over the ranks of
+    ``axes``: one sum all-reduce per bucket (consecutive tensors of one
+    dtype, at most ``GRAD_BUCKET_BYTES``), each counted in
+    ``mesh.stats``, then a true division by the rank count.  Every rank
+    ends with the same bits.  Returns ``tensors``."""
+    ways = mesh.axis_size(axes)
+    for idx in _buckets(tensors):
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
         flat = true_div(mesh.all_reduce(flat, axes), ways)
         for i, part in zip(idx, flat.split([tensors[i].numel()
@@ -150,9 +175,59 @@ def all_reduce_mean_(tensors: list, mesh, axes) -> list:
     return tensors
 
 
+def _rows_by_rank(t: torch.Tensor, dim: int, ways: int) -> torch.Tensor:
+    """``t`` as (ways, n): row r the flattened block r of ``dim``."""
+    return t.movedim(dim, 0).reshape(ways, -1)
+
+
+def _from_rows(rows: torch.Tensor, like_shape, dim: int) -> torch.Tensor:
+    """``rows`` (flattened blocks of ``dim``, in order) back in the layout
+    of a leaf of ``like_shape`` whose ``dim`` they cut: one block, or
+    every rank's (``_rows_by_rank``'s inverse)."""
+    moved = list(like_shape)
+    moved.insert(0, moved.pop(dim))
+    moved[0] = -1
+    return rows.reshape(moved).movedim(0, dim)
+
+
+def reduce_scatter_mean(tensors: list, dims: list, mesh, axes) -> list:
+    """Each rank's ``data`` block (on ``dims``) of each tensor's mean over
+    the ranks of the data ``axes``: per bucket one reduce-scatter over
+    ``data`` (``Mesh.reduce_scatter``; before it an all-reduce over the
+    other data axes, ``pod``), then a true division by the rank count.
+    Returns the blocks, new tensors."""
+    ways, total = mesh.shape["data"], mesh.axis_size(axes)
+    others = tuple(a for a in axes if a != "data")
+    out = [None] * len(tensors)
+    for idx in _buckets(tensors):
+        rows = torch.cat([_rows_by_rank(tensors[i], dims[i], ways)
+                          for i in idx], dim=1)
+        if others:
+            rows = mesh.all_reduce(rows, others)
+        mine = true_div(mesh.reduce_scatter(rows, "data"), total)[0]
+        sizes = [tensors[i].numel() // ways for i in idx]
+        for i, part in zip(idx, mine.split(sizes)):
+            out[i] = _from_rows(part, tensors[i].shape, dims[i])
+    return out
+
+
+def all_gather_blocks_(tensors: list, dims: list, mesh) -> None:
+    """Each tensor rewritten IN PLACE from every ``data`` rank's block of
+    it (this rank's block is already in place): per bucket of one dtype
+    one all-gather over ``data`` of the flattened blocks."""
+    ways = mesh.shape["data"]
+    for idx in _buckets(tensors):
+        mine = torch.cat([data_block(tensors[i], dims[i], mesh)
+                          .movedim(dims[i], 0).reshape(-1) for i in idx])
+        rows = mesh.all_gather(mine[None], "data")          # (ways, S)
+        sizes = [tensors[i].numel() // ways for i in idx]
+        for i, part in zip(idx, rows.split(sizes, dim=1)):
+            tensors[i].copy_(_from_rows(part, tensors[i].shape, dims[i]))
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig,
                     lr_fn: Callable[[torch.Tensor], torch.Tensor],
-                    mesh=None):
+                    mesh=None, grad_constraint=None):
     """Returns train_step(params, opt_state, batch) -> (params, state,
     metrics).  ``params`` and the state are updated in place and returned;
     ``batch`` is {"tokens", "targets"}: (B, S) integer tensors on the
@@ -161,11 +236,20 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
 
     Under a ``mesh`` whose data axes hold D > 1 ranks, ``batch`` is the
     global batch on every rank, and the step is the data-parallel one of
-    the module's docstring; a mesh of one data rank is the one-device
-    step."""
+    the module's docstring (ZeRO-1 where ``opt_state`` holds blocks); a
+    mesh of one data rank is the one-device step.  ``grad_constraint``
+    (``launch/shardings.py::zero1_grad_constraint``, JAX's argument of
+    the same name) joins the gradients by reduce-scatter; it needs a
+    ZeRO-1 state."""
     axes = data_axes(mesh) if mesh is not None else ()
     if mesh is not None and mesh.axis_size(axes) == 1:
         mesh = None
+    if grad_constraint is not None and not isinstance(grad_constraint,
+                                                      Zero1Grads):
+        raise TypeError(f"unknown grad_constraint {grad_constraint!r}: "
+                        "the port has the ZeRO-1 constraint "
+                        "(launch/shardings.py::zero1_grad_constraint)")
+    layout = []                      # each leaf's ZeRO-1 dim, or None
 
     def grads_of(params, batch):
         inputs = [p.detach().requires_grad_(True) for p in leaves(params)]
@@ -197,11 +281,47 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
             return loss, metrics, grads
         return grads_of(params, batch)
 
-    def meshed_grads(params, batch):
+    def zero1_layout(params, opt_state) -> list:
+        """Each leaf's ZeRO-1 dim where ``opt_state`` holds its block,
+        else None (read once: the state's layout is fixed)."""
+        if not layout:
+            for (path, p), m in zip(leaves_with_path(params),
+                                    leaves(opt_state.master)):
+                dim = (zero1_dim(path, p, mesh) if mesh is not None
+                       else None)
+                sharded = tuple(m.shape) != tuple(p.shape)
+                if sharded and (dim is None or m.shape[dim] * mesh.shape[
+                        "data"] != p.shape[dim]):
+                    raise ValueError(f"optimizer state leaf {path} "
+                                     f"{tuple(m.shape)} is not the ZeRO-1 "
+                                     f"block of {tuple(p.shape)}")
+                layout.append(dim if sharded else None)
+        return layout
+
+    def join(grads, dims: list):
+        """The gradients joined over the data axes: whole leaves, and
+        under ZeRO-1 (``dims``) this rank's blocks of the sharded ones."""
+        flat = leaves(grads)
+        if grad_constraint is None or all(d is None for d in dims):
+            all_reduce_mean_(flat, mesh, axes)
+            return unflatten(grads, [
+                g if d is None else data_block(g, d, mesh)
+                for g, d in zip(flat, dims)])
+        whole = [i for i, d in enumerate(dims) if d is None]
+        all_reduce_mean_([flat[i] for i in whole], mesh, axes)
+        cut = [i for i, d in enumerate(dims) if d is not None]
+        blocks = reduce_scatter_mean([flat[i] for i in cut],
+                                     [dims[i] for i in cut], mesh, axes)
+        out = list(flat)
+        for i, b in zip(cut, blocks):
+            out[i] = b
+        return unflatten(grads, out)
+
+    def meshed_grads(params, batch, dims):
         with axis_rules(TRAIN_RULES, mesh):
             loss, metrics, grads = local_grads(
                 params, rank_rows(batch, tc.n_microbatches, mesh))
-        all_reduce_mean_(leaves(grads), mesh, axes)
+        grads = join(grads, dims)
         means = all_reduce_mean_(
             [torch.stack([loss.float()] + [metrics[k].float()
                                            for k in METRIC_KEYS[1:]])],
@@ -209,24 +329,64 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
         metrics = dict(zip(METRIC_KEYS[1:], means[1:]))
         return means[0], metrics, grads
 
+    def joined_sq_sums(grads, dims) -> torch.Tensor:
+        """Per leaf, the sum of squares of the whole gradient: the
+        blocks' joined over ``data`` (one all-reduce of the (n_leaves,)
+        sums); a whole leaf's its own."""
+        local = torch.stack([torch.sum(torch.square(g.float()))
+                             for g in leaves(grads)])
+        cut = torch.tensor([d is not None for d in dims],
+                           device=local.device)
+        joined = mesh.all_reduce(torch.where(cut, local, 0.0), "data")
+        return torch.where(cut, joined, local)
+
+    def joined_norms(grads, dims) -> torch.Tensor:
+        """Per leaf, the norm of the whole gradient: a whole leaf's as
+        ``clip_by_quantile`` takes it, a sharded one's from the joined
+        sums of squares."""
+        whole = torch.stack([torch.linalg.vector_norm(g.float().reshape(-1))
+                             for g in leaves(grads)])
+        cut = torch.tensor([d is not None for d in dims],
+                           device=whole.device)
+        return torch.where(cut, torch.sqrt(joined_sq_sums(grads, dims)),
+                           whole)
+
     def train_step(params, opt_state: AdamWState, batch):
+        dims = zero1_layout(params, opt_state)
+        zero1 = any(d is not None for d in dims)
         if mesh is not None:
-            loss, metrics, grads = meshed_grads(params, batch)
+            loss, metrics, grads = meshed_grads(params, batch, dims)
         else:
             loss, metrics, grads = local_grads(params, batch)
 
         if tc.clip_mode == "quantile":
-            grads, _ = clip_by_quantile(grads, 0.95)
+            norms = policy = None
+            if zero1:
+                norms = joined_norms(grads, dims)
+                policy = MeshPolicy(mesh, vocab_axis="data", data_axes=())
+            grads, _ = clip_by_quantile(grads, 0.95, norms=norms,
+                                        policy=policy)
         else:
-            grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
+            norm = (torch.sqrt(joined_sq_sums(grads, dims).sum()) if zero1
+                    else None)
+            grads, gnorm = clip_by_global_norm(grads, tc.clip_norm,
+                                               norm=norm)
             metrics = {**metrics, "grad_norm": gnorm}
 
         lr = lr_fn(opt_state.step)
-        params, opt_state = adamw_update(
+        targets = (unflatten(params, [
+            p if d is None else data_block(p, d, mesh)
+            for p, d in zip(leaves(params), dims)]) if zero1 else params)
+        _, opt_state = adamw_update(
             grads, opt_state, lr,
             b1=tc.b1, b2=tc.b2, weight_decay=tc.weight_decay,
-            compress=tc.compress, params=params,
+            compress=tc.compress, params=targets,
         )
+        if zero1:
+            cut = [i for i, d in enumerate(dims) if d is not None]
+            flat = leaves(params)
+            all_gather_blocks_([flat[i] for i in cut],
+                               [dims[i] for i in cut], mesh)
         metrics = {**metrics, "loss": loss, "lr": lr}
         return params, opt_state, metrics
 

@@ -703,21 +703,19 @@ def test_rejections(model):
                            sampler=SamplerConfig(backend="hopper")))
     srv.submit(Request("z", [1, 2], 2))        # the failed submits left no trace
     assert [c.rid for c in srv.drain()] == ["z"]
-    # speculative decoding and the mesh are ported: these construct (the
-    # fused one with the device-capable drafter a fused horizon needs);
-    # speculation under a mesh still raises
+    # speculative decoding and the mesh are ported, together too: these
+    # construct (the fused one with the device-capable drafter a fused
+    # horizon needs)
+    mesh = parse_mesh("1x1")
     for kw in (dict(draft_len=2),
                dict(draft_len=2, step_horizon=4,
-                    drafter=RepeatLastDrafter())):
+                    drafter=RepeatLastDrafter()),
+               dict(draft_len=2, mesh=mesh)):
         sch = ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
                                   **kw)
         assert sch.draft_len == 2
-    mesh = parse_mesh("1x1")
     assert ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
                                mesh=mesh).n_local == 2
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
-                            mesh=mesh, draft_len=2)
     with pytest.raises(ValueError, match="step_horizon"):
         ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
                             step_horizon=0)

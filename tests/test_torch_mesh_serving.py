@@ -18,7 +18,19 @@ Contracts:
     successor (``tests/test_torch_horizon.py``'s workload);
   * ``launch/serve.py --mesh 2x2 --host-devices 4`` spawns its ranks and
     serves the same streams as the single-rank launcher;
-  * ``mesh=`` with ``draft_len > 1`` raises;
+  * speculation under a mesh (``draft_len=3``) on JAX's workload of
+    ``tests/test_sharded_serving.py`` (reduced internlm2, 2 layers,
+    d_model 32, f32, a greedy repetitive workload; two top-k requests
+    added, which the solves of the verify grid vocab-shard): under 2x2,
+    4x1 and 1x4, dense and paged, the streams equal the single-rank
+    port's bit for bit, and the greedy ones JAX's single-device
+    speculative server's (never JAX's mesh, whose own speculative case
+    fails); drafts accepted on every run; each rank's drafts a step equal
+    the single-rank scheduler's rows of its slots, and a live retune of
+    L happens at the same steps on every rank; a fused speculative
+    horizon under 2x2 equals its per-step run;
+  * ``mesh=`` with ``draft_len > 1`` raises for a config that cannot
+    verify, as without a mesh;
   * 2f: each config's greedy one-shot ``generate`` equals JAX's
     ``generate`` on screened prompts, single-rank and served under a 2x2
     mesh (whose top-k stream also equals the single-rank port's).
@@ -45,7 +57,9 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import spawn_local
 from repro_torch.models import decode, testing
+from repro_torch.models.transformer import init_params
 from repro_torch.serving import engine
+from repro_torch.serving.draft import RepeatLastDrafter
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import ContinuousScheduler
 from repro_torch.serving.server import Request, RunaheadServer
@@ -145,11 +159,19 @@ def _meshed() -> tuple[list, dict]:
         jobs.append(([("2x2", 0)], (arch, {}, tree_2f, 0),
                      [(_requests_2f(prompt),
                        dict(n_slots=2, context=S_PROMPT + N_2F))]))
-    results = spawn_local(ranks.serve_many, 4, args=(jobs,), timeout=300)
+    tree_spec, requests_spec, _ = _spec_workload()
+    jobs.append((SPEC_PLAN, ("internlm2-1.8b", TINY, tree_spec, 0),
+                 [(requests_spec, dict(n_slots=4, context=CONTEXT, **kw))
+                  for kw in SPEC_RUNS]))
+    results = spawn_local(ranks.serve_many, 4,
+                          args=(jobs, SPEC_LAUNCH + ["--mesh", "2x2"]),
+                          timeout=300)
     tiny = [per_rank[0] for per_rank in results]
     two_f = {arch: [per_rank[i + 1][0] for per_rank in results]
              for i, arch in enumerate(ARCHS_2F)}
-    return tiny, two_f
+    spec = [per_rank[-2] for per_rank in results]
+    launched = [per_rank[-1] for per_rank in results]
+    return tiny, two_f, spec, launched
 
 
 @pytest.mark.parametrize("run", range(len(RUNS)))
@@ -188,16 +210,145 @@ def test_launcher_mesh_on_host_ranks():
 
 
 def test_mesh_with_speculation_raises():
+    mesh = mesh_lib.parse_mesh("1x1")
+    moe_cfg = testing.reduced_config("granite-moe-3b-a800m")
+    moe_params = init_params(moe_cfg, torch.Generator().manual_seed(0),
+                             torch.float32)
+    with pytest.raises(ValueError, match="all-dense layer stack"):
+        ContinuousScheduler(moe_cfg, moe_params, n_slots=2, context=CONTEXT,
+                            mesh=mesh, draft_len=3)
+    # one rank: the meshed speculative scheduler serves as the plain one
     cfg = dataclasses.replace(testing.reduced_config("internlm2-1.8b"),
                               **TINY)
     params = params_from_jax(_tiny()[0], "cpu")
-    mesh = mesh_lib.parse_mesh("1x1")
-    with pytest.raises(NotImplementedError, match="under a mesh"):
-        ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
-                            mesh=mesh, draft_len=3)
-    # one rank: the meshed scheduler serves as the plain one does
-    assert ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
-                               mesh=mesh).n_local == 2
+    sched = ContinuousScheduler(cfg, params, n_slots=2, context=CONTEXT,
+                                mesh=mesh, draft_len=3)
+    assert sched.n_local == 2 and sched.draft_len == 3
+
+
+# ---------------------------------------------------------------------------
+# speculation under a mesh: JAX's workload of test_sharded_serving.py
+# ---------------------------------------------------------------------------
+
+F32 = dict(cache_dtype=torch.float32, compute_dtype=torch.float32)
+SPEC_RUNS = [
+    dict(draft_len=3, **F32),
+    dict(draft_len=3, page_size=4, **F32),
+    # a live retune of L every 4 drafted tokens
+    dict(draft_len=3, draft_len_auto=True, max_draft_len=4,
+         draft_retune_min=4, **F32),
+    dict(draft_len=3, step_horizon=4, drafter=RepeatLastDrafter(), **F32),
+]
+SPEC_PLAN = ([("2x2", run) for run in range(len(SPEC_RUNS))]
+             + [(m, run) for m in ("4x1", "1x4") for run in (0, 1)])
+
+
+@functools.cache
+def _spec_workload():
+    """JAX's speculative workload (``tests/test_sharded_serving.py``):
+    five greedy requests on repeated patterns, three arriving a step,
+    plus two top-k 12 requests; JAX's single-device speculative server's
+    greedy streams (four slots, ``draft_len=3``).  The port serves in
+    f32 (forward and cache)."""
+    jcfg = dataclasses.replace(jtesting.reduced_config("internlm2-1.8b"),
+                               **TINY)
+    jparams = jtransformer.init_params(jcfg, jax.random.PRNGKey(0),
+                                       jnp.float32)
+    # drafts of JAX's random tiny model are never accepted: the
+    # unembedding sharpened toward the token itself for even tokens and
+    # a shuffled successor for odd ones (``tests/test_torch_speculative
+    # .py``'s ``looping``) makes streams settle into runs the n-gram
+    # drafter predicts
+    perm = np.arange(jcfg.vocab)
+    odd = perm[1::2].copy()
+    np.random.default_rng(2).shuffle(odd)
+    perm[1::2] = odd
+    jparams["unembed"] = jparams["unembed"] + 4.0 * jparams["embed"][perm].T
+    pats = [[3, 5, 7], [2, 4, 6], [9, 9, 1]]
+    greedy = [Request(f"r{i}", (pats[i % 3] * 3)[:8], 7 + (i % 3), seed=i,
+                      sampler=SamplerConfig(greedy=True, top_k=12),
+                      arrival=i // 3) for i in range(5)]
+    jsrv = jserver.RunaheadServer(jcfg, jparams, n_slots=4, context=CONTEXT,
+                                  draft_len=3)
+    want = {c.rid: c.tokens for c in jsrv.run([
+        jserver.Request(r.rid, r.prompt, r.n_new, seed=r.seed,
+                        sampler=jsampler.SamplerConfig(greedy=True,
+                                                       top_k=12),
+                        arrival=r.arrival) for r in greedy])}
+    assert jsrv.scheduler.n_accepted > 0
+    topk = [Request(f"k{i}", (pats[i] * 3)[:8], 8, seed=20 + i,
+                    sampler=SamplerConfig(top_k=12), arrival=1)
+            for i in range(2)]
+    return jax.device_get(jparams), greedy + topk, want
+
+
+@functools.cache
+def _spec_single(run: int, drafter=None):
+    """The single-rank port's serve of the speculative workload under
+    ``SPEC_RUNS[run]`` (``drafter`` replacing its drafter): (streams,
+    each step's (L, drafts), accepted count)."""
+    tree, requests, _ = _spec_workload()
+    cfg = dataclasses.replace(testing.reduced_config("internlm2-1.8b"),
+                              **TINY)
+    kw = dict(SPEC_RUNS[run], n_slots=4, context=CONTEXT)
+    if drafter is not None:
+        kw["drafter"] = drafter
+    done, s, drafts = ranks.serve_recorded(
+        cfg, params_from_jax(tree, "cpu"), requests, kw)
+    return {c.rid: c.tokens for c in done}, drafts, s.n_accepted
+
+
+@pytest.mark.parametrize("entry", range(len(SPEC_PLAN)),
+                         ids=[f"{m}-run{r}" for m, r in SPEC_PLAN])
+def test_meshed_speculation_equals_single_rank_and_jax(entry):
+    spec, run = SPEC_PLAN[entry]
+    _, _, want = _spec_workload()
+    ref, ref_drafts, accepted = _spec_single(run)
+    assert {rid: ref[rid] for rid in want} == want
+    assert accepted > 0
+    results = _meshed()[2]
+    for r, per_rank in enumerate(results):
+        got = per_rank[entry]
+        assert got["streams"] == ref, (spec, r, SPEC_RUNS[run])
+        assert got["local"] == LOCAL_SLOTS[spec]
+        assert got["accepted"] > 0
+        assert got["accepted"] == results[0][entry]["accepted"]
+        assert got["retunes"] == results[0][entry]["retunes"]
+        # this rank's drafts are the single-rank scheduler's rows of its
+        # slots, at the same L, step by step
+        lo, n = got["slot0"], got["local"]
+        assert [L for L, _ in got["drafts"]] == [L for L, _ in ref_drafts]
+        for (L, d), (_, d_ref) in zip(got["drafts"], ref_drafts):
+            assert d == d_ref[lo:lo + n], (spec, r, L)
+    if "draft_len_auto" in SPEC_RUNS[run]:
+        assert results[0][entry]["retunes"] > 0
+        assert len({L for L, _ in ref_drafts}) > 1
+
+
+SPEC_LAUNCH = ["--arch", "qwen3-4b", "--reduced", "--continuous",
+               "--requests", "6", "--slots", "4", "--prompt-len", "8",
+               "--new-tokens", "6", "--top-k", "40", "--page-size", "4",
+               "--draft-len", "3", "--adaptive-draft", "--device", "cpu"]
+
+
+def test_launcher_speculates_under_a_mesh():
+    """``launch/serve.py --mesh 2x2 --draft-len 3 --adaptive-draft`` in
+    the group: every rank serves the single-rank launcher's streams with
+    its counters (drafted, accepted, retunes: global) and L."""
+    want = serve.main(SPEC_LAUNCH)
+    for got in _meshed()[3]:
+        assert got["streams"] == {c.rid: c.tokens for c in want.completions}
+        assert got["counts"] == want.counts
+        assert got["draft_len"] == want.scheduler.draft_len
+    assert want.counts["drafted"] > 0
+
+
+def test_meshed_fused_speculation_equals_per_step():
+    fused = SPEC_PLAN.index(("2x2", 3))
+    per_step, _, _ = _spec_single(0, drafter=RepeatLastDrafter())
+    assert _spec_single(3)[0] == per_step
+    for per_rank in _meshed()[2]:
+        assert per_rank[fused]["streams"] == per_step
 
 
 # ---------------------------------------------------------------------------

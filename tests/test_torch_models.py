@@ -137,9 +137,10 @@ def test_unported_paths_raise():
     # xlstm and hymba: tests/test_torch_recurrent.py, whisper:
     # tests/test_torch_whisper.py) and for training (hymba, xlstm and
     # whisper: tests/test_torch_train_families.py): a step builds, and
-    # mesh-native serving runs (tests/test_torch_mesh_serving.py).  What
-    # still raises is speculative decoding under a mesh, and an enc-dec
-    # forward without its frames, as JAX's asserts
+    # mesh-native serving runs, speculative too (tests/test_torch_mesh_
+    # serving.py).  What still raises is speculative decoding of a stack
+    # that cannot verify (whisper), under a mesh as without one, and an
+    # enc-dec forward without its frames, as JAX's asserts
     from repro_torch.launch.mesh import parse_mesh
     from repro_torch.serving.scheduler import ContinuousScheduler
     from repro_torch.train.step import TrainConfig, make_train_step
@@ -155,6 +156,6 @@ def test_unported_paths_raise():
     mesh = parse_mesh("1x1")
     assert ContinuousScheduler(cfg, params, n_slots=2, context=8,
                                mesh=mesh).n_local == 2
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="all-dense layer stack"):
         ContinuousScheduler(cfg, params, n_slots=2, context=8, mesh=mesh,
                             draft_len=2)

@@ -31,6 +31,17 @@ Tolerances:
   * the split MoE layer on each of four blocks of a batch against the
     layer on the whole batch, in one process: keep masks bit for bit,
     outputs within 1e-6, a rank's expert buffer its own kept tokens only;
+  * ZeRO-1 (``adamw_init(params, mesh=)``, ``make_train_step(...,
+    grad_constraint=zero1_grad_constraint(mesh))``): internlm2 with the
+    quantile clip in 2 microbatches and granite under bisect with the
+    global clip, each without and with the gradient constraint, held to
+    JAX's jitted step as above; each rank's master, mu and nu the blocks
+    of JAX's ``zero1_spec`` on a duck-typed 4x1 mesh, the ranks' master
+    blocks together the params (f32 params: bit for bit); the quantile
+    clip's cuts equal to the single-rank port's bit for bit; a ZeRO-1
+    state written whole on the four ranks restores cut to each rank's
+    blocks, and whole on one rank, where the all-reduce step goes on
+    from it;
   * the launcher (bf16 params, as on the card): the meshed run's losses
     within rtol 1e-3 of ``--mesh single``'s (a data split sums the
     bf16-rounded gradients in another order), its ranks' params and
@@ -54,6 +65,8 @@ import torch_train_ranks as ranks
 from repro.data.pipeline import SyntheticTokens as JSyntheticTokens
 from repro.models import testing as jtesting
 from repro.models import transformer as jtransformer
+from repro.launch import shardings as jshardings
+from repro.launch.specs import params_specs as jparams_specs
 from repro.optim import adamw as jadamw
 from repro.optim import schedule as jschedule
 from repro.train import step as jstep
@@ -66,6 +79,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import Mesh, spawn_local
 from repro_torch.models import moe, testing
+from repro_torch.optim import adamw
 from repro_torch.runtime.elastic import derive_mesh_shape, make_elastic_mesh
 from repro_torch.train import step
 from repro_torch.tree import leaves
@@ -95,6 +109,8 @@ CASES = {
 RECURRENT = ["xlstm", "hymba"]
 JAX_CASES = [c for c in CASES if c not in RECURRENT]
 MOE_CASES = [c for c in CASES if c.startswith("moe")]
+# the ZeRO-1 cases: both clips, both capacity-free and bisect routing
+ZERO1_CASES = ["dense-quantile-mb2", "moe-bisect-global-mb2"]
 LAUNCH = ["--device", "cpu", "--reduced", "--steps", "4", "--batch", "8",
           "--seq", "32", "--clip-mode", "quantile", "--lr", "3e-3",
           "--log-every", "1"]
@@ -172,15 +188,19 @@ def group(tmp_path_factory):
     for case, (arch, overrides, _) in CASES.items():
         _, jparams, batches = _inputs(case)
         jobs.append((arch, overrides, jparams, _tc_kw(case), LR, batches))
+    zero1 = [jobs[list(CASES).index(case)] for case in ZERO1_CASES]
     ckpt = str(tmp_path_factory.mktemp("train_mesh") / "ckpt")
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks_out = pool.submit(spawn_local, ranks.train_jobs, WORLD,
-                                args=(jobs, LAUNCH, ckpt), timeout=600)
+                                args=(jobs, LAUNCH, ckpt, zero1),
+                                timeout=600)
         for case in JAX_CASES:
             _jax_run(case)
-        for case in MOE_CASES + RECURRENT:
+        for case in MOE_CASES + RECURRENT + ZERO1_CASES:
             _single(case)
-        return ranks_out.result()
+        out = ranks_out.result()
+    out[0]["zero1_ckpt"] = f"{ckpt}_zero1/step_2"
+    return out
 
 
 def _job(group, case, rank=0):
@@ -317,6 +337,134 @@ def test_recurrent_steps_match_single_rank(group, case):
         np.testing.assert_allclose(m["loss"], w["loss"], rtol=1e-5)
     for p, w in zip(got["params"], leaves(want["params"])):
         np.testing.assert_allclose(p, w.numpy(), rtol=0, atol=1e-5)
+
+
+@dataclasses.dataclass
+class DuckMesh:
+    """What JAX's spec functions read of a mesh (no devices)."""
+    axis_names: tuple
+    shape: dict
+
+
+def _zero1(group, case, constraint, rank=0, disabled=False):
+    return group[rank]["zero1"][ZERO1_CASES.index(case)][(constraint,
+                                                          disabled)]
+
+
+@pytest.mark.parametrize("constraint", [False, True],
+                         ids=["all-reduce", "reduce-scatter"])
+@pytest.mark.parametrize("case", ZERO1_CASES)
+def test_zero1_steps_match_jax(group, case, constraint):
+    want, jparams = _jax_run(case)
+    got = _zero1(group, case, constraint)
+    for m, jm in zip(got["metrics"], want):
+        for key in ("loss", "ce", "aux"):
+            np.testing.assert_allclose(m[key], jm[key], rtol=1e-5,
+                                       atol=1e-7 if key == "aux" else 0)
+        assert m["lr"] == jm["lr"]
+        if "grad_norm" in jm:
+            np.testing.assert_allclose(m["grad_norm"], jm["grad_norm"],
+                                       rtol=1e-4)
+    jparams0 = jax.tree.leaves(_inputs(case)[1])
+    assert _delta_rel(got["params"], jparams, jparams0) < 1e-3
+    runs = [_zero1(group, case, constraint, r) for r in range(WORLD)]
+    assert all(r["metrics"] == runs[0]["metrics"] for r in runs)
+    # after every step's all-gather the ranks hold the same params bit for
+    # bit (the digests of params and state also cover each rank's blocks)
+    assert len(runs[0]["param_digests"]) == len(runs[0]["digests"]) == N_STEPS
+    assert all(r["param_digests"] == runs[0]["param_digests"] for r in runs)
+    forms = {_zero1(group, case, constraint, r)["form"]
+             for r in range(WORLD)}
+    assert forms == ({"reduce_scatter_tensor"} if constraint else {None})
+
+
+@pytest.mark.parametrize("case", ZERO1_CASES)
+def test_zero1_blocks_are_jax_zero1_spec_blocks(group, case):
+    """Each rank holds only its block of ``zero1_spec`` (JAX's, on a
+    duck-typed 4x1 mesh) of master, mu and nu, and the four ranks' master
+    blocks, put together on their ``data`` dim, are the final params."""
+    duck = DuckMesh(("data", "model"), {"data": WORLD, "model": 1})
+    jcfg = _inputs(case)[0]
+    leaves_j = jax.tree_util.tree_flatten_with_path(jparams_specs(jcfg))[0]
+    want, dims = [], []
+    for path, leaf in leaves_j:
+        spec = tuple(jshardings.zero1_spec(path, leaf, duck))
+        spec += (None,) * (len(leaf.shape) - len(spec))
+        want.append(tuple(n // (WORLD if s == "data" else 1)
+                          for n, s in zip(leaf.shape, spec)))
+        dims.append(spec.index("data") if "data" in spec else None)
+    assert any(d is not None for d in dims)
+    for constraint in (False, True):
+        runs = [_zero1(group, case, constraint, r) for r in range(WORLD)]
+        for got in runs:
+            for field in ("master", "mu", "nu"):
+                assert got["shapes"][field] == want, field
+        params = runs[0]["params"]
+        for i, d in enumerate(dims):
+            blocks = [r["master"][i] for r in runs]
+            whole = (blocks[0] if d is None
+                     else np.concatenate(blocks, axis=d))
+            np.testing.assert_array_equal(whole, params[i])
+
+
+@pytest.mark.parametrize("disabled", [False, True],
+                         ids=["default", "tuning-disabled"])
+def test_zero1_quantile_clip_counts_equal_single_rank(group, disabled):
+    """Each meshed quantile clip's cut equals the single-rank solve's on
+    the same norms bit for bit (its counts are exact), the ranks agree,
+    and the norms are the single-rank port's within f32 rounding.  Under
+    ``tuning.disabled()`` the solve splits the norms over the four
+    ranks ("vocab" on the ``data`` axis: K2 on the card counts each
+    rank's share, the counts summed), which the leaf count of reduced
+    internlm2 allows."""
+    from repro_torch.core import tuning
+    from repro_torch.core.applications import quantile
+
+    case = "dense-quantile-mb2"
+    want = _single(case)["clip_cuts"]
+    assert [len(c) for c in want] == [1] * N_STEPS
+    for constraint in (False, True):
+        runs = [_zero1(group, case, constraint, r, disabled)
+                for r in range(WORLD)]
+        for got in runs:
+            assert [[c[1] for c in s] for s in got["clip_cuts"]] == \
+                [[c[1] for c in s] for s in runs[0]["clip_cuts"]]
+        for got_s, want_s in zip(runs[0]["clip_cuts"], want):
+            (norms, cut, placements), = got_s
+            np.testing.assert_allclose(norms, want_s[0][0], rtol=1e-4)
+            with tuning.disabled():
+                single = quantile(torch.from_numpy(norms), 0.95, spec_k=4,
+                                  rounds=8, backend="hopper")
+            assert float(single) == cut
+            if disabled:
+                assert placements == ["vocab"]
+
+
+def test_zero1_checkpoint_restores_on_one_rank(group):
+    """The ZeRO-1 state written whole on four ranks: each rank restored
+    its blocks (``zero1_sharding_fn``), and one rank restores it whole
+    and trains on from it with the all-reduce (single-rank) step."""
+    case = ZERO1_CASES[0]
+    assert all(_zero1(group, case, True, r)["restored"]
+               for r in range(WORLD))
+    arch, overrides, _ = CASES[case]
+    cfg = dataclasses.replace(testing.reduced_config(arch), **overrides)
+    jcfg, jparams, batches = _inputs(case)
+    params = params_from_jax(jparams, "cpu")
+    template = {"params": params, "opt": adamw.adamw_init(params)}
+    back = restore_pytree(group[0]["zero1_ckpt"], template)
+    got = [_zero1(group, case, True, r) for r in range(WORLD)]
+    for i, (p, m) in enumerate(zip(leaves(back["params"]),
+                                   leaves(back["opt"].master))):
+        np.testing.assert_array_equal(p.numpy(), got[0]["params"][i])
+        np.testing.assert_array_equal(m.numpy(), got[0]["params"][i])
+    assert int(back["opt"].step) == N_STEPS
+    fn = step.make_train_step(cfg, step.TrainConfig(**_tc_kw(case)),
+                              ranks.lr_fn(*LR))
+    batch = {k: torch.from_numpy(v) for k, v in batches[0].items()}
+    with ranks.f32_forward():
+        _, opt, m = fn(back["params"], back["opt"], batch)
+    assert np.isfinite(float(m["loss"])) and int(opt.step) == N_STEPS + 1
 
 
 class _FakeMesh:

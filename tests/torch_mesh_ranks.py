@@ -116,12 +116,13 @@ def serve_checks(plan: list, model: tuple, runs: list) -> list:
     ``model`` is (arch, config overrides, a numpy params tree or None for
     weights drawn from ``seed`` on this rank, seed); ``runs`` is
     [(requests, server kwargs)].  Each entry also carries the scheduler's
-    decode steps, its local slot count and a checksum of this rank's
-    weights."""
+    decode steps, its local slot count and first slot, a checksum of this
+    rank's weights, and its speculation: the drafts of its own slots a
+    step (``serve_recorded``), its drafted and accepted counts and its
+    ``draft_len`` retunes."""
     from repro_torch.convert import params_from_jax
     from repro_torch.models import testing
     from repro_torch.models.transformer import init_params
-    from repro_torch.serving.server import RunaheadServer
 
     arch, overrides, tree, seed = model
     cfg = dataclasses.replace(testing.reduced_config(arch), **overrides)
@@ -137,13 +138,39 @@ def serve_checks(plan: list, model: tuple, runs: list) -> list:
         if spec not in meshes:
             meshes[spec] = parse_mesh(spec)
         requests, kw = runs[run]
-        server = RunaheadServer(cfg, params, mesh=meshes[spec], **kw)
-        done = server.run([dataclasses.replace(r) for r in requests])
-        s = server.scheduler
+        done, s, drafts = serve_recorded(cfg, params, requests, kw,
+                                         meshes[spec])
         out.append(dict(streams={c.rid: c.tokens for c in done},
                         steps=s.n_decode_steps, local=s.n_local,
-                        checksum=checksum))
+                        slot0=s.slot0, checksum=checksum, drafts=drafts,
+                        drafted=s.n_drafted, accepted=s.n_accepted,
+                        retunes=s.n_draft_retunes))
     return out
+
+
+def serve_recorded(cfg, params, requests: list, kw: dict, mesh=None):
+    """``requests`` served by a ``RunaheadServer(**kw)`` on ``mesh``:
+    (completions, the scheduler, and each step's (draft_len, this rank's
+    host drafts) in step order).  ``kw["draft_retune_min"]``, where
+    given, sets the scheduler's retune window."""
+    from repro_torch.serving.server import RunaheadServer
+
+    kw = dict(kw)
+    retune_min = kw.pop("draft_retune_min", None)
+    server = RunaheadServer(cfg, params, mesh=mesh, **kw)
+    s = server.scheduler
+    if retune_min is not None:
+        s.draft_retune_min = retune_min
+    drafts = []
+    write = s._write_drafts
+
+    def recorded(L):
+        write(L)
+        drafts.append((L, s.draft[:, :L - 1].tolist()))
+
+    s._write_drafts = recorded
+    done = server.run([dataclasses.replace(r) for r in requests])
+    return done, s, drafts
 
 
 def _leaves(tree):
@@ -157,9 +184,23 @@ def _leaves(tree):
         yield tree
 
 
-def serve_many(jobs: list) -> list:
-    """``serve_checks`` for each (plan, model, runs) job, in one group."""
-    return [serve_checks(plan, model, runs) for plan, model, runs in jobs]
+def serve_many(jobs: list, launcher_argv: list | None = None) -> list:
+    """``serve_checks`` for each (plan, model, runs) job, in one group;
+    then, given ``launcher_argv``, ``launch/serve.py``'s main on it in
+    this world: its {rid: tokens} and speculation counters last."""
+    out = [serve_checks(plan, model, runs) for plan, model, runs in jobs]
+    if launcher_argv is not None:
+        import logging
+
+        from repro_torch.launch import serve
+
+        logging.getLogger().setLevel(logging.WARNING)
+        served = serve.main(launcher_argv)
+        out.append(dict(streams={c.rid: c.tokens
+                                 for c in served.completions},
+                        counts=served.counts,
+                        draft_len=served.scheduler.draft_len))
+    return out
 
 
 # ---------------------------------------------------------------------------
