@@ -392,6 +392,34 @@ Phases, one line each (a failed phase raises and the script exits non-zero):
      ZERO1_PEAK_TOL; K7 twice a layer and K2 every step.  The line's
      kernels carry "mesh-train-zero1" rows: K7 at phase 28's shape, K2
      at the ZeRO-1 clip's (1, leaves).
+ 31. the tensor-parallel layout (``distributed/tp.py``) on a 1x2 mesh:
+     two ranks sharing the card over gloo, each holding its
+     ``place_params`` blocks (heads, MLP hidden, vocab, experts split
+     over ``model``).  (a) internlm2-1.8b at phase 28's depth, 2 x 4096,
+     2 bf16 steps with the sequence-parallel stream and the quantile
+     clip (K7 twice a layer on a rank's 8/4 local heads, K2 as the
+     clip's decision gives), the same steps on rank 0 alone beside them
+     (their bf16 difference reported); at 2 layers in f32 the TP steps
+     against the one-rank steps: loss rtol 1e-5, the gathered params'
+     change within 1e-3 (l2 rel a leaf) after each step, the params'
+     own distance reported.  (b)
+     qwen3-4b at 12 layers, full width, f32: 8 prompts of 4096 tokens
+     and 16 tokens each from ``sample_slots`` (top-k 40, 4 rows greedy)
+     on each rank's vocab block (``MeshPolicy(local_vocab=True)``: K3 on
+     the block, then on the candidates it leaves), against this
+     process's one-rank serve of the same rows and noise: equal streams
+     on the rows whose one-rank margins pass the tie screen, each rank's
+     ring half of one rank's bytes, K7 once a layer in the prefill.  (c)
+     granite-moe-3b-a800m at 8 layers, bisect, one bf16 step (K3 twice a
+     layer on every token's assignments); at 2 layers in f32 against
+     the one-rank step: expert ids equal, each cut alone equal to the
+     layer's, keep flips only within 1e-5 of their expert's tau (the
+     split sums round the stream apart).  Each with ms a step, the
+     joins' share, the peak GB a rank and the dry run's predicted peak
+     of the same cell (a CPU meta trace on a 1x2 recording mesh).  The
+     line's kernels carry "tp-train" (K7 at a rank's (2, 4096, 8/4)
+     heads), "tp-serve" (K3 at a rank's (8, 75968) vocab block) and
+     "tp-moe-train" (K3 at the capacity cut's gathered scores) rows.
 
 Whole-path profiles record device activity only and read its raw events
 (``_profile_records``): a training step's ~10**5 kernels read back in
@@ -5289,7 +5317,7 @@ SCREENED_SERVES = (("2x2", True), ("2x2", False), ("4x1", True))
 # process share the card's 80 GB)
 MESH_TRAIN_RANKS = 2
 MESH_TRAIN_STEPS = 3            # step 0 warms up, the last is profiled
-MESH_TRAIN_BUDGET = 30e9
+MESH_TRAIN_BUDGET = 24e9       # 30e9 before phase 31 (12 and 8 layers)
 MESH_TRAIN_ARGV = ["--steps", str(MESH_TRAIN_STEPS), "--batch", "2",
                    "--seq", "4096", "--clip-mode", "quantile", "--log-every",
                    "1", "--seed", "0"]
@@ -5362,6 +5390,48 @@ ZERO1_LOSS_RTOL = 1e-6
 ZERO1_LOSS_RTOL_SCATTER = 1e-2
 ZERO1_OPT_RATIO = (0.45, 0.6)
 ZERO1_PEAK_TOL = 0.3
+
+
+# phase 31: the tensor-parallel layout (distributed/tp.py) on a 1x2 mesh
+# (data 1, model 2): two ranks sharing the card over gloo, weights, heads,
+# vocab and experts split by launch/shardings.py::place_params.
+#   (a) internlm2-1.8b at phase 28's depth, 2 x 4096 tokens, quantile
+#       clip, TP_TRAIN_STEPS bf16 steps (the residual stream
+#       sequence-parallel); rank 0 then runs the same steps on one rank
+#       (the bf16 difference is reported, not held: the split sums round
+#       apart); at TP_F32's depth in f32 the TP steps against the
+#       one-rank steps on the same card: loss rtol 1e-5, after each step
+#       the gathered params' change per leaf within 1e-3 (l2 rel) of the
+#       one-rank run's (the CPU tests' contract); the params' own distance
+#       is reported beside a 1e-5 target, which the card missed (1.46e-5
+#       read: AdamW's first, sign-like update turns the f32 rounding of
+#       a near-zero gradient into a share of lr 1e-3);
+#   (b) qwen3-4b at TP_SERVE's depth, full width, in f32: a prefill of
+#       TP_SERVE["batch"] prompts of 4096 tokens and 16 decode steps, each
+#       token from sample_slots (top-k 40, half the rows greedy) on the
+#       rank's vocab block (MeshPolicy(local_vocab=True): K3 twice a
+#       sample), against this process's one-rank serve of the same rows
+#       and noise; rows whose one-rank stream keeps every sampling margin
+#       above TP_SERVE["margin"] (the tie screen: ~100x the f32 distance
+#       a split sum puts between the two; the 40th and 41st of 151936
+#       logits lie ~0.008 sigma apart, so a 1e-2 screen would pass no
+#       sampled row) must give equal streams; each rank's ring holds half
+#       of one rank's bytes;
+#   (c) granite-moe-3b-a800m at TP_MOE["layers"], 2 x 4096, bisect, one
+#       bf16 step (experts split, router and capacity cut on every token);
+#       at TP_F32's depth in f32, one step (as phase 28's: a keep that
+#       flips at its tau moves a second step's loss), against the
+#       one-rank step: loss rtol 1e-5, expert ids equal, each cut alone
+#       equal to what the layer used, its keeps equal
+#       the one-rank step's but where a gate lies within MESH_F32's
+#       gate_atol of its expert's threshold (at most MESH_F32's flips).
+TP_RANKS = 2
+TP_TRAIN_STEPS = 2
+TP_F32 = dict(layers=2, lr=1e-3, loss_rtol=1e-5, params_rel=1e-5,
+              delta_rel=1e-3)
+TP_SERVE = dict(arch="qwen3-4b", layers=12, batch=8, prompt=4096, new=16,
+                top_k=40, greedy_rows=4, margin=1e-4)
+TP_MOE = dict(arch="granite-moe-3b-a800m", layers=8)
 
 
 def _mesh_argv(base: list[str], paged: bool, horizon: int) -> list[str]:
@@ -6928,6 +6998,642 @@ def _spec_mesh_rows(gen) -> dict:
     return {"mesh-spec": rows}
 
 
+def _tp_cfg(arch: str, layers: int):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def _tp_batch(cfg):
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokens
+
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=4096, global_batch=2,
+                           seed=0)
+    return [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(i).items()}
+            for i in range(TP_TRAIN_STEPS)]
+
+
+def _tp_train_drive(mesh, cfg, mode: str, steps: int, tp: bool) -> dict:
+    """``steps`` bf16 train steps of ``cfg`` from seed 0, quantile clip,
+    capacity ``mode``: under the layout on ``mesh`` (``tp``), or on this
+    rank alone.  Per step: loss, wall ms, the joins' seconds, the
+    launches; the peak memory; and (bisect) the last cut's operands."""
+    import torch
+
+    from repro_torch.distributed import tp as tp_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch.shardings import place_params
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import step as train_step
+
+    free_memory()
+    params = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+    if tp:
+        params = place_params(params, mesh, cfg)
+        free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    fn = train_step.make_train_step(
+        cfg, train_step.TrainConfig(clip_mode="quantile",
+                                    capacity_mode=mode),
+        lambda s: torch.full((), TP_F32["lr"], device="cuda"),
+        mesh=mesh if tp else None)
+    opt = adamw_init(params)
+    out = dict(losses=[], ms=[], join_s=[], launches=[])
+    forget_decisions()
+    ops.reset_launches()
+    with tp_lib.tensor_parallel(mesh if tp else None), MoERecorder() as rec:
+        for batch in _tp_batch(cfg)[:steps]:
+            before, joins = dict(ops.LAUNCHES), mesh.stats.seconds
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = fn(params, opt, batch)
+            loss = float(m["loss"])
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(loss)
+            out["join_s"].append(mesh.stats.seconds - joins)
+            out["launches"].append({k: ops.LAUNCHES[k] - before.get(k, 0)
+                                    for k in ops.LAUNCHES})
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["clip"] = decisions()[("count_below", 1, False)][0]
+    out["clip"] = (out["clip"].rounds, out["clip"].spec_k)
+    if mode == "bisect":
+        scores, expert, e_pad, cap = rec.last
+        cut = decisions()[("count_above", e_pad, True)][0]
+        out["cut"] = (cut.rounds, cut.spec_k)
+        out["operands"] = (scores.cpu().numpy(), expert.cpu().numpy(),
+                           e_pad, cap)
+    out["want"] = solver_launches(
+        {("count_below", 1, False): 1,
+         **({("count_above", rec.last[2], True): 2 * cfg.n_layers}
+            if mode == "bisect" else {})})
+    del params, opt, fn
+    free_memory()
+    return out
+
+
+def _tp_f32_check(mesh, arch: str, mode: str, steps: int) -> dict:
+    """``steps`` f32 steps of ``arch`` at TP_F32's depth under the
+    layout and (on model rank 0 only) on this rank alone, from the same
+    weights and batches: both runs' losses, after each step the gathered
+    params' largest per-leaf l2 distance from the one-rank step's and of
+    their changes since the start, and per capacity cut the keeps that
+    differ from the one-rank run's, from ``_cut`` again on the cut's own
+    operands, and the flips' distance from tau."""
+    import functools
+
+    import torch
+
+    from repro_torch.distributed import tp as tp_lib
+    from repro_torch.launch.shardings import gather_params, place_params
+    from repro_torch.models import moe, transformer
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import step as train_step
+    from repro_torch.tree import leaves
+
+    cfg = _tp_cfg(arch, TP_F32["layers"])
+    batches = _tp_batch(cfg)[:steps]
+    kw = dict(param_dtype="float32", clip_mode="quantile",
+              capacity_mode=mode)
+    lr = lambda s: torch.full((), TP_F32["lr"], device="cuda")  # noqa
+    orig = train_step.forward
+    train_step.forward = functools.partial(transformer.forward,
+                                           compute_dtype=torch.float32)
+    first = mesh.axis_index("model") == 0
+    out = {}
+    try:
+        for name in ("tp", "single"):
+            if name == "single" and not first:
+                break
+            params = transformer.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0),
+                torch.float32)
+            p0 = [t.clone() for t in leaves(params)] if first else None
+            if name == "tp":
+                params = place_params(params, mesh, cfg)
+            fn = train_step.make_train_step(
+                cfg, train_step.TrainConfig(**kw), lr,
+                mesh=mesh if name == "tp" else None)
+            opt = adamw_init(params)
+            losses, steps = [], []
+            with tp_lib.tensor_parallel(mesh if name == "tp" else None), \
+                    recording_cuts() as cuts:
+                for batch in batches:
+                    params, opt, metrics = fn(params, opt, batch)
+                    losses.append(float(metrics["loss"]))
+                    # a collective: every rank gathers, the first keeps
+                    whole = (gather_params(params, mesh, cfg)
+                             if name == "tp" else params)
+                    steps.append([t.clone() for t in leaves(whole)]
+                                 if first else None)
+            out[name] = dict(losses=losses, cuts=cuts, steps=steps, p0=p0)
+            del params, opt, fn
+            free_memory()
+    finally:
+        train_step.forward = orig
+    mesh.barrier()
+    if not first:
+        return {}
+    params_rel, delta = [], []
+    for got, want in zip(out["tp"]["steps"], out["single"]["steps"]):
+        worst = change = 0.0
+        for a, b, z in zip(got, want, out["tp"]["p0"]):
+            d = (a - b).double().norm()
+            worst = max(worst, float(d / max(b.double().norm(), 1e-30)))
+            change = max(change, float(d / max((b - z).double().norm(),
+                                               1e-30)))
+        params_rel.append(worst)
+        delta.append(change)
+    cuts = out["tp"]["cuts"], out["single"]["cuts"]
+    e_pad = moe.padded_experts(cfg.n_experts) if cfg.is_moe else 0
+    alone, diffs, far, near, experts = [], [], [], 0.0, []
+    for ct, cs in zip(*cuts):
+        keep, _ = moe._cut(ct["expert"], ct["gate"], e_pad, ct["cap"], mode,
+                           "hopper")
+        alone.append(int((keep != ct["keep"]).sum()))
+        experts.append(int((ct["expert"] != cs["expert"]).sum()))
+        flip = ct["keep"] != cs["keep"]
+        diffs.append(int(flip.sum()))
+        if mode == "bisect" and bool(flip.any()):
+            e = cs["expert"][flip]
+            dist = torch.minimum((ct["gate"][flip] - ct["tau"][e]).abs(),
+                                 (cs["gate"][flip] - cs["tau"][e]).abs())
+            far.append(int((dist > MESH_F32["gate_atol"]).sum()))
+            near = max(near, float(dist.max()))
+    return dict(loss=(out["tp"]["losses"], out["single"]["losses"]),
+                params_rel=params_rel, delta_rel=delta,
+                calls=(len(cuts[0]), len(cuts[1])), alone_diffs=alone,
+                expert_diffs=experts, keep_diffs=diffs, far_flips=far,
+                flip_tau_dist=near,
+                assignments=[int(c["keep"].numel()) for c in cuts[1]])
+
+
+def _tp_noise(step: int, cfg):
+    """The serve's Gumbel noise of decode step ``step`` for the global
+    vocab: (batch, V_pad), zero on the greedy rows, each sampled row
+    from its own seeded generator (the same draw in every process)."""
+    import torch
+
+    from repro_torch.serving.sampler import gumbel_noise
+
+    B, g = TP_SERVE["batch"], TP_SERVE["greedy_rows"]
+    V = cfg.vocab_padded
+    return torch.cat([
+        torch.zeros((1, V), device="cuda") if b < g else gumbel_noise(
+            (1, V), torch.Generator(device="cuda").manual_seed(
+                7000 + 100 * step + b)) for b in range(B)])
+
+
+def _tp_stream(cfg, params, prompts, policy=None, mesh=None) -> dict:
+    """Prefill ``prompts`` and decode TP_SERVE["new"] - 1 steps in f32,
+    each token from ``sample_slots`` (top-k 40; the first greedy_rows
+    rows greedy) with ``_tp_noise``; under ``policy`` (local vocab) on
+    this rank's block.  Tokens, per step the screen's margins (greedy:
+    top-1 - top-2 of the masked logits; sampled: the k-th and (k+1)-th
+    largest logits' gap and the top-1 - top-2 of logits + noise), the
+    prefill and median step ms, the joins' seconds and the ring's
+    bytes."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import tuning
+    from repro_torch.core.solver import mesh_policy
+    from repro_torch.models.decode import decode_step, prefill
+    from repro_torch.serving import sampler
+    from repro_torch.tree import leaves
+
+    B, S, k = TP_SERVE["batch"], TP_SERVE["prompt"], TP_SERVE["top_k"]
+    sc = sampler.SamplerConfig(top_k=k, backend="hopper")
+    cfgs = [dataclasses.replace(sc, greedy=b < TP_SERVE["greedy_rows"])
+            for b in range(B)]
+    slots = sampler.SlotSamplers.stack(cfgs, "cuda")
+    tokens = torch.tensor(prompts, device="cuda")
+    ctx = S + TP_SERVE["new"]
+    joins = mesh.stats.seconds if mesh is not None else 0.0
+
+    def sample(logits, i):
+        # top-k alone: no row asks for a temperature solve or top-p
+        return sampler.sample_slots(logits, [None] * B, slots,
+                                    backend="hopper",
+                                    enable=(False, True, False),
+                                    top_k_static=k, noise=_tp_noise(i, cfg))
+
+    out = dict(tokens=[], ms=[])
+    with tuning.disabled(), (mesh_policy(policy) if policy is not None
+                             else contextlib.nullcontext()), \
+            torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(cfg, params, tokens, ctx,
+                                compute_dtype=torch.float32,
+                                kv_dtype=torch.float32)
+        tok = sample(logits, 0)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["width"] = logits.shape[-1]
+        out["tokens"].append(tok.tolist())
+        if policy is None:
+            out["margins"] = [_tp_margins(logits, _tp_noise(0, cfg), k)]
+        for i in range(1, TP_SERVE["new"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = decode_step(cfg, params, tok, S + i - 1, cache,
+                                        compute_dtype=torch.float32)
+            tok = sample(logits, i)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["tokens"].append(tok.tolist())
+            if policy is None:
+                out["margins"].append(_tp_margins(logits, _tp_noise(i, cfg),
+                                                  k))
+    out["ring_bytes"] = sum(t.numel() * t.element_size()
+                            for t in leaves(cache))
+    out["join_s"] = (mesh.stats.seconds - joins) if mesh is not None else 0.0
+    return out
+
+
+def _tp_margins(logits, noise, k: int) -> list:
+    """Per row the smallest gap a flip of this step's token would need:
+    greedy rows top-1 - top-2 of the clamped logits, sampled rows the
+    smaller of the k-th / (k+1)-th gap and top-1 - top-2 of the masked
+    logits plus noise."""
+    import torch
+
+    z = logits.float()
+    z = torch.maximum(z, z.amax(-1, keepdim=True) - 80.0)
+    top = z.topk(k + 1, dim=-1).values
+    greedy = top[:, 0] - top[:, 1]
+    boundary = top[:, k - 1] - top[:, k]
+    masked = torch.where(z >= top[:, k - 1:k], z + noise, -1e30)
+    t2 = masked.topk(2, dim=-1).values
+    drawn = torch.minimum(boundary, t2[:, 0] - t2[:, 1])
+    rows = torch.arange(z.shape[0], device=z.device)
+    return torch.where(rows < TP_SERVE["greedy_rows"], greedy,
+                       drawn).tolist()
+
+
+def _tp_serve_params(cfg):
+    import torch
+
+    from repro_torch.models import transformer
+
+    return transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), torch.float32)
+
+
+def _rank_tp(prompts, cache: str) -> dict:
+    """One rank of phase 31 on the 1x2 mesh: (a) the internlm2 drives,
+    (b) the qwen3 serve, (c) the granite drives.  Numbers and numpy
+    only."""
+    import torch
+
+    from repro_torch.core import tuning
+    from repro_torch.core.solver import MeshPolicy
+    from repro_torch.distributed import tp as tp_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.shardings import place_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tuning.set_cache_path(cache)
+    mesh = Mesh((1, TP_RANKS), ("data", "model"))
+    first = mesh.axis_index("model") == 0
+    out = {}
+    from repro_torch.configs.registry import get_config
+
+    L, _ = mesh_train_depth(get_config("internlm2-1.8b"), 4096,
+                            MESH_TRAIN_BUDGET)
+    cfg = _tp_cfg("internlm2-1.8b", L)
+    out["train"] = _tp_train_drive(mesh, cfg, "fifo", TP_TRAIN_STEPS, True)
+    mesh.barrier()
+    if first:
+        out["train_single"] = _tp_train_drive(mesh, cfg, "fifo",
+                                              TP_TRAIN_STEPS, False)
+    mesh.barrier()
+    out["train_f32"] = _tp_f32_check(mesh, "internlm2-1.8b", "fifo",
+                                     TP_TRAIN_STEPS)
+
+    cfg = _tp_cfg(TP_SERVE["arch"], TP_SERVE["layers"])
+    local = place_params(_tp_serve_params(cfg), mesh, cfg)
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    policy = MeshPolicy(mesh, vocab_axis="model", data_axes=(),
+                        local_vocab=True)
+    ops.reset_launches()
+    with tp_lib.tensor_parallel(mesh):
+        out["serve"] = _tp_stream(cfg, local, prompts, policy, mesh)
+    out["serve"]["launches"] = dict(ops.LAUNCHES)
+    out["serve"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del local
+    free_memory()
+
+    cfg = _tp_cfg(TP_MOE["arch"], TP_MOE["layers"])
+    out["moe"] = _tp_train_drive(mesh, cfg, "bisect", 1, True)
+    if not first:
+        out["moe"].pop("operands", None)
+    mesh.barrier()
+    # one step, as phase 28's: a keep flipped at its tau moves AdamW's
+    # first update of its expert, and a second step's loss with it
+    out["moe_f32"] = _tp_f32_check(mesh, TP_MOE["arch"], "bisect", 1)
+    return out
+
+
+def _tp_prediction(cell: str, arch: str, cfg, shape, **kw) -> float:
+    """The dry run's predicted peak GB a rank of the same cell on a 1x2
+    recording mesh (launch/dryrun.py: a CPU meta trace)."""
+    from repro_torch.launch import cost, dryrun
+
+    mesh = cost.RecordingMesh((1, TP_RANKS), ("data", "model"))
+    rec = dryrun.run_cell(arch, cell, False, cfg=cfg, mesh=mesh,
+                          shape=shape, **kw)
+    check("tensor-parallel over model (2)" in rec["layout"],
+          f"the dry run's {arch} {cell} cell does not trace the layout: "
+          f"{rec['layout']}")
+    return rec["memory"]["peak_bytes"] / 1e9
+
+
+def _k3_vocab_row(gen, B: int, V: int, k: int, note: str) -> dict:
+    """K3 at (B, V) (k, 8 rounds of spec_k 5), bit for bit against its
+    plain version, timed beside its bound and torch.topk."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import runahead_threshold as rt
+
+    kw = dict(k_target=k, rounds=8, spec_k=5)
+    x = torch.randn((B, V), generator=gen, device="cuda") * 2.0
+    got = rt.runahead_topk_threshold_cuda(x, **kw)
+    want = rt.runahead_topk_threshold_plain(x, **kw)
+    for g, w in zip(got, want):
+        check(torch.equal(g, w), f"K3 differs from plain at {(B, V)}")
+    n_cmp = 2 + 1 + kw["rounds"] * kw["spec_k"]
+    run = lambda: ops.runahead_topk_threshold(x, **kw)  # noqa: E731
+    return dict(
+        source="src/repro_torch/kernels/csrc/runahead_threshold.cu",
+        replaces="src/repro/kernels/runahead_threshold.py:123",
+        max_abs_err=0.0, ms=device_ms(run), call_ms=call_ms(run),
+        plain_ms=device_ms(lambda: rt.runahead_topk_threshold_plain(
+            x, **kw), calls=2),
+        bound=bound_ms(4 * (x.numel() + 2 * B), 2 * x.numel() * n_cmp),
+        library_ms=device_ms(lambda: torch.topk(x, k, dim=-1)),
+        library="torch.topk", note=f"({B}, {V}), k {k}; bit for bit; {note}")
+
+
+def phase_tp(gen) -> tuple[dict, dict]:
+    """Phase 31: the tensor-parallel layout on TP_RANKS ranks sharing the
+    card (see the constants' note).  Returns ({path: launches summed over
+    the ranks}, {path: {kernel: row}})."""
+    import types
+
+    import torch
+
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.core import tuning
+    from repro_torch.launch.mesh import spawn_local
+    from repro_torch.models import moe
+    from repro_torch.train.step import TrainConfig
+
+    t0 = time.perf_counter()
+    # (b)'s one-rank reference, on this process, before the ranks start
+    cfg = _tp_cfg(TP_SERVE["arch"], TP_SERVE["layers"])
+    prompts = torch.randint(0, cfg.vocab, (TP_SERVE["batch"],
+                                           TP_SERVE["prompt"]),
+                            generator=gen, device="cuda").tolist()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    params = _tp_serve_params(cfg)
+    ref = _tp_stream(cfg, params, prompts)
+    ref["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    free_memory()
+    outs = spawn_local(_rank_tp, TP_RANKS, device="cuda",
+                       args=(prompts, tuning.cache_path()), timeout=900)
+    launches = {"tp-train": {}, "tp-serve": {}, "tp-moe-train": {}}
+    for path, key in (("tp-train", "train"), ("tp-moe-train", "moe")):
+        for out in outs:
+            for snap in out[key]["launches"]:
+                for name, n in snap.items():
+                    launches[path][name] = launches[path].get(name, 0) + n
+    for out in outs:
+        for name, n in out["serve"]["launches"].items():
+            launches["tp-serve"][name] = launches["tp-serve"].get(name, 0) + n
+
+    # (a) internlm2
+    rs = [out["train"] for out in outs]
+    for r in rs:
+        check(r["losses"] == rs[0]["losses"]
+              and all(map(math.isfinite, r["losses"])),
+              f"phase 31 internlm2: ranks' losses {[x['losses'] for x in rs]}")
+        for i, moved in enumerate(r["launches"]):
+            want = r["want"]
+            check({k: moved.get(k, 0) for k in SOLVER_KERNELS} == want,
+                  f"phase 31 internlm2 step {i}: the solves launched "
+                  f"{moved}, where the decisions give {want}")
+    single = outs[0]["train_single"]
+    depth, _ = mesh_train_depth(get_config("internlm2-1.8b"), 4096,
+                                MESH_TRAIN_BUDGET)
+    for r in rs:
+        for moved in r["launches"]:
+            check(moved.get("flash_fwd", 0) == 2 * depth,
+                  f"phase 31 internlm2: K7 launched {moved.get('flash_fwd')}"
+                  f" times a step on a rank's local heads, not {2 * depth}")
+    f = outs[0]["train_f32"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*f["loss"]))
+    check(rel <= TP_F32["loss_rtol"],
+          f"phase 31 internlm2 f32: TP losses {f['loss'][0]} vs one rank's "
+          f"{f['loss'][1]}")
+    check(max(f["delta_rel"]) <= TP_F32["delta_rel"],
+          f"phase 31 internlm2 f32: after each step the gathered params' "
+          f"change lies {f['delta_rel']} (l2 rel) from the one-rank run's")
+    ms = rs[0]["ms"][-1]
+    join = [r["join_s"][-1] * 1e3 for r in rs]
+    pred = _tp_prediction("train_4k", "internlm2-1.8b",
+                          _tp_cfg("internlm2-1.8b", depth),
+                          ShapeSpec("train_4k", 4096, 2, "train"),
+                          train_config=TrainConfig(n_microbatches=1,
+                                                   remat=True,
+                                                   clip_mode="quantile"))
+    bf16 = max(abs(a - b) / abs(b) for a, b in zip(rs[0]["losses"],
+                                                   single["losses"]))
+    say(f"phase 31 (a) tensor-parallel train internlm2-1.8b: full width, "
+        f"depth {depth} (phase 28's), 1x2 mesh (2 ranks sharing cuda:0, "
+        f"gloo), 2 x 4096 tokens, seq_sp, quantile clip, bf16 | losses "
+        f"{[round(x, 5) for x in rs[0]['losses']]}, one rank's "
+        f"{[round(x, 5) for x in single['losses']]} (bf16 rel diff "
+        f"{bf16:.3g}) | steps {[round(x, 1) for x in rs[0]['ms']]} ms "
+        f"(one rank: {[round(x, 1) for x in single['ms']]}) | joins "
+        f"{[round(j, 1) for j in join]} ms a step by rank, "
+        f"{[round(j / ms, 3) for j in join]} of the step | peak "
+        f"{[round(r['peak_gb'], 2) for r in rs]} GB a rank (one rank "
+        f"{single['peak_gb']:.2f}); the dry run predicts {pred:.2f} GB a "
+        f"rank (CPU meta trace, 1x2) | per step and rank K7 {2 * depth} on "
+        f"{_tp_heads('internlm2-1.8b')}, K2 {rs[0]['want']['multi_count']}"
+        f" | f32 at {TP_F32['layers']} layers, {TP_TRAIN_STEPS} steps: "
+        f"losses {f['loss'][0]} vs one rank's {f['loss'][1]} (largest rel "
+        f"{rel:.3g}), the gathered params' change after each step within "
+        f"{[float(f'{x:.3g}') for x in f['delta_rel']]} (l2 rel) of the "
+        f"one-rank run's; the params themselves "
+        f"{[float(f'{x:.3g}') for x in f['params_rel']]} apart (reported "
+        f"against a {TP_F32['params_rel']} target, not held: AdamW's first, "
+        f"sign-like update of a near-zero gradient turns the split sums' "
+        f"f32 rounding into a share of lr)")
+
+    # (b) qwen3 serve
+    cfg = _tp_cfg(TP_SERVE["arch"], TP_SERVE["layers"])
+    k3 = 2 * TP_SERVE["new"]
+    ok = [b for b in range(TP_SERVE["batch"])
+          if min(m[b] for m in ref["margins"]) > TP_SERVE["margin"]]
+    g = TP_SERVE["greedy_rows"]
+    check(len([b for b in ok if b < g]) >= 2 and len([b for b in ok if b >= g])
+          >= 2, f"phase 31 serve: too few rows pass the tie screen: {ok}")
+    for rank, out in enumerate(outs):
+        s = out["serve"]
+        check(s["width"] == cfg.vocab_padded // TP_RANKS,
+              f"phase 31 serve rank {rank}: logits of width {s['width']}")
+        for b in ok:
+            got = [t[b] for t in s["tokens"]]
+            want = [t[b] for t in ref["tokens"]]
+            check(got == want, f"phase 31 serve rank {rank} row {b}: "
+                  f"{got} vs one rank's {want}")
+        check(s["launches"].get("runahead_topk_threshold", 0) == k3,
+              f"phase 31 serve rank {rank}: K3 launched "
+              f"{s['launches'].get('runahead_topk_threshold')} times, not "
+              f"{k3} (twice a sample on the local vocab block)")
+        check(s["launches"].get("flash_fwd", 0) == cfg.n_layers,
+              f"phase 31 serve rank {rank}: K7 launched "
+              f"{s['launches'].get('flash_fwd')} times in the prefill")
+        check(2 * s["ring_bytes"] == ref["ring_bytes"],
+              f"phase 31 serve rank {rank}: ring {s['ring_bytes']} B, one "
+              f"rank's {ref['ring_bytes']} B")
+    s0 = outs[0]["serve"]
+    step_ms = statistics.median(s0["ms"])
+    wall = s0["prefill_ms"] + sum(s0["ms"])
+    ctx = TP_SERVE["prompt"] + TP_SERVE["new"]
+    pred_p = _tp_prediction("prefill_32k", TP_SERVE["arch"], cfg, ShapeSpec(
+        "prefill_32k", TP_SERVE["prompt"], TP_SERVE["batch"], "prefill"),
+        with_sampler=True)
+    pred_d = _tp_prediction("decode_32k", TP_SERVE["arch"], cfg, ShapeSpec(
+        "decode_32k", ctx, TP_SERVE["batch"], "decode"), with_sampler=True)
+    say(f"phase 31 (b) tensor-parallel serve {TP_SERVE['arch']}: full width, "
+        f"depth {cfg.n_layers}, f32, 1x2, {TP_SERVE['batch']} x "
+        f"{TP_SERVE['prompt']}-token prompts + {TP_SERVE['new']} tokens, "
+        f"sample_slots top-k {TP_SERVE['top_k']} on each rank's "
+        f"{s0['width']}-column vocab block ({g} rows greedy) | streams "
+        f"equal the one-rank serve's on the {len(ok)} tie-screened rows "
+        f"{ok} (margin > {TP_SERVE['margin']}) | prefill "
+        f"{s0['prefill_ms']:.1f} ms (one rank {ref['prefill_ms']:.1f}), "
+        f"decode step median {step_ms:.1f} ms (one rank "
+        f"{statistics.median(ref['ms']):.1f}) | joins "
+        f"{[round(o['serve']['join_s'] * 1e3, 1) for o in outs]} ms, "
+        f"{[round(o['serve']['join_s'] * 1e3 / wall, 3) for o in outs]} of "
+        f"the serve | peak {[round(o['serve']['peak_gb'], 2) for o in outs]}"
+        f" GB a rank (one rank {ref['peak_gb']:.2f}); the dry run predicts "
+        f"{pred_p:.2f} (prefill) / {pred_d:.2f} (decode) GB a rank (CPU "
+        f"meta trace) | ring {s0['ring_bytes'] / 1e9:.3f} GB a rank = 0.5 "
+        f"of one rank's | per rank K3 {k3} (2 a sample: the local block, "
+        f"then the candidates), K7 {cfg.n_layers} on "
+        f"{_tp_heads(TP_SERVE['arch'])}")
+
+    # (c) granite
+    rs = [out["moe"] for out in outs]
+    cfg_c = _tp_cfg(TP_MOE["arch"], TP_MOE["layers"])
+    for r in rs:
+        check(r["losses"] == rs[0]["losses"]
+              and all(map(math.isfinite, r["losses"])),
+              f"phase 31 granite: ranks' losses {[x['losses'] for x in rs]}")
+        for i, moved in enumerate(r["launches"]):
+            check({k: moved.get(k, 0) for k in SOLVER_KERNELS} == r["want"],
+                  f"phase 31 granite step {i}: the solves launched {moved}, "
+                  f"where the decisions give {r['want']}")
+            check(moved.get("flash_fwd", 0) == 2 * cfg_c.n_layers,
+                  f"phase 31 granite: K7 launched {moved.get('flash_fwd')}")
+    c = outs[0]["moe_f32"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*c["loss"]))
+    check(rel <= TP_F32["loss_rtol"],
+          f"phase 31 granite f32: TP losses {c['loss'][0]} vs one rank's "
+          f"{c['loss'][1]}")
+    check(c["calls"][0] == c["calls"][1] and not any(c["expert_diffs"])
+          and not any(c["alone_diffs"]),
+          f"phase 31 granite f32: cuts {c['calls']}, expert ids differ "
+          f"{c['expert_diffs']}, cuts alone differ {c['alone_diffs']}")
+    check(not any(c["far_flips"]) and sum(c["keep_diffs"]) <= MESH_F32["flips"],
+          f"phase 31 granite f32: keeps differ {c['keep_diffs']}, "
+          f"{c['far_flips']} farther than {MESH_F32['gate_atol']} from tau")
+    check(max(c["delta_rel"]) < MESH_F32["bisect_delta_rel"],
+          f"phase 31 granite f32: the params' change differs by "
+          f"{c['delta_rel']}")
+    pred = _tp_prediction("train_4k", TP_MOE["arch"], cfg_c,
+                          ShapeSpec("train_4k", 4096, 2, "train"),
+                          train_config=TrainConfig(
+                              n_microbatches=1, remat=True,
+                              clip_mode="quantile", capacity_mode="bisect"))
+    ms = rs[0]["ms"][-1]
+    join = [r["join_s"][-1] * 1e3 for r in rs]
+    say(f"phase 31 (c) tensor-parallel train {TP_MOE['arch']}: full width, "
+        f"depth {cfg_c.n_layers}, 1x2, 2 x 4096, bisect, one bf16 step | "
+        f"loss {rs[0]['losses'][0]:.5f} | {ms:.1f} ms | joins "
+        f"{[round(j, 1) for j in join]} ms, {[round(j / ms, 3) for j in join]}"
+        f" of the step | peak {[round(r['peak_gb'], 2) for r in rs]} GB a "
+        f"rank; the dry run predicts {pred:.2f} GB (CPU meta trace, 1x2) | "
+        f"per rank K3 {rs[0]['want']['runahead_topk_threshold']} (the "
+        f"capacity cut on every token; a rank runs "
+        f"{moe.padded_experts(cfg_c.n_experts) // TP_RANKS} of the "
+        f"{moe.padded_experts(cfg_c.n_experts)} padded experts), K7 "
+        f"{2 * cfg_c.n_layers} | f32 at "
+        f"{TP_F32['layers']} layers, one step: loss rel "
+        f"{rel:.3g}; {c['calls'][0]} cuts: expert ids equal, each cut "
+        f"alone equal to the layer's, keep masks differ from the one-rank "
+        f"run's at {c['keep_diffs']} of {c['assignments']} (each within "
+        f"{c['flip_tau_dist']:.3g} of its expert's tau: the residual "
+        f"stream's split sums round apart); the params' change within "
+        f"{[float(f'{x:.3g}') for x in c['delta_rel']]}, losses "
+        f"{c['loss'][0]} vs one rank's {c['loss'][1]}")
+
+    # the kernels at a rank's shapes of the drives
+    h = _tp_heads_shape("internlm2-1.8b")
+    rows = {"tp-train": {"flash_fwd": _k7_row(gen, dict(B=2, S=4096, **h),
+                                              0, False)}}
+    rows["tp-serve"] = {"runahead_topk_threshold": _k3_vocab_row(
+        gen, TP_SERVE["batch"], cfg.vocab_padded // TP_RANKS,
+        TP_SERVE["top_k"], "a rank's vocab block of phase 31's serve")}
+    scores, expert, e_pad, cap = outs[0]["moe"]["operands"]
+    rounds, spec_k = outs[0]["moe"]["cut"]
+    rows["tp-moe-train"] = {"runahead_topk_threshold": _capacity_row(
+        [(torch.from_numpy(scores).cuda(), torch.from_numpy(expert).cuda(),
+          e_pad, cap)], types.SimpleNamespace(rounds=rounds, spec_k=spec_k),
+        "phase 31's last capacity cut (granite-moe-3b-a800m, every token "
+        "of the data rank)")}
+    rows["tp-train"]["flash_fwd"]["note"] += "; a rank's local heads"
+    for path, by_name in rows.items():
+        for name, r in by_name.items():
+            say_row(f"phase 31 {name} {path}", r)
+    say(f"phase 31: launches summed over the ranks {launches} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return launches, rows
+
+
+def _tp_heads_shape(arch: str) -> dict:
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.tp import head_plan
+
+    cfg = get_config(arch)
+    hp, kv_rows, _ = head_plan(cfg.n_heads, cfg.n_kv_heads, TP_RANKS)
+    return dict(H=hp // TP_RANKS, Hk=len(kv_rows[0]), D=cfg.head_dim)
+
+
+def _tp_heads(arch: str) -> str:
+    h = _tp_heads_shape(arch)
+    return f"a rank's {h['H']}/{h['Hk']} heads"
+
+
 def _path_kernels(path_rows: dict, launches_by_path: dict) -> list:
     """The JSON line's entries of ``path_rows`` ({path: {kernel: row}}),
     each with its launch count on its path."""
@@ -7028,6 +7734,9 @@ def main() -> int:
         (launches_by_path["mesh-train"], path_rows["mesh-train"],
          launches_by_path["mesh-train-zero1"],
          path_rows["mesh-train-zero1"]) = phase_mesh_train(gen)
+        tp_launches, tp_rows = phase_tp(gen)
+        launches_by_path.update(tp_launches)
+        path_rows.update(tp_rows)
 
     # the path whose run each kernel's launch count is read on: K2 runs
     # where the served requests' top_k differ (phase 13)

@@ -15,8 +15,10 @@ first 16 hex digits of the SHA256 of its path string (``tree.py``: dict
 keys, list indices and NamedTuple field names joined by ``/``), bf16
 stored as its ``uint16`` bits with ``"dtype": "bfloat16"`` in the
 manifest.  A checkpoint written by either package restores in the other.
-Leaves are stored unsharded, so a checkpoint restores on any world size
-(the elastic restart): ``restore_pytree(..., sharding_fn)`` places each
+Leaves are stored unsharded (a tensor-parallel run gathers its blocks
+whole, padding dropped: ``launch/shardings.py::gather_params``), so a
+checkpoint restores on any world size and (data, model) placement (the
+elastic restart): ``restore_pytree(..., sharding_fn)`` places each
 leaf on the current mesh, as JAX's does (``sharding_fn(name, array)``
 returns a device, or a ``Placement``: a device and a spec that
 ``launch/shardings.py::local_block`` cuts the leaf by on a mesh);
@@ -113,16 +115,21 @@ def _load_leaf(ckpt_dir: str, meta: dict) -> tuple[np.ndarray, torch.Tensor]:
 class Placement(NamedTuple):
     """Where a restored leaf goes: ``device``, cut to this rank's block
     of ``spec`` on ``mesh`` (``launch/shardings.py::local_block``; an
-    empty spec keeps the leaf whole)."""
+    empty spec keeps the leaf whole), or to what ``block(whole)``
+    returns (the tensor-parallel layout's blocks, whose heads are
+    padded: ``launch/shardings.py::tp_sharding_fn``)."""
 
     device: Any
     spec: tuple = ()
     mesh: Any = None
+    block: Callable[[torch.Tensor], torch.Tensor] | None = None
 
 
 def _place(t: torch.Tensor, where, dtype) -> torch.Tensor:
     if isinstance(where, Placement):
-        if where.spec:
+        if where.block is not None:
+            t = where.block(t)
+        elif where.spec:
             from repro_torch.launch.shardings import local_block
 
             t = local_block(t, where.spec, where.mesh)

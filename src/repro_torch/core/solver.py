@@ -44,6 +44,15 @@ slots already live on their data rank).  The ranks of a group take the
 decision together: the group's first rank decides and broadcasts it, so
 no rank can pick a placement whose collectives the others never issue.
 ``core/sharded.py`` is the B=1 point-sharded view of the same loop.
+
+A policy with ``local_vocab`` takes operands that are already this
+rank's block of the vocab over ``vocab_axis`` (the tensor-parallel
+layout's logits, ``distributed/tp.py``) and cuts nothing again
+(``_solve_local_vocab``): each rank solves its rows as it holds them,
+the vocab-sharded factory joining the partials each round; a top-k
+target given as a Python int takes two join-free solves instead, the
+first on the local block, the second on the candidates it leaves
+(``_topk_local_vocab``), both through K3 on the ``"hopper"`` backend.
 """
 from __future__ import annotations
 
@@ -227,6 +236,10 @@ class MeshPolicy:
         serving scheduler's slots live on their data rank so.  False: the
         caller holds the global operand, replicated, and gets global
         brackets back.
+    local_vocab: the operand's columns are already this rank's block of
+        the vocab over ``vocab_axis`` (V_local = V / m), as the
+        tensor-parallel layout leaves the logits: the solve runs on the
+        rows the rank holds with no second cut, its brackets global.
 
     Hashable (the mesh by identity), so solves and graphs can key on it.
     """
@@ -235,6 +248,7 @@ class MeshPolicy:
     vocab_axis: str | None = "model"
     data_axes: tuple[str, ...] | None = None
     local_rows: bool = False
+    local_vocab: bool = False
 
     def __post_init__(self):
         if self.data_axes is None:
@@ -317,6 +331,23 @@ _SHARDED_REGISTRY: dict[tuple[str, str], Callable[..., MonotoneProblem]] = {}
 _LAZY_BACKEND_MODULES = {"hopper": "repro_torch.kernels.solver_backends"}
 
 
+def _load_backend(backend: str) -> None:
+    """Import the module that registers ``backend``'s factories, where it
+    lives outside core/."""
+    module = _LAZY_BACKEND_MODULES.get(backend)
+    if module is not None:
+        importlib.import_module(module)
+
+
+def _sharded_factory(kind: str, backend: str):
+    try:
+        return _SHARDED_REGISTRY[(kind, backend)]
+    except KeyError:
+        raise KeyError(
+            f"no SHARDED solver backend {backend!r} for kind {kind!r}; "
+            f"registered: {sorted(_SHARDED_REGISTRY)}") from None
+
+
 def register(kind: str, backend: str):
     """Decorator: register a problem factory for (kind, backend)."""
 
@@ -340,9 +371,7 @@ def register_sharded(kind: str, backend: str):
 def problem(kind: str, operand: Tensor, *, backend: str = "torch", **params
             ) -> MonotoneProblem:
     """Build the MonotoneProblem for `kind` on `operand` via `backend`."""
-    module = _LAZY_BACKEND_MODULES.get(backend)
-    if module is not None:
-        importlib.import_module(module)
+    _load_backend(backend)
     try:
         factory = _REGISTRY[(kind, backend)]
     except KeyError:
@@ -413,6 +442,11 @@ def solve_kind(
                      rounds=rounds, spec_k=spec_k)
 
     policy = current_policy()
+    if policy is not None and policy.local_vocab:
+        if backend == "auto":
+            backend = "hopper" if z.device.type == "cuda" else "torch"
+        return _solve_local_vocab(policy, kind, z, backend=backend,
+                                  rounds=rounds, spec_k=spec_k, **params)
     iterations = rounds * spec_k
     rows = z.shape[0] * (policy.data_ways()
                          if policy is not None and policy.local_rows else 1)
@@ -607,19 +641,12 @@ def _solve_kind_sharded(
         operand = local_block(operand, spec, mesh)
         params = {k: (local_block(p, spec, mesh) if _row_param(p) else p)
                   for k, p in params.items()}
-    module = _LAZY_BACKEND_MODULES.get(backend)
-    if module is not None:
-        importlib.import_module(module)
+    _load_backend(backend)
     if va is None:
         lo, hi = solve(_REGISTRY[(kind, backend)](operand, **params),
                        rounds=rounds, spec_k=spec_k, iterations=iterations)
     else:
-        try:
-            factory = _SHARDED_REGISTRY[(kind, backend)]
-        except KeyError:
-            raise KeyError(
-                f"no SHARDED solver backend {backend!r} for kind {kind!r}; "
-                f"registered: {sorted(_SHARDED_REGISTRY)}") from None
+        factory = _sharded_factory(kind, backend)
         local = local_block(operand, (None, va), mesh)
         prob = factory(local, join=VocabJoin(mesh, va), global_v=v,
                        **params)
@@ -630,6 +657,73 @@ def _solve_kind_sharded(
     if cut:
         lo, hi = mesh.all_gather(lo, data), mesh.all_gather(hi, data)
     return lo, hi
+
+
+def _solve_local_vocab(policy: MeshPolicy, kind: str, operand: Tensor, *,
+                       backend: str, rounds: int, spec_k: int, **params):
+    """The solve of rows whose columns are this rank's vocab block (a
+    ``local_vocab`` policy): global (B,) brackets for the rows as held.
+
+    The caller's ``(rounds, spec_k)`` runs as given (the placement is
+    fixed by where the operand lies, so the tuner has nothing to pick).
+    A top-k (``count_above``) target given as a Python int below the
+    local width takes ``_topk_local_vocab``; every other solve runs the
+    vocab-sharded factory on the block, one join a round."""
+    _load_backend(backend)
+    mesh, va = policy.mesh, policy.vocab_axis
+    k = params.get("k")
+    if kind == "count_above" and isinstance(k, int) \
+            and k < operand.shape[1]:
+        return _topk_local_vocab(mesh, va, operand, k, backend=backend,
+                                 rounds=rounds, spec_k=spec_k)
+    prob = _sharded_factory(kind, backend)(operand, join=VocabJoin(mesh, va),
+                   global_v=operand.shape[1] * mesh.axis_size(va), **params)
+    return _solve_rounds(prob.multi_eval, prob.lo0, prob.hi0, rounds=rounds,
+                         spec_k=spec_k, sign_lo=prob.sign_lo,
+                         sign_bit=prob.sign_bit)
+
+
+def _topk_local_vocab(mesh, axis: str, operand: Tensor, k: int, *,
+                      backend: str, rounds: int, spec_k: int):
+    """The global top-k bracket of rows split over ``axis`` by vocab, in
+    two solves and three joins, bit for bit the bracket one rank's solve
+    of the whole rows gives.
+
+    1. Each rank solves count(x > tau) = k on its block: ``lo_r`` with
+       count(x > lo_r) > k (K3's whole solve on the card).  Its
+       candidates are S_r = {x > lo_r}, at least k + 1 of them.
+    2. One MAX join gives the global row minimum (as -min) and the
+       widest candidate count; one gather lines up every rank's
+       candidates, padded with the global minimum, plus one column of
+       it.
+    3. The same solve on that matrix.  Its bracket init is the whole
+       rows' (the global min and max are both in it), and every sign
+       the walk reads agrees with the whole rows': a midpoint m <= lo_r
+       of some rank counts all of S_r (> k) in both; above every lo_r
+       each element above m lies in its rank's S_r, and a pad (the
+       minimum) never lies above m there.
+
+    A trace on meta tensors (the dry run) cannot read the count back;
+    it takes the local width as the candidate bound."""
+    x = operand.float()
+    B, v_l = x.shape
+    lo_l, _ = solve(problem("count_above", x, backend=backend, k=k),
+                    rounds=rounds, spec_k=spec_k)
+    cand = x > lo_l[:, None]
+    both = mesh.all_reduce(torch.stack([-x.amin(dim=-1),
+                                        cand.sum(dim=-1).float()]),
+                           axis, "max")
+    gmin = -both[0]
+    width = (v_l if x.device.type == "meta"
+             else max(1, int(both[1].max())))
+    slot = torch.where(cand, torch.cumsum(cand, dim=-1) - 1, width)
+    buf = gmin[:, None].expand(B, width + 1).contiguous()
+    buf = buf.scatter(1, slot, x)[:, :width]
+    every = mesh.all_gather(buf[None], axis)              # (m, B, width)
+    cands = torch.cat([every.permute(1, 0, 2).reshape(B, -1), gmin[:, None]],
+                      dim=1)
+    return solve(problem("count_above", cands, backend=backend, k=k),
+                 rounds=rounds, spec_k=spec_k)
 
 
 # kind -> (its target parameter, the value a measurement solves for at V)

@@ -21,7 +21,12 @@ it), so where GSPMD took a sharding constraint, ``shard`` only checks that
 the annotation names one logical axis a dim and returns ``x`` as it is;
 the rules serve the callers that place state themselves (the serving
 scheduler's slots and the solver engine's mesh policy, through
-``resolve_axes``).
+``resolve_axes``).  The tensor-parallel layout's weights, heads, vocab
+and experts over ``model`` are placed by ``launch/shardings.py::
+place_params``, and the joins GSPMD would insert between them are
+written out in ``distributed/tp.py``; the model code reads ``seq_sp``
+from the active rules to choose the sequence-parallel stream
+(``TRAIN_RULES``) or the replicated one (``SERVE_RULES``).
 """
 from __future__ import annotations
 

@@ -272,7 +272,8 @@ class RecordingMesh:
     """A stand-in for ``launch/mesh.py::Mesh`` of any shape: the same
     axis queries and collectives, answered as rank 0 of the mesh with
     meta tensors, each collective recorded as (op, payload bytes per
-    device) in ``calls``."""
+    device) in ``calls`` and its mesh axes, in the same order, in
+    ``call_axes``."""
 
     def __init__(self, shape: Mapping[str, int] | Sequence[int],
                  axis_names: Sequence[str] | None = None):
@@ -288,6 +289,7 @@ class RecordingMesh:
         self.device = torch.device("meta")
         self.agreed: dict = {}
         self.calls: list[tuple[str, int]] = []
+        self.call_axes: list[tuple[str, ...]] = []
         self.reduce_scatter_form = "reduce_scatter_tensor"
 
         from repro_torch.launch.mesh import JoinStats
@@ -318,6 +320,7 @@ class RecordingMesh:
     def _record(self, op: str, axes, payload: int) -> None:
         if self.axis_size(axes) > 1:
             self.calls.append((op, int(payload)))
+            self.call_axes.append(self._axes(axes))
             self.stats.count += 1
 
     def all_reduce(self, t, axes, op: str = "sum"):

@@ -12,28 +12,38 @@ group is made and nothing is allocated; the trace runs the kernels'
 plain versions (it never imports the card's kernels), so K7's cells are
 counted as its plain chunked version computes them.
 
-The rank programs are the port's own:
+The rank programs are the port's own.  The seven decoder-only
+transformer architectures (the dense and MoE families) trace the
+tensor-parallel layout (``distributed/tp.py``): weights, heads (padded
+to a multiple of the ``model`` ranks), vocab and experts split over
+``model`` (``launch/shardings.py::place_params``), as JAX's GSPMD layout
+splits them.  hymba, xlstm and whisper keep replicated weights, the
+``model`` axis holding replicas, and their records say so:
 
-  * train cells: ``train/step.py``'s data-parallel step over the data
-    axes (``pod`` x ``data``) with ZeRO-1 optimizer state
-    (``adamw_init(params, mesh=)``), remat on, ``moe_groups`` the data
-    ranks as JAX's, a rank's expert buffer at its bound, the whole
-    batch's capacity (``models/moe.py::capacity_at_bound``: no count
-    can be read on meta tensors); ``--zero-grads`` adds the ZeRO-1
-    gradient constraint (reduce-scatter).  The port has no tensor-parallel layout yet: the
-    ``model`` axis holds replicas in training, and every record says so
-    in its ``layout`` field.  JAX's GSPMD layout shards the weights over
-    ``model``; this dry run does not pretend to it;
+  * train cells: ``train/step.py``'s step over the data axes (``pod`` x
+    ``data``) with ZeRO-1 optimizer state (``adamw_init(params,
+    mesh=)``, inside the tensor-parallel blocks), remat on,
+    ``moe_groups`` the data ranks as JAX's, a rank's expert buffer at
+    its bound, the whole batch's capacity (``models/moe.py::
+    capacity_at_bound``: no count can be read on meta tensors), and
+    under the layout the residual stream sequence-parallel
+    (``TRAIN_RULES``' ``seq_sp``) and the loss vocab-parallel;
+    ``--zero-grads`` adds the ZeRO-1 gradient constraint
+    (reduce-scatter);
   * prefill cells: one admission's prefill over the rank's slots (the
-    global batch over the data axes where it divides, else every row),
-    weights replicated; ``--sampler`` adds the first token's runahead
-    top-k sample, vocab-sharded over ``model`` (the tuner's fixed
-    decision, ``tuning.disabled()``, whatever its analytic tier would
-    pick for the CPU the trace runs on);
+    global batch over the data axes where it divides, else every row);
+    under the layout (``SERVE_RULES``) the stream replicated, the
+    ring's slots split over ``model``; ``--sampler`` adds the first
+    token's runahead top-k sample, on the rank's vocab block under the
+    layout (``MeshPolicy(local_vocab=True)``), else vocab-sharded over
+    ``model`` (the tuner's fixed decision, ``tuning.disabled()``,
+    whatever its analytic tier would pick for the CPU the trace runs
+    on);
   * decode cells: one decode step of the rank's slots over their cache
-    (``--kv-int8``: int8 codes and f16 scales); ``--sampler`` adds the
-    slot sampler's top-k solve, vocab-sharded over ``model`` (the serving
-    scheduler's ``MeshPolicy(local_rows=True)``).
+    (``--kv-int8``: int8 codes and f16 scales), under the layout on the
+    sequence-split ring; ``--sampler`` adds the slot sampler's top-k
+    solve (the serving scheduler's ``MeshPolicy(local_rows=True)``, on
+    the local vocab block under the layout).
 
 Each record: ``memory`` (argument bytes per device: params, optimizer
 state, cache and batch; the traced peak of live bytes), ``fits`` (the
@@ -68,11 +78,41 @@ from repro_torch.launch.mesh import data_axes
 from repro_torch.models.moe import capacity_at_bound
 
 DEVICE_BYTES = 80e9          # an H100 80GB HBM3, where no card is present
-TRAIN_LAYOUT = ("data-parallel over {data}; ZeRO-1 optimizer state over "
-                "data; the model axis ({model}) holds replicas (no "
-                "tensor-parallel layout in the port yet)")
-SERVE_LAYOUT = ("slots over {data}{slots}; the sampler's solves "
-                "vocab-sharded over model ({model}); weights replicated")
+TP_TEXT = ("tensor-parallel over model ({model}): weights, heads ({heads}), "
+           "vocab and experts split")
+TRAIN_LAYOUT = ("data-parallel over {data}; " + TP_TEXT + ", the residual "
+                "stream sequence-parallel (seq_sp); ZeRO-1 optimizer state "
+                "over data inside the model blocks")
+SERVE_LAYOUT = ("slots over {data}{slots}; " + TP_TEXT + ", the ring's "
+                "slots split over model, K/V heads replicated; the sampler "
+                "on the rank's vocab block")
+REPLICATED = (" (the port splits weights over model for the dense and MoE "
+              "families only)")
+TRAIN_LAYOUT_REPL = ("data-parallel over {data}; ZeRO-1 optimizer state "
+                     "over data; the model axis ({model}) holds replicas"
+                     + REPLICATED)
+SERVE_LAYOUT_REPL = ("slots over {data}{slots}; the sampler's solves "
+                     "vocab-sharded over model ({model}); weights "
+                     "replicated" + REPLICATED)
+
+
+def tp_covers(cfg, mesh) -> bool:
+    """Whether the cell traces the tensor-parallel layout: a ``model``
+    axis of several ranks and a dense or MoE architecture."""
+    from repro_torch.distributed import tp as tp_lib
+    from repro_torch.models.transformer import layer_plan
+
+    return (mesh.shape.get("model", 1) > 1 and cfg.act == "swiglu"
+            and {k for k, _ in layer_plan(cfg)} <= set(tp_lib.TP_KINDS))
+
+
+def _heads_text(cfg, mesh) -> str:
+    from repro_torch.distributed.tp import head_plan
+
+    hp, kv_rows, _ = head_plan(cfg.n_heads, cfg.n_kv_heads,
+                               mesh.shape["model"])
+    pad = f", padded to {hp}" if hp > cfg.n_heads else ""
+    return (f"{cfg.n_heads} query{pad}, {len(kv_rows[0])} K/V a rank")
 
 
 def production_mesh(multi_pod: bool) -> cost_lib.RecordingMesh:
@@ -103,12 +143,21 @@ def build_cell(arch: str, shape_name: str, mesh, *, kv_int8: bool = False,
     config (a reduced or depth-cut one), ``shape`` (a ``ShapeSpec``) the
     named shape, ``train_config`` the dry run's ``TrainConfig`` (a
     launcher's, to predict its run)."""
+    from repro_torch.distributed import tp as tp_lib
+    from repro_torch.launch.shardings import place_params
+
     cfg = cfg or get_config(arch)
     shape = shape or SHAPES[shape_name]
     axes = data_axes(mesh)
     d = mesh.axis_size(axes)
     params = specs_lib.params_specs(cfg)
     ins = specs_lib.input_specs(arch, shape, cfg=cfg)
+    tp = tp_covers(cfg, mesh)
+    tp_mesh = mesh if tp else None
+    if tp:
+        params = place_params(params, mesh, cfg)
+    fmt = dict(model=mesh.shape.get("model", 1),
+               heads=_heads_text(cfg, mesh) if tp else "")
 
     if shape.kind == "train":
         from repro_torch.launch.shardings import zero1_grad_constraint
@@ -124,11 +173,15 @@ def build_cell(arch: str, shape_name: str, mesh, *, kv_int8: bool = False,
             else None)
         opt = adamw_init(params, mesh=mesh)
         batch = ins["batch"]
-        layout = TRAIN_LAYOUT.format(data=" x ".join(axes) + f" = {d}",
-                                     model=mesh.shape.get("model", 1))
-        return ((lambda: step(params, opt, batch)),
-                {"params": params, "opt_state": opt, "batch": batch},
-                layout)
+        layout = (TRAIN_LAYOUT if tp else TRAIN_LAYOUT_REPL).format(
+            data=" x ".join(axes) + f" = {d}", **fmt)
+
+        def train():
+            with tp_lib.tensor_parallel(tp_mesh):
+                return step(params, opt, batch)
+
+        return train, {"params": params, "opt_state": opt, "batch": batch}, \
+            layout
 
     from repro_torch.core import tuning
     from repro_torch.core.solver import MeshPolicy, mesh_policy
@@ -144,13 +197,12 @@ def build_cell(arch: str, shape_name: str, mesh, *, kv_int8: bool = False,
     sharded = local < B
     policy = MeshPolicy(mesh, vocab_axis="model",
                         data_axes=axes if sharded else (),
-                        local_rows=sharded)
+                        local_rows=sharded, local_vocab=tp)
     sc = SamplerConfig(top_k=50, spec_k=5, rounds=6)
-    layout = SERVE_LAYOUT.format(
+    layout = (SERVE_LAYOUT if tp else SERVE_LAYOUT_REPL).format(
         data=" x ".join(axes) + f" = {d}",
         slots=(f", {local} a rank" if sharded
-               else f" (replicated: {B} does not split {d} ways)"),
-        model=mesh.shape.get("model", 1))
+               else f" (replicated: {B} does not split {d} ways)"), **fmt)
 
     def sample(logits):
         knobs = SlotSamplers.stack([sc] * logits.shape[0], logits.device)
@@ -170,7 +222,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, kv_int8: bool = False,
                   if "frames" in ins else None)
 
         def prefill():
-            with torch.no_grad():
+            with torch.no_grad(), tp_lib.tensor_parallel(tp_mesh):
                 logits, cache = decode_lib.prefill(
                     cfg, params, tokens, shape.seq_len,
                     encoder_frames=frames, moe_groups=1)
@@ -181,13 +233,14 @@ def build_cell(arch: str, shape_name: str, mesh, *, kv_int8: bool = False,
             batch["frames"] = frames
         return prefill, {"params": params, "batch": batch}, layout
 
-    cache = specs_lib.cache_specs(cfg, local, shape.seq_len,
-                                  torch.int8 if kv_int8 else torch.bfloat16)
+    with tp_lib.tensor_parallel(tp_mesh):
+        cache = specs_lib.cache_specs(cfg, local, shape.seq_len, torch.int8
+                                      if kv_int8 else torch.bfloat16)
     token = specs_lib.spec((local,), torch.int32)
     pos = shape.seq_len - 1
 
     def decode():
-        with torch.no_grad():
+        with torch.no_grad(), tp_lib.tensor_parallel(tp_mesh):
             logits, _ = decode_lib.decode_step(cfg, params, token, pos, cache)
             return sample(logits) if with_sampler else logits
 

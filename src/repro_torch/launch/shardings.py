@@ -240,12 +240,19 @@ def local_block(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 
 def zero1_local_spec(path, leaf, mesh) -> tuple:
     """The spec of a ZeRO-1 optimizer-state leaf as the port places it:
-    ``zero1_spec``'s ``data`` entry alone.  The port's training has no
-    tensor-parallel layout yet, so the ``model`` axis (and ``pod``) hold
-    replicas; a leaf with no dim that ``data`` divides stays whole on
+    ``zero1_spec``'s, ``model`` entries kept.  ``leaf`` is the tensor a
+    rank holds: the whole leaf where weights are replicated, or its
+    tensor-parallel block (``place_params``) under the layout.  The
+    ``data`` entry cuts that tensor (``zero1_dim``); the ``model`` entries
+    say where the block came from and are not cut again, and on a mesh
+    whose weights are replicated the ``model`` ranks (and ``pod``) hold
+    replicas.  A leaf with no dim that ``data`` divides stays whole on
     every rank, as JAX's ``zero1_spec`` leaves it replicated."""
-    return tuple("data" if s == "data" else None
-                 for s in zero1_spec(path, leaf, mesh))
+    return zero1_spec(path, leaf, mesh)
+
+
+def _data_only(spec: tuple) -> tuple:
+    return tuple("data" if s == "data" else None for s in spec)
 
 
 def zero1_dim(path, leaf, mesh) -> int | None:
@@ -285,8 +292,8 @@ def zero1_sharding_fn(mesh, device, prefix: str = "opt"):
         head = keys[:len(_keys(prefix))] if prefix else ()
         rest = keys[len(head):]
         if head == _keys(prefix) and rest and rest[0] in fields:
-            return Placement(device, zero1_local_spec(rest[1:], arr.shape,
-                                                      mesh), mesh)
+            return Placement(device, _data_only(zero1_local_spec(
+                rest[1:], arr.shape, mesh)), mesh)
         return device
 
     return fn
@@ -312,3 +319,180 @@ def zero1_grad_constraint(mesh) -> Zero1Grads:
     ``repro/launch/dryrun.py``'s ``grad_constraint`` under
     ``--zero-grads``)."""
     return Zero1Grads(mesh)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel layout: whole heads, padded, over `model`
+# ---------------------------------------------------------------------------
+
+_Q_LEAVES = {"wq", "bq"}
+_KV_LEAVES = {"wk", "wv", "bk", "bv"}
+
+
+def _tp_dim(path, shape: tuple) -> int | None:
+    """The dim ``param_spec``'s rules put ``model`` on, before its
+    divisibility guard (None: the leaf is replicated)."""
+    name = _leaf_name(path)
+    rank = len(shape)
+    base = _PARAM_RULES.get(name) or (None,) * rank
+    if name in _MOE_EXPERT_LEAVES and rank - len(base) >= 1 \
+            and _path_has(path, "moe") and not _path_has(path, "shared"):
+        base = ("model",) + (None,) * len(base)
+    spec = (None,) * (rank - len(base)) + tuple(base)
+    return spec.index("model") if "model" in spec else None
+
+
+def tp_leaf_rule(path, leaf) -> tuple[str, int | None]:
+    """The head-aligned local spec of a parameter leaf under the
+    tensor-parallel layout, beside ``param_spec``: ``("q", dim)``
+    (query-head columns of ``wq``/``bq``), ``("o", dim)`` (query-head
+    rows of ``wo``), ``("kv", dim)`` (``wk``/``wv``/``bk``/``bv``),
+    ``("split", dim)`` (``param_spec``'s ``model`` dim, before its
+    divisibility guard: a dim that does not split raises in
+    ``place_leaf``) or ``("whole", None)``.  Where ``param_spec``'s
+    guard divides a flattened ``n_heads * head_dim`` dim through a head
+    (qwen1.5's 20 heads over 16 ranks), the layout places whole heads,
+    padded to a multiple of the ranks, instead."""
+    name = _leaf_name(path)
+    shape = _shape(leaf)
+    if name in _Q_LEAVES:
+        return "q", len(shape) - 1
+    if name == "wo":
+        return "o", len(shape) - 2
+    if name in _KV_LEAVES:
+        return "kv", len(shape) - 1
+    dim = _tp_dim(path, shape)
+    return ("whole", None) if dim is None else ("split", dim)
+
+
+def _heads_view(t: torch.Tensor, dim: int, hd: int) -> torch.Tensor:
+    return t.unflatten(dim, (t.shape[dim] // hd, hd))
+
+
+def place_leaf(path, x: torch.Tensor, lay) -> torch.Tensor:
+    """This rank's block of the whole leaf ``x`` under the layout ``lay``
+    (``distributed/tp.py::TPLayout``): a new tensor."""
+    kind, dim = tp_leaf_rule(path, x)
+    hd = lay.cfg.head_dim
+    if kind == "whole":
+        return x.clone()
+    if kind == "split":
+        if x.shape[dim] % lay.tp:
+            raise ValueError(f"{path}: dim {dim} of {tuple(x.shape)} does "
+                             f"not split {lay.tp} ways over model")
+        return _tp_block(x, dim, lay).clone()
+    h = _heads_view(x, dim, hd)
+    if kind in ("q", "o"):
+        pad = [0, 0] * (h.ndim - dim - 1) + [0, lay.hp - h.shape[dim]]
+        h = torch.nn.functional.pad(h, pad)
+        h = _tp_block(h, dim, lay)
+    else:
+        rows = lay.kv_rows[lay.rank]
+        idx = torch.tensor([max(r, 0) for r in rows], device=x.device)
+        h = h.index_select(dim, idx)
+        real = torch.tensor([r >= 0 for r in rows], device=x.device)
+        h = torch.where(real.reshape((-1,) + (1,) * (h.ndim - dim - 1)),
+                        h, 0)
+    return h.flatten(dim, dim + 1).contiguous()
+
+
+def _tp_block(x: torch.Tensor, dim: int, lay) -> torch.Tensor:
+    size = x.shape[dim] // lay.tp
+    return x.narrow(dim, lay.rank * size, size)
+
+
+def gather_leaf(path, t: torch.Tensor, lay) -> torch.Tensor:
+    """The whole leaf from every rank's block ``t`` of it (a collective
+    over ``model``; the padding dropped)."""
+    from repro_torch.distributed import tp as tp_lib
+
+    kind, dim = tp_leaf_rule(path, t)
+    if kind == "whole":
+        return t
+    whole = tp_lib.gather_heads(lay.mesh, t.contiguous(), dim)
+    if kind == "split":
+        return whole
+    h = _heads_view(whole, dim, lay.cfg.head_dim)
+    if kind in ("q", "o"):
+        h = h.narrow(dim, 0, lay.cfg.n_heads)
+    else:
+        h = h.index_select(dim, torch.tensor(lay.kv_pick, device=t.device))
+    return h.flatten(dim, dim + 1).contiguous()
+
+
+def _tp_layout(mesh, cfg):
+    from repro_torch.distributed.tp import TPLayout
+
+    return TPLayout.of(mesh, cfg)
+
+
+def place_params(params, mesh, cfg) -> Any:
+    """This rank's blocks of a whole parameter tree (``convert.py::
+    params_from_jax``'s, ``init_params``', a checkpoint's) under the
+    tensor-parallel layout of ``cfg`` on ``mesh``: new tensors.  The
+    caller runs the model on them inside ``distributed/tp.py::
+    tensor_parallel(mesh)``."""
+    lay = _tp_layout(mesh, cfg)
+    return unflatten(params, [place_leaf(path, x, lay)
+                              for path, x in leaves_with_path(params)])
+
+
+def gather_params(params, mesh, cfg) -> Any:
+    """The whole logical tree from every rank's blocks (a collective:
+    every rank of the mesh calls it), padding dropped: what checkpoints
+    store and tests compare."""
+    lay = _tp_layout(mesh, cfg)
+    return unflatten(params, [gather_leaf(path, t, lay)
+                              for path, t in leaves_with_path(params)])
+
+
+def tp_cache_spec(path, leaf, mesh) -> tuple:
+    """A decode cache leaf's ``cache_spec`` on the ``model`` axis alone
+    (the ring's slots; K/V heads replicated, ``SERVE_RULES``): the cut
+    the layout's cache takes, the batch placed by its caller."""
+    return tuple(s if s == "model" else None
+                 for s in cache_spec(path, leaf, mesh))
+
+
+def place_cache(cache, mesh) -> Any:
+    """This rank's ring block of a whole decode cache: ``tp_cache_spec``
+    cut by ``local_block`` (new tensors)."""
+    return unflatten(cache, [
+        local_block(x, tp_cache_spec(path, x, mesh), mesh).clone()
+        for path, x in leaves_with_path(cache)])
+
+
+def tp_sharding_fn(mesh, cfg, device, *, params: str = "params",
+                   opt: str | None = "opt"):
+    """A checkpoint ``sharding_fn`` (``checkpoint/manager.py``) that
+    restores a whole checkpoint onto any (data, model) placement: a leaf
+    under ``<params>/`` as this rank's tensor-parallel block, one under
+    ``<opt>/<master|mu|nu|error>/`` as that block's ZeRO-1 block over
+    ``data`` (``zero1_local_spec`` of the block), every other leaf whole
+    on ``device``.  On a mesh of one ``model`` rank the blocks are the
+    whole leaves."""
+    from repro_torch.checkpoint.manager import Placement
+
+    tp = mesh.shape.get("model", 1) > 1
+    lay = _tp_layout(mesh, cfg) if tp else None
+    fields = {"master", "mu", "nu", "error"}
+    pk, ok = _keys(params), _keys(opt) if opt else None
+
+    def fn(name: str, arr):
+        keys = _keys(name)
+        if keys[:len(pk)] == pk:
+            path, zero1 = keys[len(pk):], False
+        elif ok and keys[:len(ok)] == ok and len(keys) > len(ok) \
+                and keys[len(ok)] in fields:
+            path, zero1 = keys[len(ok) + 1:], True
+        else:
+            return device
+
+        def block(t):
+            if lay is not None:
+                t = place_leaf(path, t, lay)
+            return zero1_block(t, path, mesh) if zero1 else t
+
+        return Placement(device, mesh=mesh, block=block)
+
+    return fn

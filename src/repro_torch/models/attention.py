@@ -39,11 +39,16 @@ takes the full-materialisation ``_sdpa``.  It acts off the card only (the
 CPU, and the dry run's meta trace): on CUDA operands, where the branch is
 K7, ``attend`` raises rather than move K7's work to plain PyTorch.
 
-Not ported yet: the tensor-parallel head padding of ``attend``'s flash
-branch.  The port's mesh (``launch/mesh.py``) serves and trains with
-replicated weights and shards slots, batches and sampler solves, not
-heads, so no head is padded; the padding comes with the tensor-parallel
-layout, the next slice of the port (ROADMAP).
+Tensor parallelism (``distributed/tp.py``): a rank runs ``attend`` on
+its local heads by calling it with the layout's ``local_cfg`` (its
+``hl`` query heads, padded as JAX's flash branch pads them, and the K/V
+heads they read); K7 then runs on the local head count, and the output
+projection on the rank's ``wo`` rows is its partial sum, which the block
+joins over ``model``.  A padded head has zero Q, K and V, so it outputs
+0 and its weights get exactly zero gradient.  ``decode_attend_tp`` is
+the decode step on the sequence-split ring of ``SERVE_RULES``
+(``cache_seq -> model``, K/V heads replicated): flash-decoding across
+ranks.
 """
 from __future__ import annotations
 
@@ -430,21 +435,123 @@ def decode_attend(
         index = (slice(None), slot)
         pos_c, slot_c = pos, slot
     k, v = _write_kv(cache, index, k_new[:, 0], v_new[:, 0], x.dtype)
-
-    # validity: ring slot s holds absolute position p_s; it is attendable iff
-    # p_s <= pos and p_s > pos - C (ring eviction) and (SWA) p_s > pos - w.
-    wraps = pos_c // C
-    p_s = torch.where(slots <= slot_c, wraps * C + slots,
-                      (wraps - 1) * C + slots)
-    valid = (p_s >= 0) & (p_s <= pos_c)
-    if window > 0:
-        valid &= p_s > pos_c - window
+    valid = _ring_valid(slots, pos_c, slot_c, C, window)
     # (B, 1, 1, C) per slot, (1, 1, 1, C) shared
     mask = valid[:, None, None, :] if per_slot else valid[None, None, None, :]
 
     out = _decode_sdpa(q, k, v, mask, cfg.n_heads // cfg.n_kv_heads)
     out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
     return out @ p["wo"].to(x.dtype), cache
+
+
+def _ring_valid(slots: torch.Tensor, pos_c, slot_c, C: int, window: int
+                ) -> torch.Tensor:
+    """Ring validity of global ring slots ``slots``: slot s holds
+    absolute position p_s; it is attendable iff p_s <= pos and p_s > pos
+    - C (ring eviction) and (SWA) p_s > pos - window."""
+    wraps = pos_c // C
+    p_s = torch.where(slots <= slot_c, wraps * C + slots,
+                      (wraps - 1) * C + slots)
+    valid = (p_s >= 0) & (p_s <= pos_c)
+    if window > 0:
+        valid &= p_s > pos_c - window
+    return valid
+
+
+def decode_attend_tp(
+    p: Params,
+    tp,                       # distributed/tp.py::TPRun (not seq_sp)
+    x: torch.Tensor,          # (B, 1, D) current token, replicated
+    pos,                      # int shared position, or (B,) per-slot tensor
+    cache: KVCache,           # this rank's (B, C / tp, n_kv, hd) ring block
+) -> torch.Tensor:
+    """One decode step on the sequence-split ring: this rank's partial
+    sum of the attention output (the caller joins it over ``model``).
+
+    The ring's slots are split over ``model`` (rank r holds global slots
+    ``[r * C_l, (r + 1) * C_l)``), every K/V head on each rank.  The
+    rank projects its local query and K/V heads; one gather over
+    ``model`` gives every head's query and the new K/V rows, which the
+    rank owning slot ``pos % C`` writes (int8: codes and scales).  Each
+    rank then forms the partial max, sum and P.V of every head over its
+    slots, with validity from the global slot indices, and the partials
+    combine over ``model`` (one MAX and one SUM join: flash-decoding
+    across ranks).  The rank keeps its own heads' rows for its ``wo``
+    block.  The combine reassociates the softmax's sums, so the result
+    equals the one-rank step within rounding, not bit for bit.
+    """
+    from repro_torch.distributed import tp as tp_lib
+
+    lay = tp.layout
+    cfg, lcfg = lay.cfg, lay.local_cfg
+    mesh = lay.mesh
+    B = x.shape[0]
+    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _project_q(p, lcfg, x)                               # (B,1,hl,hd)
+    k_new, v_new = _project_kv(p, lcfg, x)                   # (B,1,kv_l,hd)
+    per_slot = isinstance(pos, torch.Tensor)
+    pvec = (pos[:, None] if per_slot else
+            torch.full((B, 1), pos, dtype=torch.int32, device=x.device))
+    q = apply_rope(q, pvec, cfg.rope_theta)
+    k_new = apply_rope(k_new, pvec, cfg.rope_theta)
+    # one gather: every rank's query heads and K/V heads
+    both = tp_lib.gather_heads(mesh, torch.cat([q, k_new, v_new], dim=2)
+                               [:, 0].transpose(0, 1).contiguous(), 0)
+    both = both.reshape(lay.tp, lay.hl + 2 * lay.kv_l, B, hd)
+    pick = torch.tensor(lay.kv_pick, device=x.device)
+    q_all = both[:, :lay.hl].reshape(lay.hp, B, hd)[:nq].transpose(0, 1)
+    k_all = both[:, lay.hl:lay.hl + lay.kv_l].reshape(-1, B, hd)
+    v_all = both[:, lay.hl + lay.kv_l:].reshape(-1, B, hd)
+    k_row = k_all.index_select(0, pick).transpose(0, 1)      # (B,nkv,hd)
+    v_row = v_all.index_select(0, pick).transpose(0, 1)
+
+    C_l = cache.capacity
+    C = C_l * lay.tp
+    r = lay.rank
+    if per_slot:
+        slot = pos % C                                       # (B,)
+        rows = torch.arange(B, device=x.device)
+        index = (rows, slot % C_l)
+        owned = (slot // C_l == r)[:, None, None]
+        for buf, sbuf, new in ((cache.k, cache.k_scale, k_row),
+                               (cache.v, cache.v_scale, v_row)):
+            if cache.quantized:
+                codes, scale = _quantize_kv(new)
+                buf[index] = torch.where(owned, codes, buf[index])
+                sbuf[index] = torch.where(owned[..., 0], scale, sbuf[index])
+            else:
+                buf[index] = torch.where(owned, new.to(buf.dtype),
+                                         buf[index])
+        pos_c, slot_c = pos[:, None], slot[:, None]
+    else:
+        slot = pos % C
+        if slot // C_l == r:
+            _write_kv(cache, (slice(None), slot % C_l), k_row, v_row,
+                      x.dtype)
+        pos_c, slot_c = pos, slot
+    k, v = cache.k, cache.v
+    if cache.quantized:
+        k = _dequantize_kv(k, cache.k_scale, x.dtype)
+        v = _dequantize_kv(v, cache.v_scale, x.dtype)
+
+    slots = r * C_l + torch.arange(C_l, device=x.device)
+    valid = _ring_valid(slots, pos_c, slot_c, C, 0)
+    mask = valid[:, None, None, :] if per_slot else valid[None, None, None, :]
+    n_rep = nq // nkv
+    qg = q_all.reshape(B, nkv, n_rep, hd)
+    s = torch.einsum("bhrd,bkhd->bhrk", qg, k).float()
+    s = torch.where(mask, s * (1.0 / math.sqrt(hd)), NEG_INF)
+    m = s.amax(dim=-1)                                       # (B,nkv,rep)
+    m_all = tp_lib.vocab_max(mesh, m)
+    e = torch.exp(s - m_all[..., None])
+    part = torch.cat([torch.einsum("bhrk,bkhd->bhrd", e.to(v.dtype),
+                                   v).float(),
+                      e.sum(dim=-1)[..., None]], dim=-1)
+    part = mesh.all_reduce(part, tp_lib.AXIS)
+    out = (part[..., :hd] / part[..., hd:]).to(x.dtype)      # (B,nkv,rep,hd)
+    out = out.reshape(B, nq, hd)
+    out = F.pad(out, (0, 0, 0, lay.hp - nq))[:, r * lay.hl:(r + 1) * lay.hl]
+    return out.reshape(B, 1, lay.hl * hd) @ p["wo"].to(x.dtype)
 
 
 def decode_cross_attend(p: Params, cfg: ModelConfig, x: torch.Tensor,

@@ -36,11 +36,24 @@ a step rewrites whole, is written as ``where(active, new, old)`` in place
 forward) returns a stash of the rows it overwrote, which
 ``rollback_cache_runs`` / ``rollback_paged_runs`` put back for rejected
 drafts.
+
+Tensor parallelism (``distributed/tp.py``; dense and MoE stacks, dense
+ring): inside ``tensor_parallel(mesh)``, on ``launch/shardings.py::
+place_params``' blocks, ``init_cache`` makes this rank's block of the
+ring, its slots split over ``model`` (``SERVE_RULES``' ``cache_seq ->
+model``, every K/V head on each rank); ``prefill`` runs attention on the
+rank's heads, gathers the new K/V over heads, and keeps its ring block;
+``decode_step`` attends on the split ring (``attention.py::
+decode_attend_tp``).  Both return this rank's block of vocab logits (B,
+V_pad / tp), which the sampler takes under a ``MeshPolicy(local_vocab=
+True)``.  The paged cache, the verify grid and the lane freezing have no
+tensor-parallel form and raise under the layout.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import tp as tp_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
@@ -51,8 +64,10 @@ from repro_torch.models.transformer import (
     HYMBA_KINDS,
     XLSTM_KINDS,
     apply_ffn,
+    attend_tp,
     embed_tokens,
     encoder_output,
+    final_logits,
     hymba_mix,
     hymba_window,
     layer_plan,
@@ -82,6 +97,12 @@ def init_cache(cfg: ModelConfig, batch: int, context: int,
     int8 the K/V rings hold codes and scales, and the conv tail and the
     encoder K/V are in ``compute_dtype``."""
     other = compute_dtype if dtype == torch.int8 else dtype
+    lay = tp_lib.layout(cfg)
+    if lay is not None:
+        if context % lay.tp:
+            raise ValueError(f"a ring of {context} slots does not split "
+                             f"{lay.tp} ways over model")
+        context //= lay.tp
     cache: Cache = []
     for kind, count in ported_plan(cfg):
         lead = (count,)
@@ -170,6 +191,32 @@ def _prefill_block(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
     return x + out, entry
 
 
+def _prefill_block_tp(cfg: ModelConfig, tp, p: Params, x: torch.Tensor,
+                      positions: torch.Tensor, cap: int, capacity_mode: str,
+                      moe_groups: int, kv_dtype):
+    """``_prefill_block`` of a dense or MoE block under the
+    tensor-parallel layout: attention on the rank's heads, the new K/V
+    gathered over heads (every K/V head), ring-filled at the whole
+    capacity ``cap`` and cut to this rank's block of slots."""
+    lay = tp.layout
+    eps = cfg.norm_eps
+    h = apply_norm(cfg.norm, p["ln1"], x, eps)
+    a, (k, v) = attend_tp(cfg, tp, p["attn"], h, positions, return_kv=True)
+    pick = torch.tensor(lay.kv_pick, device=x.device)
+    k, v = (tp_lib.gather_heads(lay.mesh, t.contiguous(), 2)
+            .index_select(2, pick) for t in (k, v))
+    cap_l = cap // lay.tp
+    k, v = (_ring_fill(t, cap)[:, lay.rank * cap_l:(lay.rank + 1) * cap_l]
+            for t in (k, v))
+    entry = {"kv": _make_kv_entry(k.contiguous(), v.contiguous(), cap_l,
+                                  kv_dtype)}
+    x = x + a
+    h = apply_norm(cfg.norm, p["ln2"], x, eps)
+    out, _ = apply_ffn(cfg, p, h, capacity_mode=capacity_mode,
+                       moe_groups=moe_groups, tp=tp)
+    return x + out, entry
+
+
 def _stack_layers(entries: list) -> dict:
     """Per-layer cache entries -> one entry with the layer axis in front."""
     return tree_map(lambda *xs: torch.stack(xs), entries[0], *entries[1:])
@@ -200,7 +247,9 @@ def prefill(
     encoder's input frames (B, T_enc, D) as ``encoder_frames``.
     """
     B, S = tokens.shape
-    x = embed_tokens(cfg, params, tokens, compute_dtype)
+    lay = tp_lib.layout(cfg)
+    tp = None if lay is None else lay.run(seq_sp=False)
+    x = embed_tokens(cfg, params, tokens, compute_dtype, tp=tp)
     encoder_out = encoder_output(cfg, params, encoder_frames, compute_dtype)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
@@ -209,11 +258,18 @@ def prefill(
         cap = _kv_capacity(kind, cfg, context)
         entries = []
         for p_l in layer_unbind(run_params, count):
-            x, entry = _prefill_block(kind, cfg, p_l, x, positions, cap,
-                                      capacity_mode, moe_groups,
-                                      encoder_out, kv_dtype)
+            if tp is not None:
+                x, entry = _prefill_block_tp(cfg, tp, p_l, x, positions, cap,
+                                             capacity_mode, moe_groups,
+                                             kv_dtype)
+            else:
+                x, entry = _prefill_block(kind, cfg, p_l, x, positions, cap,
+                                          capacity_mode, moe_groups,
+                                          encoder_out, kv_dtype)
             entries.append(entry)
         cache.append(_stack_layers(entries))
+    if tp is not None:
+        return final_logits(cfg, params, x[:, -1], tp), cache
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = unembed(unembed_table(cfg, params), x[:, -1], cfg.vocab)
     return logits, cache
@@ -290,7 +346,9 @@ def decode_step(
     ``freeze_cache_lanes``).  A learned position (whisper) is added as
     ``pos_embed[pos]``, a device index for a (B,) ``pos``.
     """
-    x = embed(params["embed"], token[:, None], compute_dtype)  # (B, 1, D)
+    lay = tp_lib.layout(cfg)
+    tp = None if lay is None else lay.run(seq_sp=False)
+    x = embed(params["embed"], token[:, None], compute_dtype, tp)  # (B,1,D)
     if cfg.learned_pos:
         pe = params["pos_embed"][pos].to(compute_dtype)    # (B, D) or (D,)
         x = x + (pe[:, None] if isinstance(pos, torch.Tensor) else pe)
@@ -298,11 +356,30 @@ def decode_step(
                                                 ported_plan(cfg)):
         for p_l, e_l in zip(layer_unbind(run_params, count),
                             layer_unbind(entry, count)):
-            x = _step_block(kind, cfg, p_l, x, pos, e_l, capacity_mode,
-                            active)
+            if tp is not None:
+                x = _step_block_tp(cfg, tp, p_l, x, pos, e_l, capacity_mode)
+            else:
+                x = _step_block(kind, cfg, p_l, x, pos, e_l, capacity_mode,
+                                active)
+    if tp is not None:
+        return final_logits(cfg, params, x[:, 0], tp), cache
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = unembed(unembed_table(cfg, params), x[:, 0], cfg.vocab)
     return logits, cache
+
+
+def _step_block_tp(cfg: ModelConfig, tp, p: Params, x: torch.Tensor, pos,
+                   entry: dict, capacity_mode: str) -> torch.Tensor:
+    """``_step_block`` of a dense or MoE block under the tensor-parallel
+    layout: attention on the sequence-split ring, the MLP's or experts'
+    blocks joined over ``model``."""
+    eps = cfg.norm_eps
+    h = apply_norm(cfg.norm, p["ln1"], x, eps)
+    x = x + tp.join(attn_lib.decode_attend_tp(p["attn"], tp, tp.enter(h),
+                                              pos, entry["kv"]))
+    h = apply_norm(cfg.norm, p["ln2"], x, eps)
+    out, _ = apply_ffn(cfg, p, h, capacity_mode=capacity_mode, tp=tp)
+    return x + out
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +401,7 @@ def _verify_forward(cfg, params, tokens, state, attend, compute_dtype):
         raise ValueError(
             "decode_verify supports dense layer stacks only (see "
             "verify_supported)")
+    tp_lib.refuse(cfg, "the speculative verify")
     x = embed(params["embed"], tokens, compute_dtype)        # (B, L, D)
     stashes = []
     for run_params, entry, (_, count) in zip(params["runs"], state,
@@ -521,6 +599,7 @@ def init_paged_pool(cfg: ModelConfig, n_pages: int, page_size: int,
         raise ValueError(
             "paged KV cache supports dense layer stacks only (see "
             "paged_supported)")
+    tp_lib.refuse(cfg, "the paged KV cache")
     if dtype == torch.int8:
         raise ValueError("paged cache does not support int8 K/V")
     shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)

@@ -101,6 +101,10 @@ def init_swiglu(gen, d: int, d_ff: int, dtype, lead: tuple = ()) -> Params:
 
 
 def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU.  On a rank's column blocks of ``w_gate`` / ``w_up`` and row
+    block of ``w_down`` (the tensor-parallel layout) it returns that
+    rank's partial sum of the output, which the caller joins over
+    ``model``."""
     gate = x @ params["w_gate"].to(x.dtype)
     up = x @ params["w_up"].to(x.dtype)
     return (F.silu(gate) * up) @ params["w_down"].to(x.dtype)
@@ -140,22 +144,36 @@ def init_embedding(gen, vocab: int, d: int, dtype) -> torch.Tensor:
     return dense_init(gen, vocab, d, dtype)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor, compute_dtype
-          ) -> torch.Tensor:
-    return table.to(compute_dtype)[tokens]
+def embed(table: torch.Tensor, tokens: torch.Tensor, compute_dtype,
+          tp=None) -> torch.Tensor:
+    """The rows of ``tokens``.  Under the tensor-parallel layout (``tp``,
+    a ``distributed/tp.py::TPRun``) ``table`` is this rank's block of
+    vocab rows: a masked lookup of the tokens it holds (the others
+    zero), joined over ``model`` by one sum, which leaves each row the
+    one rank's exact value (under ``seq_sp`` a reduce-scatter: this
+    rank's positions)."""
+    if tp is None:
+        return table.to(compute_dtype)[tokens]
+    local = tokens - tp.layout.vocab_offset
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table.to(compute_dtype)[torch.where(inside, local, 0)]
+    return tp.join(torch.where(inside[..., None], rows, 0))
 
 
-def unembed(table: torch.Tensor, x: torch.Tensor, real_vocab: int | None = None
-            ) -> torch.Tensor:
+def unembed(table: torch.Tensor, x: torch.Tensor, real_vocab: int | None = None,
+            offset: int = 0) -> torch.Tensor:
     """Final projection to vocab logits in f32.
 
     When the table is lane-padded past `real_vocab`, the phantom columns
     are masked to NEG_INF so softmax and the sampler's solves never see
-    them.
+    them.  Under the tensor-parallel layout ``table`` is this rank's
+    block of vocab columns, the first at global column ``offset``: the
+    logits are that block, its phantom columns masked at their global
+    index.
     """
     logits = (x @ table.to(x.dtype)).float()
     v = logits.shape[-1]
-    if real_vocab is not None and real_vocab < v:
-        mask = torch.arange(v, device=logits.device) < real_vocab
+    if real_vocab is not None and real_vocab < offset + v:
+        mask = offset + torch.arange(v, device=logits.device) < real_vocab
         logits = torch.where(mask, logits, NEG_INF)
     return logits

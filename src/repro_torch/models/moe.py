@@ -224,9 +224,9 @@ def batch_split() -> BatchSplit:
 class Dispatch(NamedTuple):
     """A routing call's dispatch of this rank's tokens (``_dispatch``)."""
 
-    expert_in: torch.Tensor     # (n_lg, e_pad, cap_l, D) expert slots
+    expert_in: torch.Tensor     # (n_lg, e_l, cap_l, D) expert slots
     slot: torch.Tensor          # (A_l,) each assignment's slot, or the dump
-    keep: torch.Tensor          # (A_l,) bool
+    keep: torch.Tensor          # (A_l,) bool: kept, to this rank's experts
     a_gate: torch.Tensor        # (A_l,) f32, differentiable
     probs: torch.Tensor         # (T_l, e_pad) f32 router probabilities
     g_expert: torch.Tensor      # (G, A_g) the whole batch's expert ids
@@ -235,9 +235,13 @@ class Dispatch(NamedTuple):
 
 def _dispatch(p: Params, cfg: ModelConfig, x: torch.Tensor,
               capacity_mode: str, n_groups: int, solver_backend: str,
-              split: BatchSplit) -> Dispatch:
+              split: BatchSplit, experts: tuple[int, int] | None = None
+              ) -> Dispatch:
     """Route this rank's tokens ``x`` (B, S, D) and cut capacity over the
-    whole batch's GShard groups.
+    whole batch's GShard groups.  ``experts`` = (e0, e_l): under the
+    tensor-parallel layout this rank runs experts [e0, e0 + e_l) only,
+    and packs only the kept assignments to them (default: every
+    expert).
 
     Capacity couples every token of a group, and under a ``split`` a
     group spans ranks (one group, JAX's default, spans them all).  So
@@ -302,19 +306,22 @@ def _dispatch(p: Params, cfg: ModelConfig, x: torch.Tensor,
             0, g_expert[first:lo], keep_all.reshape(-1)[first:lo].to(
                 a_pos.dtype))
         a_pos = a_pos - torch.where(a_group == 0, earlier[a_expert], 0)
-    key = a_group * e_pad + a_expert
+    e0, e_l = (0, e_pad) if experts is None else experts
+    if experts is not None:
+        keep = keep & (a_expert >= e0) & (a_expert < e0 + e_l)
+    key = a_group * e_l + (a_expert - e0).clamp(0, e_l - 1)
     cap_l = cap
     if split.ways > 1 and not _CAP_AT_BOUND[0]:
-        counts = torch.zeros(n_lg * e_pad, dtype=torch.int32, device=dev)
+        counts = torch.zeros(n_lg * e_l, dtype=torch.int32, device=dev)
         counts = counts.scatter_add(0, key, keep.to(torch.int32))
         cap_l = max(1, int(counts.max()))
-    n_slots = n_lg * e_pad * cap_l
+    n_slots = n_lg * e_l * cap_l
     slot = torch.where(keep, key * cap_l + a_pos, n_slots)
 
     xa = xt.repeat_interleave(k, dim=0)                          # (A_l, D)
     buf = xt.new_zeros((n_slots + 1, D))
     buf = buf.index_put((slot,), torch.where(keep[:, None], xa, 0))
-    return Dispatch(buf[:-1].reshape(n_lg, e_pad, cap_l, D), slot, keep,
+    return Dispatch(buf[:-1].reshape(n_lg, e_l, cap_l, D), slot, keep,
                     a_gate, probs, g_expert.reshape(n_groups, tg * k),
                     keep_all)
 
@@ -328,10 +335,26 @@ def moe_apply(
     n_groups: int = 1,              # GShard groups (data-parallel shards)
     solver_backend: str = "hopper",  # engine backend of the bisect solve
     split: BatchSplit = NO_SPLIT,
+    tp=None,                        # distributed/tp.py::TPRun
 ) -> tuple[torch.Tensor, MoEStats]:
     """The MoE layer on ``x``: the whole batch, or under a ``split``
     (``batch_split()``) this rank's block of the batch's rows, the layer
     computing the whole batch's function (``_dispatch``).
+
+    Under the tensor-parallel layout (``tp``) the experts lie over
+    ``model``, ``e_pad / tp`` a rank, and ``x`` is the stream in the
+    layout's form (this rank's positions under ``seq_sp``).  The router
+    and the capacity cut run on every token of the data rank (gathered
+    first under ``seq_sp``), alike on every model rank, so the keep
+    masks and slots are the one-rank layer's bit for bit; a rank runs
+    its experts on their kept assignments and the shared experts'
+    column and row blocks, and the partial outputs are summed over
+    ``model`` (under ``seq_sp`` reduce-scattered back to the positions).
+    A token's k outputs then add in another order than ``_combine``'s
+    on one rank, so the output equals the one-rank layer's within f32
+    rounding, not bit for bit.  The load-balance term is computed alike
+    on every model rank with 1/tp of its gradient, since the train step
+    sums the router's gradient over ``model``.
 
     The keep mask carries no gradient; the gates stay local and
     differentiable.  The load-balance term: each rank takes ``ways / G *
@@ -343,10 +366,15 @@ def moe_apply(
     ``dropped_frac`` comes from the whole batch's mask, the same on every
     rank.
     """
+    if tp is not None:
+        x = tp.enter(x)
     B, S, D = x.shape
     T_l = B * S
     k = cfg.moe_top_k
-    d = _dispatch(p, cfg, x, capacity_mode, n_groups, solver_backend, split)
+    experts = (None if tp is None
+               else (tp.layout.e_offset, tp.layout.e_local))
+    d = _dispatch(p, cfg, x, capacity_mode, n_groups, solver_backend, split,
+                  experts)
     n_groups, a_g = d.keep_all.shape
     tg = a_g // k
     g = torch.einsum("gecd,edf->gecf", d.expert_in, p["w_gate"].to(x.dtype))
@@ -383,4 +411,6 @@ def moe_apply(
                    * torch.stack(terms).sum(), n_groups)
     dropped = true_div((1.0 - d.keep_all.float().mean(dim=1)).sum(),
                        n_groups)
+    if tp is not None:
+        out, aux = tp.join(out), tp.shared_grad(aux)
     return out, MoEStats(aux_loss=aux, dropped_frac=dropped)

@@ -30,12 +30,24 @@ normed input (``models/ssm.py``); the xLSTM mixers are
 ``forward(remat=True)`` checkpoints each layer (non-reentrant
 ``torch.utils.checkpoint``, where JAX wraps the scan body in
 ``jax.checkpoint``): backward recomputes the layer from its input.
+
+Tensor parallelism (``distributed/tp.py``; the dense and MoE kinds):
+inside ``tensor_parallel(mesh)``, on ``launch/shardings.py::
+place_params``' blocks, ``forward`` runs one rank's program.  Under
+``TRAIN_RULES`` (``seq_sp -> model``) the residual stream between blocks
+is this rank's block of positions: each norm runs on it, an all-gather
+over ``model`` feeds each attention or MLP, and a reduce-scatter joins
+each row-parallel output.  Otherwise (``SERVE_RULES``, or no rules) the
+stream is replicated and each output joins by an all-reduce.  The
+logits are this rank's block of vocab columns (B, S, V_pad / tp).
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import tp as tp_lib
+from repro_torch.distributed.sharding import current_rules, resolve_axes
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -205,14 +217,30 @@ def unembed_table(cfg: ModelConfig, params: Params) -> torch.Tensor:
 
 def apply_ffn(cfg: ModelConfig, p: Params, h: torch.Tensor, *,
               capacity_mode: str = "fifo", moe_groups: int = 1,
-              split: moe_lib.BatchSplit = moe_lib.NO_SPLIT):
+              split: moe_lib.BatchSplit = moe_lib.NO_SPLIT, tp=None):
     """A block's MLP or MoE on its normed input: (out, MoEStats or None).
     Under a ``split`` of the batch the MoE layer computes the whole
-    batch's routing (``models/moe.py::moe_apply``)."""
+    batch's routing (``models/moe.py::moe_apply``).  Under the
+    tensor-parallel layout (``tp``) ``h`` and the output are in the
+    stream's layout, the layer's joins inside."""
     if "moe" not in p:
-        return apply_mlp(cfg.act, p["mlp"], h), None
+        if tp is None:
+            return apply_mlp(cfg.act, p["mlp"], h), None
+        return tp.join(apply_mlp(cfg.act, p["mlp"], tp.enter(h))), None
     return moe_lib.moe_apply(p["moe"], cfg, h, capacity_mode=capacity_mode,
-                             n_groups=moe_groups, split=split)
+                             n_groups=moe_groups, split=split, tp=tp)
+
+
+def attend_tp(cfg: ModelConfig, tp, p_attn: Params, h: torch.Tensor,
+              positions: torch.Tensor, return_kv: bool = False):
+    """Self-attention of the tensor-parallel layout: the rank's local
+    heads (``TPLayout.local_cfg``) over every position, joined back into
+    the stream's layout.  ``positions`` are every position's (B, S)."""
+    out = attn_lib.attend(p_attn, tp.layout.local_cfg, tp.enter(h),
+                          positions, return_kv=return_kv)
+    if return_kv:
+        return tp.join(out[0]), out[1]
+    return tp.join(out)
 
 
 def hymba_window(kind: str, cfg: ModelConfig) -> int:
@@ -237,12 +265,20 @@ def _apply_block(kind: str, cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, capacity_mode: str = "fifo",
                  moe_groups: int = 1,
                  encoder_out: torch.Tensor | None = None,
-                 split: moe_lib.BatchSplit = moe_lib.NO_SPLIT):
+                 split: moe_lib.BatchSplit = moe_lib.NO_SPLIT, tp=None):
     """One block of ``kind`` over the full sequence: (x, the MoE layer's
     aux loss, a 0-d f32 tensor; None for any other block).
     ``encoder_out`` is what a ``whisper_dec`` block cross-attends to;
-    ``split`` the batch's data split, which a MoE layer routes over."""
+    ``split`` the batch's data split, which a MoE layer routes over;
+    ``tp`` the tensor-parallel layout's run (dense and MoE blocks)."""
     eps = cfg.norm_eps
+    if tp is not None:
+        h = apply_norm(cfg.norm, p["ln1"], x, eps)
+        x = x + attend_tp(cfg, tp, p["attn"], h, positions)
+        h = apply_norm(cfg.norm, p["ln2"], x, eps)
+        out, stats = apply_ffn(cfg, p, h, capacity_mode=capacity_mode,
+                               moe_groups=moe_groups, split=split, tp=tp)
+        return x + out, None if stats is None else stats.aux_loss
     if kind in XLSTM_KINDS:
         h = apply_norm(cfg.norm, p["ln"], x, eps)
         return x + xlstm_lib.MIXERS[kind].apply(p[kind], cfg, h), None
@@ -280,10 +316,11 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor
 
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                 compute_dtype, start: int = 0) -> torch.Tensor:
+                 compute_dtype, start: int = 0, tp=None) -> torch.Tensor:
     """The token embeddings of positions ``start..start + S`` (B, S, D),
-    plus the learned positions where ``cfg.learned_pos``."""
-    x = embed(params["embed"], tokens, compute_dtype)
+    plus the learned positions where ``cfg.learned_pos``; under the
+    tensor-parallel layout in the stream's layout (``layers.embed``)."""
+    x = embed(params["embed"], tokens, compute_dtype, tp)
     if cfg.learned_pos:
         S = tokens.shape[1]
         x = x + params["pos_embed"][start:start + S].to(compute_dtype)[None]
@@ -299,6 +336,31 @@ def encoder_output(cfg: ModelConfig, params: Params, encoder_frames,
     if encoder_frames is None:
         raise ValueError(f"enc-dec arch {cfg.name!r} needs encoder_frames")
     return encode(cfg, params, encoder_frames.to(compute_dtype))
+
+
+def tp_run(cfg: ModelConfig):
+    """The tensor-parallel layout's run for an entry point (None where
+    the layout is off): ``seq_sp`` where the active rules put ``seq_sp``
+    on ``model`` (``TRAIN_RULES``), the replicated stream otherwise."""
+    lay = tp_lib.layout(cfg)
+    if lay is None:
+        return None
+    active = current_rules()
+    seq_sp = active is not None and resolve_axes(
+        active[1], active[0], "seq_sp") == tp_lib.AXIS
+    return lay.run(seq_sp)
+
+
+def final_logits(cfg: ModelConfig, params: Params, x: torch.Tensor, tp=None
+                 ) -> torch.Tensor:
+    """The final norm and the unembedding of ``x`` in the stream's
+    layout: f32 logits, under the tensor-parallel layout this rank's
+    block of vocab columns over every position."""
+    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    if tp is None:
+        return unembed(unembed_table(cfg, params), x, cfg.vocab)
+    return unembed(unembed_table(cfg, params), tp.enter(x), cfg.vocab,
+                   tp.layout.vocab_offset)
 
 
 def forward(
@@ -330,7 +392,8 @@ def forward(
     thread-local context is not set.
     """
     B, S = tokens.shape
-    x = embed_tokens(cfg, params, tokens, compute_dtype)
+    tp = tp_run(cfg)
+    x = embed_tokens(cfg, params, tokens, compute_dtype, tp=tp)
     encoder_out = encoder_output(cfg, params, encoder_frames, compute_dtype)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
@@ -341,7 +404,7 @@ def forward(
         aux_run = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for p_l in layer_unbind(run_params, count):
             args = (kind, cfg, p_l, x, positions, capacity_mode, moe_groups,
-                    encoder_out, split)
+                    encoder_out, split, tp)
             if remat:
                 x, aux = checkpoint(_apply_block, *args, use_reentrant=False)
             else:
@@ -349,6 +412,4 @@ def forward(
             if aux is not None:
                 aux_run = aux_run + aux
         aux_total = aux_total + aux_run
-    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(unembed_table(cfg, params), x, cfg.vocab)
-    return logits, aux_total
+    return final_logits(cfg, params, x, tp), aux_total

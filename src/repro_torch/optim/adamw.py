@@ -17,12 +17,21 @@ arithmetic runs in the JAX function's order.
 ZeRO-1 (``adamw_init(params, mesh=)`` on a mesh of more than one ``data``
 rank): master, mu, nu and the residual hold only this rank's block of
 each leaf (``launch/shardings.py::zero1_block``, JAX's
-``make_opt_state_shardings`` with its ``model`` axis held as replicas),
-``step`` stays whole; ``adamw_update`` then takes the gradient blocks
-and views of the params' blocks, and the train step all-gathers the
-params (``train/step.py``).  ``zero1_whole`` gathers a sharded state
-whole: the caller that owns a ZeRO-1 state calls it before it hands the
-state to ``checkpoint/manager.py``, which writes trees as they are.
+``make_opt_state_shardings``), ``step`` stays whole; ``adamw_update``
+then takes the gradient blocks and views of the params' blocks, and the
+train step all-gathers the params (``train/step.py``).  ``zero1_whole``
+gathers a sharded state whole: the caller that owns a ZeRO-1 state
+calls it before it hands the state to ``checkpoint/manager.py``, which
+writes trees as they are.  With replicated weights the ``model`` axis
+holds replicas of the state.
+
+Under the tensor-parallel layout (``distributed/tp.py``) the params a
+rank holds are its ``launch/shardings.py::place_params`` blocks, and the
+state mirrors them: ``adamw_init(blocks, mesh=)`` makes the ZeRO-1
+blocks of the tensor-parallel blocks (``zero1_local_spec`` of each
+block).  ``gather_state`` rebuilds the whole logical state for a
+checkpoint: ``zero1_whole`` over ``data``, then ``gather_params`` over
+``model``, padding dropped.
 """
 from __future__ import annotations
 
@@ -136,3 +145,24 @@ def adamw_update(
     for dst, src in zip(leaves(params), leaves(state.master)):
         dst.copy_(src)
     return params, state._replace(step=step)
+
+
+def gather_state(state: AdamWState, params, mesh, cfg) -> AdamWState:
+    """The whole logical state of a tensor-parallel run (a collective:
+    every rank calls it): the ZeRO-1 blocks gathered over ``data``
+    (``zero1_whole``, where ``mesh`` has several data ranks), then each
+    tree's tensor-parallel blocks over ``model`` (``launch/shardings.py::
+    gather_params``), padding dropped.  ``params`` are this rank's
+    blocks."""
+    from repro_torch.launch.shardings import gather_params
+
+    if mesh.shape.get("data", 1) > 1:
+        state = zero1_whole(state, params, mesh)
+    if mesh.shape.get("model", 1) == 1:
+        return state
+
+    def whole(tree):
+        return None if tree is None else gather_params(tree, mesh, cfg)
+
+    return AdamWState(state.step, whole(state.master), whole(state.mu),
+                      whole(state.nu), whole(state.error))

@@ -8,6 +8,11 @@ the ``"hopper"`` backend: on CUDA tensors each round's counts are one
 launch of K2 (``multi_count``), on CPU tensors its plain version.  The
 JAX function uses its ``"jnp"`` default; counts are exact on both
 backends, so the bracket is the same bit for bit.
+
+Sharded gradients (ZeRO-1 blocks over ``data``, the tensor-parallel
+layout's blocks over ``model``) pass their leaves' whole norms in
+``norms`` / ``norm``, joined by the train step (``train/step.py``): the
+quantile's solve then runs on the same per-leaf norms as one rank's.
 """
 from __future__ import annotations
 

@@ -5,7 +5,12 @@ Checkpoints store unsharded logical arrays (``checkpoint/manager.py``),
 so a relaunch on fewer (or more) devices only needs a mesh that (a) keeps
 the model axis large enough for TP divisibility and (b) puts the rest on
 data.  ``make_elastic_mesh`` builds that mesh over the live world of
-``torch.distributed`` ranks.
+``torch.distributed`` ranks.  Its ``model`` axis is a real one: a
+caller that places its weights on it (``launch/shardings.py::
+place_params``, ``tp_sharding_fn`` for a restore) and enters
+``distributed/tp.py::tensor_parallel(mesh)`` runs the tensor-parallel
+layout there; the training launcher passes ``model_parallel=1``, as
+JAX's does, and trains data-parallel.
 """
 from __future__ import annotations
 

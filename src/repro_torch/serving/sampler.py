@@ -25,6 +25,17 @@ its own generator.  Row b of ``sample_slots`` is the token a B=1
 logits are the same bits, and the slot's generator gives the same
 (1, V) Gumbel draw.
 
+Vocab-split logits (the tensor-parallel layout's ``decode_step`` and
+``prefill`` return this rank's block of vocab columns): under a
+``core/solver.py::MeshPolicy(local_vocab=True)`` ``sample`` and
+``sample_slots`` take that block.  Every row reduction joins over the
+policy's vocab axis (the clamp's max, the top-p softmax's max and sum),
+the solves run on the block (``solver._solve_local_vocab``), the noise
+is drawn for the global vocab and sliced, and the draw joins the
+blocks' winning (value, index) pairs, the lowest index among equal
+values, as ``argmax`` breaks ties: the token equals the one-rank draw's
+wherever the masked logits do.
+
 Speculative verify (``verify_slots``): the (B, L, V) grid goes through the
 same per-row pipeline as B·L rows (``SlotSamplers.tile``), so each
 solve runs once for every draft depth of every slot.  Greedy slots
@@ -43,7 +54,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from repro_torch.core.applications import entropy_temperature, topk_mask, topp_mask
-from repro_torch.core.solver import true_div
+from repro_torch.core.solver import current_policy, true_div
 
 NEG_INF = -1e30
 
@@ -60,16 +71,73 @@ class SamplerConfig:
     backend: str = "torch"                # "torch" | "hopper": ALL solves
 
 
+class _VocabBlock(NamedTuple):
+    """Where a rank's vocab block lies (a ``local_vocab`` policy)."""
+
+    mesh: object
+    axis: str
+    offset: int
+    width: int
+
+    @property
+    def global_v(self) -> int:
+        return self.width * self.mesh.axis_size(self.axis)
+
+
+def _vocab_block(z: torch.Tensor) -> _VocabBlock | None:
+    policy = current_policy()
+    if policy is None or not policy.local_vocab:
+        return None
+    mesh, axis = policy.mesh, policy.vocab_axis
+    width = z.shape[-1]
+    return _VocabBlock(mesh, axis, mesh.axis_index(axis) * width, width)
+
+
+def _row_max(z: torch.Tensor, blk: _VocabBlock | None) -> torch.Tensor:
+    m = z.amax(dim=-1, keepdim=True)
+    return m if blk is None else blk.mesh.all_reduce(m, blk.axis, "max")
+
+
+def _softmax(z: torch.Tensor, blk: _VocabBlock | None) -> torch.Tensor:
+    if blk is None:
+        return torch.softmax(z, dim=-1)
+    e = torch.exp(z - _row_max(z, blk))
+    return e / blk.mesh.all_reduce(e.sum(dim=-1, keepdim=True), blk.axis)
+
+
+def _argmax(z: torch.Tensor, blk: _VocabBlock | None) -> torch.Tensor:
+    """The row argmax over the global vocab: each block's first maximum,
+    joined by one gather of (value, index) pairs; the first block holding
+    the largest value wins, its index the lowest."""
+    if blk is None:
+        return torch.argmax(z, dim=-1)
+    v, i = z.max(dim=-1)
+    pair = torch.stack([v.double(), (i + blk.offset).double()], dim=-1)
+    every = blk.mesh.all_gather(pair[None], blk.axis)       # (m, B, 2)
+    best = torch.argmax(every[..., 0], dim=0)               # first block
+    return every[best, torch.arange(z.shape[0], device=z.device), 1].long()
+
+
+def _slice_noise(noise: torch.Tensor, blk: _VocabBlock | None
+                 ) -> torch.Tensor:
+    """A noise tensor drawn for the global vocab, cut to the block."""
+    if blk is None or noise.shape[-1] == blk.width:
+        return noise
+    return noise[..., blk.offset:blk.offset + blk.width]
+
+
 def masked_logits(logits: torch.Tensor, sc: SamplerConfig = SamplerConfig()
                   ) -> torch.Tensor:
     """The (B, V) f32 logits the draw samples from: clamped, tempered and
-    masked (dropped entries hold NEG_INF)."""
+    masked (dropped entries hold NEG_INF); under a ``local_vocab`` policy
+    this rank's block of them."""
     z = logits.float()
+    blk = _vocab_block(z)
     # Clamp to a finite dynamic range: padded-vocab columns arrive as -1e30,
     # which would blow the bisection bracket to 1e30 wide.  exp(-80) is
     # numerically zero relative to the max in f32, so this is exact for
     # softmax and top-k purposes.
-    z = torch.maximum(z, z.amax(dim=-1, keepdim=True) - 80.0)
+    z = torch.maximum(z, _row_max(z, blk) - 80.0)
     kw = dict(spec_k=sc.spec_k, rounds=sc.rounds, backend=sc.backend)
     if sc.target_entropy is not None:
         t = entropy_temperature(z, sc.target_entropy, **kw)
@@ -79,7 +147,7 @@ def masked_logits(logits: torch.Tensor, sc: SamplerConfig = SamplerConfig()
     if sc.top_k > 0:
         z = torch.where(topk_mask(z, sc.top_k, **kw), z, NEG_INF)
     if sc.top_p > 0.0:
-        probs = torch.softmax(z, dim=-1)
+        probs = _softmax(z, blk)
         z = torch.where(topp_mask(probs, sc.top_p, **kw), z, NEG_INF)
     return z
 
@@ -108,13 +176,18 @@ def sample(
     noise: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Sample next tokens (B,) int64.  ``noise`` (B, V) replaces the
-    generator's Gumbel draw; greedy configs need neither."""
+    generator's Gumbel draw; greedy configs need neither.  Under a
+    ``local_vocab`` policy ``logits`` are this rank's vocab block, the
+    noise is drawn (or given) for the global vocab, and the token is a
+    global index."""
     z = masked_logits(logits, sc)
+    blk = _vocab_block(z)
     if sc.greedy:
-        return torch.argmax(z, dim=-1)
+        return _argmax(z, blk)
     if noise is None:
-        noise = gumbel_noise(z.shape, generator)
-    return torch.argmax(z + noise, dim=-1)
+        shape = z.shape if blk is None else (z.shape[0], blk.global_v)
+        noise = gumbel_noise(shape, generator)
+    return _argmax(z + _slice_noise(noise, blk), blk)
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -188,7 +261,8 @@ def _masked_slot_logits(
     inside an enabled solve (an off row's solve result is discarded by a
     ``where``, so its values pass through bit-unchanged)."""
     z = logits.float()
-    z = torch.maximum(z, z.amax(dim=-1, keepdim=True) - 80.0)
+    blk = _vocab_block(z)
+    z = torch.maximum(z, _row_max(z, blk) - 80.0)
     kw = dict(spec_k=spec_k, rounds=rounds, backend=backend)
     en_entropy, en_topk, en_topp = enable
 
@@ -212,7 +286,7 @@ def _masked_slot_logits(
     if en_topp:
         on = slots.top_p > 0.0
         p_eff = torch.where(on, slots.top_p, 0.5)
-        probs = torch.softmax(z, dim=-1)
+        probs = _softmax(z, blk)
         mask = topp_mask(probs, p_eff, **kw)
         z = torch.where(mask | ~on[:, None], z, NEG_INF)
     return z
@@ -244,15 +318,16 @@ def sample_slots(
     z = _masked_slot_logits(logits, slots, spec_k=spec_k, rounds=rounds,
                             backend=backend, enable=enable,
                             top_k_static=top_k_static)
-    g = torch.argmax(z, dim=-1)
+    blk = _vocab_block(z)
+    g = _argmax(z, blk)
     if greedy_only:
         return g
     if noise is None:
-        V = z.shape[-1]
+        V = z.shape[-1] if blk is None else blk.global_v
         noise = torch.cat([
             gumbel_noise((1, V), gen) if gen is not None
             else z.new_zeros((1, V)) for gen in generators])
-    drawn = torch.argmax(z + noise, dim=-1)
+    drawn = _argmax(z + _slice_noise(noise, blk), blk)
     return torch.where(slots.greedy, g, drawn)
 
 

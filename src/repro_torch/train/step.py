@@ -51,6 +51,24 @@ norms and the counts are summed (the counts are exact, so the bracket
 is the single-rank step's bit for bit).  It updates AdamW on the
 blocks, writing the new params into each rank's block of them, and
 all-gathers the params over ``data`` in buckets of their dtype.
+
+Tensor parallelism (``distributed/tp.py``; the dense and MoE families):
+inside ``tensor_parallel(mesh)``, on ``launch/shardings.py::
+place_params``' blocks (optimizer state from ``adamw_init`` of the
+blocks, ZeRO-1 blocks of them with ``mesh=``), the step is the rank
+program of JAX's GSPMD layout under ``TRAIN_RULES``: the forward carries
+the residual stream split along the sequence (``seq_sp``), the loss is
+vocab-parallel (``logz`` from a MAX and a SUM join over ``model``, the
+target logit summed from the block that holds it; z-loss and the aux
+term as they are), and the gradients join in two steps: a leaf split
+over ``model`` is joined over the data axes only, while a leaf
+replicated over ``model`` (norms, the router, q/k norms), whose rank saw
+only its positions or heads, is first summed over ``model``; a K/V leaf
+whose heads repeat on several ranks sums its copies' gradients into
+each.  The clip takes each leaf's whole norm: split leaves' sums of
+squares joined over ``model`` (a repeated K/V head counted once), a
+replicated leaf's counted once, so ``clip_by_quantile`` solves on the
+same per-leaf norms as one rank.  AdamW then runs on the blocks.
 """
 from __future__ import annotations
 
@@ -60,9 +78,15 @@ from typing import Callable
 import torch
 
 from repro_torch.core.solver import MeshPolicy, true_div
+from repro_torch.distributed import tp as tp_lib
 from repro_torch.distributed.sharding import TRAIN_RULES, axis_rules
 from repro_torch.launch.mesh import data_axes
-from repro_torch.launch.shardings import Zero1Grads, data_block, zero1_dim
+from repro_torch.launch.shardings import (
+    Zero1Grads,
+    data_block,
+    tp_leaf_rule,
+    zero1_dim,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import forward
 from repro_torch.optim.adamw import AdamWState, adamw_update
@@ -104,8 +128,21 @@ def loss_fn(cfg: ModelConfig, params, batch: dict, tc: TrainConfig
                           capacity_mode=tc.capacity_mode,
                           moe_groups=tc.moe_groups, remat=tc.remat)
     targets = batch["targets"].long()
-    logz = torch.logsumexp(logits, dim=-1)                  # (B, S)
-    tgt_logit = logits.gather(-1, targets[..., None])[..., 0]
+    lay = tp_lib.layout(cfg)
+    if lay is None:
+        logz = torch.logsumexp(logits, dim=-1)              # (B, S)
+        tgt_logit = logits.gather(-1, targets[..., None])[..., 0]
+    else:
+        # vocab-parallel: logits are this rank's (B, S, V_pad / tp) block
+        m = tp_lib.vocab_max(lay.mesh, logits.amax(dim=-1))
+        se = torch.exp(logits - m[..., None]).sum(dim=-1)
+        logz = m + torch.log(tp_lib.vocab_sum(lay.mesh, se))
+        local = targets - lay.vocab_offset
+        inside = (local >= 0) & (local < logits.shape[-1])
+        picked = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)
+                               [..., None])[..., 0]
+        tgt_logit = tp_lib.vocab_sum(lay.mesh,
+                                     torch.where(inside, picked, 0.0))
     ce = torch.mean(logz - tgt_logit)
     z_loss = torch.mean(torch.square(logz))
     aux_term = true_div(tc.aux_weight * aux, max(cfg.n_layers, 1))
@@ -159,16 +196,18 @@ def _buckets(tensors: list) -> list[list[int]]:
     return buckets
 
 
-def all_reduce_mean_(tensors: list, mesh, axes) -> list:
-    """Each tensor replaced IN PLACE by its mean over the ranks of
-    ``axes``: one sum all-reduce per bucket (consecutive tensors of one
-    dtype, at most ``GRAD_BUCKET_BYTES``), each counted in
-    ``mesh.stats``, then a true division by the rank count.  Every rank
-    ends with the same bits.  Returns ``tensors``."""
+def all_reduce_mean_(tensors: list, mesh, axes, mean: bool = True) -> list:
+    """Each tensor replaced IN PLACE by its mean (``mean=False``: its
+    sum) over the ranks of ``axes``: one sum all-reduce per bucket
+    (consecutive tensors of one dtype, at most ``GRAD_BUCKET_BYTES``),
+    each counted in ``mesh.stats``, then a true division by the rank
+    count.  Every rank ends with the same bits.  Returns ``tensors``."""
     ways = mesh.axis_size(axes)
     for idx in _buckets(tensors):
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        flat = true_div(mesh.all_reduce(flat, axes), ways)
+        flat = mesh.all_reduce(flat, axes)
+        if mean:
+            flat = true_div(flat, ways)
         for i, part in zip(idx, flat.split([tensors[i].numel()
                                             for i in idx])):
             tensors[i].copy_(part.view(tensors[i].shape))
@@ -225,6 +264,58 @@ def all_gather_blocks_(tensors: list, dims: list, mesh) -> None:
             tensors[i].copy_(_from_rows(part, tensors[i].shape, dims[i]))
 
 
+def tp_join_grads_(grads, lay) -> None:
+    """The model-axis half of the gradient join under the
+    tensor-parallel layout, IN PLACE: a leaf replicated over ``model``
+    summed over it (one all-reduce a bucket); a K/V leaf whose heads
+    repeat over ranks or slots gets, in each copy, the sum of every
+    copy's gradient (its logical head's gradient)."""
+    flat = leaves_with_path(grads)
+    whole = [g for path, g in flat if tp_leaf_rule(path, g)[0] == "whole"]
+    all_reduce_mean_(whole, lay.mesh, tp_lib.AXIS, mean=False)
+    if not lay.kv_shared:
+        return
+    rows = lay.kv_rows[lay.rank]
+    idx = torch.tensor([max(r, 0) for r in rows])
+    real = torch.tensor([r >= 0 for r in rows])
+    for path, g in flat:
+        kind, dim = tp_leaf_rule(path, g)
+        if kind != "kv":
+            continue
+        h = g.unflatten(dim, (lay.kv_l, lay.cfg.head_dim))
+        i, keep = idx.to(g.device), real.to(g.device)
+        keep = keep.reshape((-1,) + (1,) * (h.ndim - dim - 1))
+        shape = list(h.shape)
+        shape[dim] = lay.cfg.n_kv_heads
+        logical = h.new_zeros(shape).index_add_(dim, i,
+                                                torch.where(keep, h, 0))
+        logical = lay.mesh.all_reduce(logical, tp_lib.AXIS)
+        h.copy_(torch.where(keep, logical.index_select(dim, i), 0))
+
+
+def tp_split_mask(params, device) -> torch.Tensor:
+    """(n_leaves,) bool: the leaves the layout splits over ``model``."""
+    return torch.tensor([tp_leaf_rule(path, p)[0] != "whole"
+                         for path, p in leaves_with_path(params)],
+                        device=device)
+
+
+def tp_sq_sums(grads, lay) -> torch.Tensor:
+    """Per leaf, this rank's sum of squares of its gradient block, a K/V
+    head counted on the rank that holds its first copy only."""
+    owner = lay.kv_owner[lay.rank]
+    out = []
+    for path, g in leaves_with_path(grads):
+        kind, dim = tp_leaf_rule(path, g)
+        sq = torch.square(g.float())
+        if kind == "kv" and lay.kv_shared:
+            keep = torch.tensor(owner, device=g.device)
+            sq = torch.where(keep.reshape((-1,) + (1,) * (g.ndim - dim)),
+                             sq.unflatten(dim, (lay.kv_l, -1)), 0)
+        out.append(torch.sum(sq))
+    return torch.stack(out)
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig,
                     lr_fn: Callable[[torch.Tensor], torch.Tensor],
                     mesh=None, grad_constraint=None):
@@ -242,6 +333,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     the same name) joins the gradients by reduce-scatter; it needs a
     ZeRO-1 state."""
     axes = data_axes(mesh) if mesh is not None else ()
+    tp_mesh = mesh             # the layout's mesh, where the caller enters it
     if mesh is not None and mesh.axis_size(axes) == 1:
         mesh = None
     if grad_constraint is not None and not isinstance(grad_constraint,
@@ -281,6 +373,13 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
             return loss, metrics, grads
         return grads_of(params, batch)
 
+    def tp_layout():
+        lay = tp_lib.layout(cfg)
+        if lay is not None and lay.mesh is not tp_mesh:
+            raise ValueError("the tensor-parallel layout is on over another "
+                             "mesh than the train step's")
+        return lay
+
     def zero1_layout(params, opt_state) -> list:
         """Each leaf's ZeRO-1 dim where ``opt_state`` holds its block,
         else None (read once: the state's layout is fixed)."""
@@ -317,10 +416,16 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
             out[i] = b
         return unflatten(grads, out)
 
-    def meshed_grads(params, batch, dims):
-        with axis_rules(TRAIN_RULES, mesh):
-            loss, metrics, grads = local_grads(
-                params, rank_rows(batch, tc.n_microbatches, mesh))
+    def meshed_grads(params, batch, dims, lay=None):
+        rules_mesh = mesh if mesh is not None else lay.mesh
+        if mesh is not None:
+            batch = rank_rows(batch, tc.n_microbatches, mesh)
+        with axis_rules(TRAIN_RULES, rules_mesh):
+            loss, metrics, grads = local_grads(params, batch)
+        if lay is not None:
+            tp_join_grads_(grads, lay)
+        if mesh is None:
+            return loss, metrics, grads
         grads = join(grads, dims)
         means = all_reduce_mean_(
             [torch.stack([loss.float()] + [metrics[k].float()
@@ -329,18 +434,27 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
         metrics = dict(zip(METRIC_KEYS[1:], means[1:]))
         return means[0], metrics, grads
 
-    def joined_sq_sums(grads, dims) -> torch.Tensor:
+    def joined_sq_sums(grads, dims, lay=None) -> torch.Tensor:
         """Per leaf, the sum of squares of the whole gradient: the
         blocks' joined over ``data`` (one all-reduce of the (n_leaves,)
-        sums); a whole leaf's its own."""
-        local = torch.stack([torch.sum(torch.square(g.float()))
-                             for g in leaves(grads)])
+        sums) and, under the layout, a split leaf's over ``model``; a
+        whole leaf's its own."""
+        if lay is None:
+            local = torch.stack([torch.sum(torch.square(g.float()))
+                                 for g in leaves(grads)])
+        else:
+            local = tp_sq_sums(grads, lay)
+            split = tp_split_mask(grads, local.device)
+            local = torch.where(split, lay.mesh.all_reduce(
+                torch.where(split, local, 0.0), tp_lib.AXIS), local)
+        if all(d is None for d in dims):
+            return local
         cut = torch.tensor([d is not None for d in dims],
                            device=local.device)
         joined = mesh.all_reduce(torch.where(cut, local, 0.0), "data")
         return torch.where(cut, joined, local)
 
-    def joined_norms(grads, dims) -> torch.Tensor:
+    def joined_norms(grads, dims, lay=None) -> torch.Tensor:
         """Per leaf, the norm of the whole gradient: a whole leaf's as
         ``clip_by_quantile`` takes it, a sharded one's from the joined
         sums of squares."""
@@ -348,27 +462,31 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
                              for g in leaves(grads)])
         cut = torch.tensor([d is not None for d in dims],
                            device=whole.device)
-        return torch.where(cut, torch.sqrt(joined_sq_sums(grads, dims)),
+        if lay is not None:
+            cut = cut | tp_split_mask(grads, whole.device)
+        return torch.where(cut, torch.sqrt(joined_sq_sums(grads, dims, lay)),
                            whole)
 
     def train_step(params, opt_state: AdamWState, batch):
+        lay = tp_layout()
         dims = zero1_layout(params, opt_state)
         zero1 = any(d is not None for d in dims)
-        if mesh is not None:
-            loss, metrics, grads = meshed_grads(params, batch, dims)
+        if mesh is not None or lay is not None:
+            loss, metrics, grads = meshed_grads(params, batch, dims, lay)
         else:
             loss, metrics, grads = local_grads(params, batch)
 
         if tc.clip_mode == "quantile":
             norms = policy = None
+            if zero1 or lay is not None:
+                norms = joined_norms(grads, dims, lay)
             if zero1:
-                norms = joined_norms(grads, dims)
                 policy = MeshPolicy(mesh, vocab_axis="data", data_axes=())
             grads, _ = clip_by_quantile(grads, 0.95, norms=norms,
                                         policy=policy)
         else:
-            norm = (torch.sqrt(joined_sq_sums(grads, dims).sum()) if zero1
-                    else None)
+            norm = (torch.sqrt(joined_sq_sums(grads, dims, lay).sum())
+                    if zero1 or lay is not None else None)
             grads, gnorm = clip_by_global_norm(grads, tc.clip_norm,
                                                norm=norm)
             metrics = {**metrics, "grad_norm": gnorm}

@@ -54,7 +54,10 @@ Data-parallel training (``tests/torch_train_ranks.py``): two f32 steps of
 reduced internlm2-1.8b and granite-moe-3b-a800m (bisect: K3 on the
 gathered assignments) on 2 ranks against the single-rank step on each
 rank (loss rtol 1e-5, params within 1e-5, keep masks bit for bit), the
-ranks' replica digests equal.
+ranks' replica digests equal.  The tensor-parallel layout
+(``tests/torch_tp_ranks.py``): the same two steps on a 1x2 mesh with the
+sequence-parallel stream, the params gathered whole, against the
+single-rank step at the same tolerances.
 """
 import pytest
 import torch
@@ -1666,3 +1669,29 @@ def test_meshed_train_step_equals_the_single_rank_step(gen, arch, mode):
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x, y)
         assert mesh["digests"] == outs[0]["mesh"]["digests"]
+
+
+@pytest.mark.parametrize("arch,mode", [("internlm2-1.8b", "fifo"),
+                                       ("granite-moe-3b-a800m", "bisect")])
+def test_tp_train_step_equals_the_single_rank_step(gen, arch, mode):
+    """The tensor-parallel layout on a 1x2 mesh (two ranks sharing
+    cuda:0, gloo): two f32 steps of the reduced model with the
+    sequence-parallel stream against the single-rank step, losses rtol
+    1e-5, the gathered params within 1e-5, keep masks bit for bit."""
+    import numpy as np
+    import torch_tp_ranks as ranks
+    from repro_torch.launch.mesh import spawn_local
+
+    outs = spawn_local(ranks.cuda_tp_checks, 2, device="cuda",
+                       args=(arch, mode), timeout=600)
+    for out in outs:
+        tp, single = out["tp"], out["single"]
+        for m, s in zip(tp["metrics"], single["metrics"]):
+            np.testing.assert_allclose(m["loss"], s["loss"], rtol=1e-5)
+        for a, b in zip(tp["params"], single["params"]):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+        for a, b in zip(tp["keeps"], single["keeps"]):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+        assert tp["metrics"] == outs[0]["tp"]["metrics"]

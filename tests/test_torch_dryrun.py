@@ -12,7 +12,14 @@ Contracts and tolerances:
     ``param_spec`` / ``zero1_spec`` / ``cache_spec`` over duck-typed
     16x16 and 2x16x16 meshes, leaf by leaf, for the leaves the port
     places as JAX does (those whose JAX spec names no ``model`` axis:
-    the port has no tensor-parallel layout yet);
+    the port pads heads where JAX's spec cuts through one);
+  * the tensor-parallel cells (reduced qwen1.5 dense and qwen2-moe, and
+    a padded config, on a 1x4 recording mesh): a rank's params are the
+    whole tree's bytes over 4, padded heads and repeated K/V heads
+    included; the ``model``-axis joins a layer adds equal a hand count;
+    a rank's FLOPs are the one-rank trace's over 4 (dense, heads
+    aligned: equal; MoE: within the replicated router's 3%; padded:
+    above it);
   * ``cost.py``'s FLOPs of reduced internlm2 and qwen3 prefill, decode
     and train on one device equal ``hlo_cost.analyse_hlo`` of JAX's
     jitted counterparts within 1%.  Train is held to 1% too: remat on
@@ -161,8 +168,14 @@ def test_argument_bytes_match_jax_specs(arch, shape, mesh_name):
     params = jspecs.params_specs(jcfg)
     checks = [(args["params"], _jax_bytes(
         params, lambda p, l: jshardings.param_spec(p, l, duck), duck))]
+    # the seven dense and MoE architectures trace the tensor-parallel
+    # layout; the recurrent and enc-dec ones keep replicated weights
+    tp_arch = dryrun.tp_covers(get_config(arch), mesh)
+    assert tp_arch == (arch == "qwen3-4b")
+    assert ("tensor-parallel" in layout) == tp_arch
+    assert ("replicas" in layout or "weights replicated" in layout) \
+        == (not tp_arch)
     if shape == "train_4k":
-        assert "replicas" in layout
         opt = jspecs.opt_state_specs(jcfg)
         checks.append((args["opt_state"], _jax_bytes(
             opt, lambda p, l: (() if str(getattr(p[0], "name", "")) == "step"
@@ -430,3 +443,90 @@ def test_moe_train_cell_traces():
     # forward and remat recompute a layer; then the params' gathers
     assert rec["collectives"]["all-gather"] >= 2 * cfg.n_layers
     assert rec["ok"] and rec["cost"]["flops"] > 0 and cut
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel cells
+# ---------------------------------------------------------------------------
+
+TP_ARCHS = {"dense": ("qwen1.5-4b", {}), "moe": ("qwen2-moe-a2.7b", {}),
+            "padded": ("internlm2-1.8b", {"n_heads": 6, "n_kv_heads": 2})}
+# model-axis joins a layer adds: in training the stream's all-gather
+# before attention and before the MLP (forward, remat recompute, and the
+# backward of each reduce-scatter: 6) and its reduce-scatter after each
+# (forward 2, the recompute 1: it stops once the layer's saved tensors
+# are back, and the backward of each all-gather 2: 5); in a prefill the
+# attention's and the MLP's all-reduce and the new K and V gathered over
+# heads; in a decode step the gather of every head's query and K/V, the
+# ring's MAX and SUM joins, the attention's and the MLP's all-reduce
+JOINS_A_LAYER = {"train": {"all-gather": 6, "reduce-scatter": 5},
+                 "prefill": {"all-reduce": 2, "all-gather": 2},
+                 "decode": {"all-reduce": 4, "all-gather": 1}}
+
+
+def _tp_cell(name, kind, n_layers, dims):
+    arch, overrides = TP_ARCHS[name]
+    cfg = dataclasses.replace(testing.reduced_config(arch),
+                              n_layers=n_layers, **overrides)
+    mesh = cost.RecordingMesh(dims, ("data", "model"))
+    shape = dataclasses.replace(SHAPES[f"{kind}_4k" if kind == "train"
+                                       else f"{kind}_32k"],
+                                seq_len=64, global_batch=4)
+    rec = dryrun.run_cell(arch, shape.name, False, cfg=cfg, mesh=mesh,
+                          shape=shape)
+    joins = {}
+    for (op, _), axes in zip(mesh.calls, mesh.call_axes):
+        if axes == ("model",):
+            joins[op] = joins.get(op, 0) + 1
+    return cfg, rec, joins
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("name", list(TP_ARCHS))
+def test_tp_cell_params_are_whole_over_ranks(name, kind):
+    from repro_torch.distributed.tp import TPLayout
+    from repro_torch.launch.shardings import tp_leaf_rule
+
+    cfg, rec, _ = _tp_cell(name, kind, 2, (1, 4))
+    assert rec["ok"] and "tensor-parallel over model (4)" in rec["layout"]
+    lay = TPLayout(cost.RecordingMesh((1, 4), ("data", "model")), cfg)
+    want = 0
+    for path, t in leaves_with_path(specs.params_specs(cfg)):
+        rule, _ = tp_leaf_rule(path, t)
+        n = cost.nbytes(t)
+        if rule == "whole":
+            want += n
+        elif rule in ("q", "o"):          # heads padded to hp
+            want += n * lay.hp // cfg.n_heads // 4
+        elif rule == "kv":                # the K/V heads a rank reads
+            want += n * lay.kv_l // cfg.n_kv_heads
+        else:
+            want += n // 4
+    assert rec["memory"]["params_bytes"] == want
+    if name == "padded":
+        assert lay.hp == 8 and want > sum(
+            cost.nbytes(t) for t in leaves(specs.params_specs(cfg))) // 4
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("name", ["dense", "moe"])
+def test_tp_cell_joins_a_layer(name, kind):
+    _, _, one = _tp_cell(name, kind, 1, (1, 4))
+    _, _, two = _tp_cell(name, kind, 2, (1, 4))
+    added = {op: two.get(op, 0) - one.get(op, 0) for op in two}
+    assert {op: n for op, n in added.items() if n} == JOINS_A_LAYER[kind]
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("name", list(TP_ARCHS))
+def test_tp_cell_flops_are_one_rank_over_ranks(name, kind):
+    _, rec, _ = _tp_cell(name, kind, 2, (1, 4))
+    _, one, _ = _tp_cell(name, kind, 2, (1, 1))
+    assert "tensor-parallel" not in one["layout"]
+    ratio = 4 * rec["cost"]["flops"] / one["cost"]["flops"]
+    if name == "dense":
+        assert ratio == pytest.approx(1.0, rel=1e-9)
+    elif name == "moe":                   # the router runs on every rank
+        assert 1.0 < ratio < 1.03
+    else:                                 # padded heads and K/V copies
+        assert ratio > 1.0
